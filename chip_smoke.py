@@ -10,18 +10,28 @@ Phases (each raises on failure, so the script exits nonzero):
    csrc/` with nvcc for sm_90a into `build/torch_kernels/`;
 3. kernel checks: every B1 (`conv2_packed`) site and every B2
    (`bn_act_zero_pads`) site of the 192^3, out_channels_first_layer=8
-   UNet3D, at batch 1 and 8, in float32 and bfloat16, against the plain
-   PyTorch versions; CUDA-event times of kernel, plain version and (B1
-   only, as a yardstick) `F.conv3d` at the batch-8 bf16 shapes;
+   UNet3D, and every B3 (`conv_axis`) site of the fader encoder and
+   Classificator of the seg+clf ensemble, at batch 1 and 8, in float32
+   and bfloat16, against the plain PyTorch versions, plus the stride-1 B3
+   sites of one fader AE forward at batch 1; CUDA-event times of kernel,
+   plain version and (B1, B3) `F.conv3d` as a yardstick at the batch-8
+   bf16 shapes;
 4. end-to-end serving: a BN-folded random UNet3D serves 16 int16 192^3
    T1w-like volumes at batch 8 in bf16 through `segment_volumes` (device
    z-normalisation, `packed_unet_mask_v2`, bit-packed masks), then again
    with uint8 transfers; launch counters prove every conv site went
    through the kernels; masks are held against the unfolded fine UNet3D in
    float32, and float32 packed logits against the fine logits.  One batch
-   of bench.py's i.i.d. noise volumes records the uint8 agreement there;
-5. profile: torch.profiler over one served batch (device time by kernel,
-   the device's idle share), recorded, not gated.
+   of bench.py's i.i.d. noise volumes records the uint8 agreement there.
+   Then the seg+clf ensemble serves the same volumes: the packed UNet's
+   masks plus FCD probabilities of the fader encoder and Classificator
+   (the reference's kwargs, random weights calibrated to non-degenerate
+   probabilities), with exact launch counts of all three kernels; the
+   served bf16 probabilities are held against float32 probabilities of
+   the port on the CPU (plain versions), and float32 ones on the card;
+5. profile: torch.profiler over one served UNet batch and one served
+   ensemble batch (device time by kernel, the device's idle share),
+   recorded, not gated.
 
 It prints one line per check, then `{"kernels": [...]}`, the card's
 `nvidia-smi` name and power limit, and last
@@ -74,6 +84,38 @@ F32_LOGIT_TOL = 1e-4           # f32 packed vs fine logits, x max|logit|
 B1_SITES = ("e0c1", "e0c2", "e1c1", "e1c2", "bc1", "bc2", "d0c1.skip",
             "d0c1.up", "d0c2", "d1c1.skip", "d1c1.up", "d1c2")
 B2_SITES = ("e0c1", "e1c1", "bc1", "d0c1", "d1c1")
+B3_SITES = tuple(f"{blk}{ax}" for blk in ("e0", "e1", "e2", "clf.")
+                 for ax in "xyz")
+AE_B3_SITES = tuple(f"ae.d{i}{ax}" for i in range(3) for ax in "xyz")
+
+# the fader classifier of the ensemble: the reference's kwargs
+# (train_ENC_CLF.ipynb cells 17-18; bench.py FADER_*_KWARGS), whose
+# geometry needs the 192^3 crop: 192 -> 96 -> 48 -> 24 -> 12 -> 6 -> 3, a
+# 3^3 x 32 latent that the head's 3^3 conv turns into l_in = 64 features
+FADER_DOWN_BLOCK_KWARGS = dict(conv_k=6, conv_pad=2, conv_s=2, maxpool_k=2,
+                               maxpool_s=2, batch_norm=True, act="l_relu")
+FADER_AE_KWARGS = dict(c_in=1, is_skip=False, deapth=3, c_base=8,
+                       inc_size=2, reduce_size=False,
+                       down_block_kwargs=FADER_DOWN_BLOCK_KWARGS)
+FADER_UP_BLOCK_KWARGS = dict(up="upsample", scale=4, scale_mode="nearest",
+                             conv_k=5, conv_pad=2, conv_s=1, batch_norm=True,
+                             act="l_relu")
+FADER_HEAD_KWARGS = dict(c_in=32, c_out=64, conv_k=3, conv_s=1, conv_pad=0,
+                         l_in=64, l_out=32, batch_norm=True, act="relu",
+                         p_drop=0.5)
+# served bf16 probabilities vs the port's float32 ones on the CPU.  The
+# random encoder's bf16 output carries about 1-2% error relative to its
+# largest value (8 significant bits, ~20 rounded layers), and the features
+# of a random net differ between volumes by only a few times that, so that
+# the calibrated BatchNorm1d (`calibrate_fader`), which divides by their
+# spread over the volumes, turns it into about 0.1-0.2 of error in a logit
+# difference whose spread is 1; the softmax moves a probability by at most
+# 1/4 of that.  Runs of the plain versions in bf16 on the CPU at 192^3 gave
+# 0.018 to 0.052 over 4 volumes; the gate is 0.1.
+PROBS_TOL_BF16 = 0.1
+PROBS_TOL_F32 = 1e-4           # float32 kernels vs plain versions on the CPU
+PROBS_SPREAD_GATE = 0.1        # max - min of P(FCD) over the 16 volumes
+N_CPU_PROBS = 4                # volumes classified on the CPU
 
 
 def log(*args):
@@ -303,9 +345,149 @@ def b2_kernel_phase(K, P, sites, gen):
     return rows, errs
 
 
+def record_axis_sites(K, fn):
+    """Arguments of every B3 call the forward `fn()` makes: the fader
+    models reach `conv_axis` through the kernels module's
+    `conv_one_axis`."""
+    sites = []
+    one_axis = K.conv_one_axis
+
+    def rec(x, w, axis, *, stride=1, pad=0, bias=None):
+        sites.append({"x": tuple(x.shape), "w": tuple(w.shape), "axis": axis,
+                      "stride": stride, "pad": pad, "bias": bias is not None})
+        return one_axis(x, w, axis, stride=stride, pad=pad, bias=bias)
+
+    K.conv_one_axis = rec
+    try:
+        fn()
+    finally:
+        K.conv_one_axis = one_axis
+    return sites
+
+
+def b3_kernel_phase(K, names, sites, gen, batches):
+    """Each B3 site at each batch size, f32 and bf16, against its plain
+    version; timed at the last batch size in bf16."""
+    import torch
+    import torch.nn.functional as TF
+
+    rows, errs = [], {"f32": 0.0, "bf16": 0.0}
+    for name, site in zip(names, sites):
+        spatial, ci = site["x"][1:4], site["x"][4]
+        k, _, co = site["w"]
+        kw = dict(axis=site["axis"], stride=site["stride"], pad=site["pad"])
+        for batch in batches:
+            for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                x = torch.randn((batch, *spatial, ci), generator=gen,
+                                device="cuda").to(dt)
+                w = (torch.randn((k, ci, co), generator=gen, device="cuda")
+                     / np.sqrt(k * ci)).to(dt)
+                bias = (torch.randn(co, generator=gen, device="cuda")
+                        if site["bias"] else None)
+                got = K.conv_axis(x, w, bias, **kw)
+                torch.cuda.synchronize()
+                ref = K.conv_axis_plain(x, w, bias, **kw)
+                err = check(f"conv_axis {name} b{batch}", got, ref, dn)
+                errs[dn] = max(errs[dn], err)
+                if batch == batches[-1] and dn == "bf16":
+                    rows.append(b3_time_row(K, TF, name, x, w, bias, kw,
+                                            got))
+                del x, w, got, ref
+                torch.cuda.empty_cache()
+    return rows, errs
+
+
+def b3_time_row(K, TF, name, x, w, bias, kw, out):
+    import torch
+
+    k, ci, co = w.shape
+    flops = 2.0 * out.numel() * k * ci
+    nbytes = (x.numel() + w.numel() + out.numel()) * x.element_size() + (
+        0 if bias is None else 4 * co)
+    ms = time_ms(lambda: K.conv_axis(x, w, bias, **kw), 20)
+    plain_ms = time_ms(lambda: K.conv_axis_plain(x, w, bias, **kw), 3)
+    # yardstick only: torch's conv3d with the (Co, Ci, k, 1, 1)-shaped
+    # weight on the NCDHW view of the channels-last data
+    axis = kw["axis"]
+    shape, stride, pad = [co, ci, 1, 1, 1], [1, 1, 1], [0, 0, 0]
+    shape[1 + axis], stride[axis - 1], pad[axis - 1] = (k, kw["stride"],
+                                                        kw["pad"])
+    wc = w.permute(2, 1, 0).reshape(shape).contiguous(
+        memory_format=torch.channels_last_3d)
+    bc = None if bias is None else bias.to(x.dtype)
+    library_ms = time_ms(lambda: TF.conv3d(x.permute(0, 4, 1, 2, 3), wc, bc,
+                                           stride=stride, padding=pad), 20)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS_PER_S["bf16"] * 1e3
+    row = {"site": name, "x": list(x.shape), "axis": axis, "k": k,
+           "stride": kw["stride"], "pad": kw["pad"], "co": co, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "flops": flops,
+           "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "gb_per_s": nbytes / ms / 1e6, "f32_core_ms": flops
+           / PEAK_OPS_PER_S["f32"] * 1e3}
+    log(f"time conv_axis {name} b{x.shape[0]} bf16: {json.dumps(row)}")
+    return row
+
+
+def reference_init(module, gen, act):
+    """The JAX package's fader init, drawn from `gen`: the separable convs
+    take torch's xavier_uniform_ with the gain of `act` and zero biases
+    (`models/fader.py::_gain`), the Linear layers torch's default
+    (kaiming_uniform_ with a = sqrt(5), bias U(+-1/sqrt(fan_in)));
+    BatchNorms keep their defaults until `calibrate_fader`."""
+    import math
+
+    import torch
+
+    gain = math.sqrt(2.0 / (1 + 0.01 ** 2)) if act == "l_relu" \
+        else math.sqrt(2.0)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.Conv3d):
+                torch.nn.init.xavier_uniform_(m.weight, gain, generator=gen)
+                torch.nn.init.zeros_(m.bias)
+            elif isinstance(m, torch.nn.Linear):
+                torch.nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
+                                               generator=gen)
+                bound = 1 / math.sqrt(m.in_features)
+                torch.nn.init.uniform_(m.bias, -bound, bound, generator=gen)
+
+
+def calibrate_fader(enc, clf, x_few, latents_fn):
+    """Seeded random fader weights give probabilities that are all equal or
+    all saturated.  Set every BatchNorm's running statistics from data, as
+    training would: the DownBlocks' from the float32 pre-norm activations
+    of `x_few`, the head's BatchNorm1d from the features of all volumes
+    (`latents_fn()`); then scale the last Linear so that the logit
+    difference has mean 0 and spread 1 over the volumes."""
+    import torch
+
+    with torch.no_grad():
+        x = x_few
+        for blk in enc.encode:
+            y, _ = blk.pre_norm(x)
+            bn = blk.block["5_batch_norm"]
+            bn.running_mean.copy_(y.mean((0, 1, 2, 3)))
+            bn.running_var.copy_(y.var((0, 1, 2, 3)))
+            x, _ = blk(x)
+        feats = clf.features(latents_fn())
+        head = clf.head
+        bn = head["6_batch_norm"]
+        bn.running_mean.copy_(feats.mean(0))
+        bn.running_var.copy_(feats.var(0))
+        _, hidden = clf(latents_fn(), return_hidden=True)
+        lf = head["9_l_f"]
+        z = hidden @ lf.weight.t()
+        d = z[:, 1] - z[:, 0]
+        lf.weight.div_(d.std())
+        lf.bias.copy_(torch.stack([torch.zeros_like(d[0]),
+                                   -d.mean() / d.std()]))
+
+
 def profile_batch(fn, top: int = 12):
     """torch.profiler over one served batch: device time by kernel name,
-    the port's two kernels, everything else, and the device's idle share
+    the port's three kernels, everything else, and the device's idle share
     of the window (1 - device time / wall time; kernels run on one stream
     at a time here, so their times add).  A first, tiny profiled op
     absorbs the profiler's own start-up."""
@@ -335,11 +517,13 @@ def profile_batch(fn, top: int = 12):
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     ours = {k: sum(r[1] for r in rows if k in r[0])
-            for k in ("conv2_packed_kernel", "bn_act_zero_pads_kernel")}
+            for k in ("conv2_packed_kernel", "bn_act_zero_pads_kernel",
+                      "conv_axis_kernel")}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": (1 - device_ms / wall_ms) if device_ms else None,
             "conv2_packed_ms": ours["conv2_packed_kernel"],
             "bn_act_zero_pads_ms": ours["bn_act_zero_pads_kernel"],
+            "conv_axis_ms": ours["conv_axis_kernel"],
             "other_ms": device_ms - sum(ours.values()),
             "top": [{"name": k[:90], "ms": ms, "calls": n}
                     for k, ms, n in rows[:top]]}
@@ -371,6 +555,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mri_epilepsy_diagnosis_torch.infer.serving import segment_volumes
     from mri_epilepsy_diagnosis_torch.models import UNet3D
+    from mri_epilepsy_diagnosis_torch.models.fader import (
+        AE, Classificator, make_encoder)
     from mri_epilepsy_diagnosis_torch.models.unet_packed import (
         fold_bn_inference, packed_unet_apply_v2, packed_unet_mask_v2)
     from mri_epilepsy_diagnosis_torch.ops import cuda_kernels as K
@@ -396,6 +582,10 @@ def main() -> int:
                    out_channels_first_layer=OCFL, device="cuda").eval()
     state = random_state_dict(model, gen)
     params = fold_bn_inference(state)
+    enc = make_encoder(FADER_AE_KWARGS, device="cuda").eval()
+    clf = Classificator(n_class=2, device="cuda", **FADER_HEAD_KWARGS).eval()
+    reference_init(enc, gen, "l_relu")
+    reference_init(clf, gen, "relu")
 
     # ---- 3. kernel checks at the served path's own shapes
     probe = torch.randn((1, SIZE, SIZE, SIZE, 1), generator=gen,
@@ -406,9 +596,28 @@ def main() -> int:
             or len(sites["bn_act_zero_pads"]) != len(B2_SITES)):
         raise AssertionError(f"unexpected site counts: {sites}")
     with torch.inference_mode():
+        b3_sites = record_axis_sites(K, lambda: clf(enc(probe)[0]))
+        ae = AE(**FADER_AE_KWARGS, up_block_kwargs=FADER_UP_BLOCK_KWARGS,
+                device="cuda").eval()
+        reference_init(ae, gen, "l_relu")
+        recon = []
+        ae_sites = [site for site in record_axis_sites(
+            K, lambda: recon.append(ae(probe))) if site["stride"] == 1]
+        recon = recon[0]
+        if (len(b3_sites) != len(B3_SITES) or len(ae_sites) != len(AE_B3_SITES)
+                or recon.shape != probe.shape
+                or not torch.isfinite(recon).all()):
+            raise AssertionError(f"unexpected fader sites {b3_sites}, "
+                                 f"{ae_sites} or AE output {recon.shape}")
+        del ae, recon
         b1_rows, b1_errs = b1_kernel_phase(K, sites["conv2_packed"], gen)
         b2_rows, b2_errs = b2_kernel_phase(K, P, sites["bn_act_zero_pads"],
                                            gen)
+        b3_rows, b3_errs = b3_kernel_phase(K, B3_SITES, b3_sites, gen,
+                                           (1, BATCH))
+        ae_rows, ae_errs = b3_kernel_phase(K, AE_B3_SITES, ae_sites, gen,
+                                           (1,))
+    b3_errs = {dn: max(b3_errs[dn], ae_errs[dn]) for dn in b3_errs}
 
     # ---- 4. end-to-end serving
     vols = t1_like_volumes(gen, N_VOLUMES)
@@ -443,23 +652,28 @@ def main() -> int:
             raise AssertionError("serving returned wrong masks")
         return dt, np.stack([o["mask"] for o in outs])
 
-    def counted(fn):
+    def counted(fn, per_batch):
+        """Run fn with every launch count at 0 before it; the counts of
+        (B1, B2, B3) after it must be `per_batch` times the batches."""
         K.reset_launch_counts()
         out = fn()
-        counts = (K.conv2_packed.launches, K.bn_act_zero_pads.launches)
-        want = (len(B1_SITES) * n_batches, len(B2_SITES) * n_batches)
-        log(f"launches: conv2_packed {counts[0]}, bn_act_zero_pads "
-            f"{counts[1]} (expected {want[0]}, {want[1]})")
+        counts = tuple(k.launches for k in K.KERNELS)
+        want = tuple(c * n_batches for c in per_batch)
+        log("launches: " + ", ".join(
+            f"{k.__name__} {c} (expected {w})"
+            for k, c, w in zip(K.KERNELS, counts, want)))
         if counts != want:
             raise AssertionError(f"launch counts {counts} != {want}")
         return out, counts
 
+    unet_per_batch = (len(B1_SITES), len(B2_SITES), 0)
     serve(vols, transfer_dtype=np.int16)           # warm-up
     torch.cuda.reset_peak_memory_stats()
     (t_int16, masks_int16), counts = counted(
-        lambda: serve(vols, transfer_dtype=np.int16))
+        lambda: serve(vols, transfer_dtype=np.int16), unet_per_batch)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    (t_u8, masks_u8), _ = counted(lambda: serve(vols, transfer_quant="uint8"))
+    (t_u8, masks_u8), _ = counted(lambda: serve(vols, transfer_quant="uint8"),
+                                  unet_per_batch)
 
     # fine-layout f32 reference (unfolded BN) on the same volumes
     fine_masks, fine_logits = [], []
@@ -524,26 +738,105 @@ def main() -> int:
                "device": kind, "nvidia_smi": smi}
     log(f"serving: {json.dumps(serving)}")
 
+    # ---- 4b. the seg+clf ensemble: masks plus FCD probabilities
+    with torch.inference_mode():
+        calibrate_fader(enc, clf, normalized(vols[:2]), lambda: torch.cat([
+            enc(normalized(vols[i:i + BATCH]))[0]
+            for i in range(0, N_VOLUMES, BATCH)]))
+    ens_params = {"seg": params, "enc": enc, "clf": clf}
+
+    def serve_ensemble(volumes):
+        t = time.perf_counter()
+        outs = list(segment_volumes(
+            None, ens_params, volumes, batch_size=BATCH,
+            dtype=torch.bfloat16, device="cuda",
+            device_preprocess=znorm_batch, transfer_dtype=np.int16,
+            mask_fn=lambda p, x: packed_unet_mask_v2(p["seg"], x),
+            classify_fn=lambda p, x: p["clf"](p["enc"](x)[0]),
+            pack_masks=True))
+        dt = time.perf_counter() - t
+        if len(outs) != len(volumes) or outs[0]["probs"].shape != (2,):
+            raise AssertionError("ensemble serving returned wrong results")
+        return dt, (np.stack([o["mask"] for o in outs]),
+                    np.stack([o["probs"] for o in outs]))
+
+    ens_per_batch = (len(B1_SITES), len(B2_SITES), len(B3_SITES))
+    serve_ensemble(vols)                           # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (t_ens, (ens_masks, probs)), ens_counts = counted(
+        lambda: serve_ensemble(vols), ens_per_batch)
+    ens_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the port's float32 probabilities on the CPU (plain versions) and on
+    # the card (kernels) for the first volumes
+    import copy
+
+    enc_cpu = copy.deepcopy(enc).to("cpu")
+    clf_cpu = copy.deepcopy(clf).to("cpu")
+    with torch.inference_mode():
+        x = normalized(vols[:N_CPU_PROBS])
+        probs_f32 = torch.softmax(clf(enc(x)[0]).float(), -1).cpu().numpy()
+        x = x.cpu()
+        probs_cpu = torch.softmax(clf_cpu(enc_cpu(x)[0]), -1).numpy()
+    err_bf16 = float(np.abs(probs[:N_CPU_PROBS] - probs_cpu).max())
+    err_f32 = float(np.abs(probs_f32 - probs_cpu).max())
+    p_fcd = probs[:, 1]
+    ensemble = {"volumes": N_VOLUMES, "batch": BATCH, "size": SIZE,
+                "int16_s": t_ens, "int16_vol_per_s": N_VOLUMES / t_ens,
+                "int16_ms_per_batch": t_ens / n_batches * 1e3,
+                "peak_memory_gb": ens_peak_gb,
+                "masks_equal_unet_only": bool(
+                    np.array_equal(ens_masks, masks_int16)),
+                "p_fcd_min": float(p_fcd.min()),
+                "p_fcd_max": float(p_fcd.max()),
+                "p_fcd_std": float(p_fcd.std()),
+                "probs_bf16_vs_cpu_f32_max_abs_err": err_bf16,
+                "probs_f32_vs_cpu_f32_max_abs_err": err_f32,
+                "b3_bytes_per_batch": sum(r["bytes"] for r in b3_rows),
+                "b3_gflop_per_batch": sum(r["flops"] for r in b3_rows) / 1e9,
+                "device": kind, "nvidia_smi": smi}
+    log(f"ensemble: {json.dumps(ensemble)}")
+    log(f"probs: P(FCD) over the {N_VOLUMES} volumes "
+        f"{np.array2string(p_fcd, precision=4)}; bf16 served vs CPU f32 "
+        f"{err_bf16:.3e} (tol {PROBS_TOL_BF16}); f32 card vs CPU f32 "
+        f"{err_f32:.3e} (tol {PROBS_TOL_F32})")
+    if not ensemble["masks_equal_unet_only"]:
+        raise AssertionError("ensemble masks differ from the UNet-only ones")
+    if np.ptp(p_fcd) < PROBS_SPREAD_GATE or not np.isfinite(probs).all():
+        raise AssertionError(f"degenerate probabilities: {p_fcd}")
+    if err_bf16 > PROBS_TOL_BF16:
+        raise AssertionError(f"bf16 probs differ by {err_bf16}")
+    if err_f32 > PROBS_TOL_F32:
+        raise AssertionError(f"f32 probs differ by {err_f32}")
+
     # ---- 5. where the time of one served batch goes (not gated)
     profile = profile_batch(lambda: serve(vols[:BATCH],
                                           transfer_dtype=np.int16))
     log(f"profile: {json.dumps(profile)}")
+    ens_profile = profile_batch(lambda: serve_ensemble(vols[:BATCH]))
+    log(f"profile ensemble: {json.dumps(ens_profile)}")
 
     kernels = [
         kernel_entry("conv2_packed",
                      "mri_epilepsy_diagnosis_torch/csrc/conv2_packed.cu",
                      "mri_epilepsy_diagnosis_tpu/ops/pallas_kernels.py:265",
-                     b1_rows, b1_errs, counts[0], len(B1_SITES)),
+                     b1_rows, b1_errs, ens_counts[0], len(B1_SITES)),
         kernel_entry("bn_act_zero_pads",
                      "mri_epilepsy_diagnosis_torch/csrc/bn_act_zero_pads.cu",
                      "mri_epilepsy_diagnosis_tpu/ops/pallas_kernels.py:197",
-                     b2_rows, b2_errs, counts[1], len(B2_SITES)),
+                     b2_rows, b2_errs, ens_counts[1], len(B2_SITES)),
+        kernel_entry("conv_axis",
+                     "mri_epilepsy_diagnosis_torch/csrc/conv_axis.cu",
+                     "mri_epilepsy_diagnosis_tpu/ops/pallas_kernels.py:70",
+                     b3_rows, b3_errs, ens_counts[2], len(B3_SITES)),
     ]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "b1_sites": b1_rows,
-                   "b2_sites": b2_rows, "serving": serving,
-                   "profile": profile,
+                   "b2_sites": b2_rows, "b3_sites": b3_rows,
+                   "ae_b3_sites": ae_rows, "serving": serving,
+                   "ensemble": ensemble, "profile": profile,
+                   "profile_ensemble": ens_profile,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

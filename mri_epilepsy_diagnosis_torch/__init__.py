@@ -8,7 +8,8 @@ with fepegar `.pth` keys and shapes.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; on a
 machine without a GPU, an entry point called without a device raises.
-The packed UNet's convolutions and BN/PReLU/pad-mask epilogue run as the
-hand-written kernels of `ops/cuda_kernels.py` on CUDA tensors and as their
-plain PyTorch versions on CPU tensors.
+The packed UNet's convolutions and BN/PReLU/pad-mask epilogue, and the
+fader family's separable convolutions, run as the hand-written kernels of
+`ops/cuda_kernels.py` on CUDA tensors and as their plain PyTorch versions
+on CPU tensors.
 """

@@ -1,5 +1,6 @@
-// Shared helpers of the port's hand-written Hopper kernels: 4-wide vector
-// loads/stores that widen bf16 to float and narrow it back.  Every kernel
+// Shared helpers of the port's hand-written Hopper kernels: scalar and
+// 4-wide vector loads/stores that widen bf16 to float and narrow it back
+// (round to nearest even).  Every kernel
 // computes in float32 and stores in its input dtype.
 #pragma once
 
@@ -21,6 +22,18 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   float2 lo = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
   float2 hi = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ void store4(float* p, float4 v) {

@@ -5,6 +5,11 @@ launch counters and build.
 |---------------------|---------------------------|-------------------------------------------|
 | `conv2_packed`      | `csrc/conv2_packed.cu`    | `ops/pallas_kernels.py::conv2_packed_pallas` |
 | `bn_act_zero_pads`  | `csrc/bn_act_zero_pads.cu`| `ops/pallas_kernels.py::bn_act_zero_pads` |
+| `conv_axis`         | `csrc/conv_axis.cu`       | `ops/pallas_kernels.py::conv_axis_last`   |
+
+`conv_one_axis` and `separable_conv3d` keep the signatures of their JAX
+namesakes (without the Mosaic workarounds `interpret` and `max_taps`) and
+run every one-axis conv through `conv_axis`.
 
 Each wrapper takes a CPU tensor through the kernel's plain version and a
 CUDA tensor through the kernel, or raises: there is no fallback from one
@@ -34,7 +39,7 @@ import torch.nn.functional as TF
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("conv2_packed.cu", "bn_act_zero_pads.cu")
+SOURCES = ("conv2_packed.cu", "bn_act_zero_pads.cu", "conv_axis.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -117,6 +122,9 @@ def load() -> ctypes.CDLL:
     lib.mri_bn_act_zero_pads.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i,
                                          ll, i, i, i, i, vp]
     lib.mri_bn_act_zero_pads.restype = i
+    lib.mri_conv_axis.argtypes = [vp, vp, vp, vp, i, ll, i, i, ll, i, i, i,
+                                  i, i, vp]
+    lib.mri_conv_axis.restype = i
     return lib
 
 
@@ -289,7 +297,135 @@ def bn_act_zero_pads(xs: torch.Tensor, scale: torch.Tensor,
 bn_act_zero_pads.launches = 0
 
 
-KERNELS = (conv2_packed, bn_act_zero_pads)
+# ---------------------------------------------------------------------------
+# B3: zero-padded strided conv along one spatial axis
+# ---------------------------------------------------------------------------
+
+# the most float32 weights one block can hold in shared memory (227 KB)
+_AXIS_MAX_WEIGHTS = 232448 // 4
+
+
+def _axis_out_len(length: int, k: int, stride: int, pad: int) -> int:
+    return (length + 2 * pad - k) // stride + 1
+
+
+def conv_axis_plain(x: torch.Tensor, w: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None, *, axis: int,
+                    stride: int = 1, pad: int = 0) -> torch.Tensor:
+    """Plain version of `conv_axis`: the sum over the k taps of the
+    zero-padded input's strided slice along `axis` times w[t], in float32,
+    bias added, one cast to x.dtype."""
+    k = w.shape[0]
+    lo = _axis_out_len(x.shape[axis], k, stride, pad)
+    if pad:
+        spec = [0] * (2 * (x.ndim - axis))
+        spec[-2:] = (pad, pad)
+        x = TF.pad(x, spec)
+    wf = w.float()
+    out = None
+    for t in range(k):
+        idx = [slice(None)] * x.ndim
+        idx[axis] = slice(t, t + (lo - 1) * stride + 1, stride)
+        part = torch.matmul(x[tuple(idx)].float(), wf[t])
+        out = part if out is None else out.add_(part)
+    if bias is not None:
+        out.add_(bias.float())
+    return out.to(x.dtype)
+
+
+def conv_axis(x: torch.Tensor, w: torch.Tensor,
+              bias: Optional[torch.Tensor] = None, *, axis: int,
+              stride: int = 1, pad: int = 0) -> torch.Tensor:
+    """Conv along spatial `axis` (1, 2 or 3) of channels-last x
+    (N, D, H, W, Ci) with w (k, Ci, Co):
+
+        out[..., j, ..., co] = bias[co]
+            + sum_{t, ci} x[..., j * stride + t - pad, ..., ci] w[t, ci, co]
+
+    with x zero outside its extent, so the axis has length
+    (L + 2 pad - k) // stride + 1 in the output.  Computed in float32 (w and
+    bias are read as float32) and rounded once to x's dtype, float32 or
+    bfloat16."""
+    if x.ndim != 5 or w.ndim != 3:
+        raise ValueError(f"conv_axis needs x (N,D,H,W,Ci) and w (k,Ci,Co); "
+                         f"got {tuple(x.shape)}, {tuple(w.shape)}")
+    if axis not in (1, 2, 3):
+        raise ValueError(f"axis must be 1, 2 or 3, got {axis}")
+    k, ci, co = w.shape
+    if ci != x.shape[4]:
+        raise ValueError(f"w has {ci} input channels, x {x.shape[4]}")
+    if stride < 1 or pad < 0:
+        raise ValueError(f"need stride >= 1 and pad >= 0, got {stride}, "
+                         f"{pad}")
+    length = x.shape[axis]
+    lo = _axis_out_len(length, k, stride, pad)
+    if lo < 1:
+        raise ValueError(f"axis of length {length} is too short for k={k}, "
+                         f"pad={pad}")
+    if bias is not None and tuple(bias.shape) != (co,):
+        raise ValueError(f"bias must have shape ({co},)")
+    if x.device.type == "cpu":
+        return conv_axis_plain(x, w, bias, axis=axis, stride=stride, pad=pad)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_axis runs on cpu or cuda, not {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"conv_axis takes float32 or bfloat16, not {x.dtype}")
+    if k * ci * co > _AXIS_MAX_WEIGHTS:
+        raise ValueError(f"w {tuple(w.shape)} does not fit in one block's "
+                         f"shared memory")
+    _check_cuda("x", x, x.dtype, x.device)
+    wf = w.to(device=x.device, dtype=torch.float32).contiguous()
+    _check_cuda("w", wf, torch.float32, x.device)
+    bias_ptr = None
+    if bias is not None:
+        bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
+        _check_cuda("bias", bias, torch.float32, x.device)
+        bias_ptr = bias.data_ptr()
+    shape = list(x.shape)
+    shape[axis], shape[4] = lo, co
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    # x as (A, L, B, Ci): the dims before the conv axis, the axis, and the
+    # spatial dims after it
+    a = int(x.shape[:axis].numel())
+    b = int(x.shape[axis + 1:4].numel())
+    lib = load()
+    with torch.cuda.device(x.device):
+        rc = lib.mri_conv_axis(
+            x.data_ptr(), wf.data_ptr(), bias_ptr, out.data_ptr(),
+            _DTYPE_CODE[x.dtype], a, length, lo, b, ci, co, k, stride, pad,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "conv_axis")
+    conv_axis.launches += 1
+    return out
+
+
+conv_axis.launches = 0
+
+
+def conv_one_axis(x: torch.Tensor, w: torch.Tensor, axis: int, *,
+                  stride: int = 1, pad: int = 0,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-axis conv on channels-last (N, D, H, W, C) along spatial `axis`
+    (1, 2 or 3); w: (k, Ci, Co).  One `conv_axis` launch, bias fused."""
+    return conv_axis(x.contiguous(), w, bias, axis=axis, stride=stride,
+                     pad=pad)
+
+
+def separable_conv3d(x: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
+                     wz: torch.Tensor, *, stride=(1, 1, 1), pad=(0, 0, 0),
+                     biases=(None, None, None)) -> torch.Tensor:
+    """The fader conv stack: (k,1,1), then (1,k,1), then (1,1,k), each with
+    its own stride, pad and bias, as three `conv_axis` launches.
+
+    wx: (k, Ci, C), wy: (k, C, C), wz: (k, C, C): torch (O, I, k, 1, 1)-style
+    weights viewed as (k, I, O)."""
+    for axis, w in zip((1, 2, 3), (wx, wy, wz)):
+        x = conv_one_axis(x, w, axis, stride=stride[axis - 1],
+                          pad=pad[axis - 1], bias=biases[axis - 1])
+    return x
+
+
+KERNELS = (conv2_packed, bn_act_zero_pads, conv_axis)
 
 
 def reset_launch_counts():

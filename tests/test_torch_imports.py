@@ -25,7 +25,7 @@ def imported_modules(path: Path):
 def test_port_sources_found():
     names = {p.name for p in SOURCES}
     assert {"chip_smoke.py", "cuda_kernels.py", "serving.py",
-            "unet_packed.py", "jax_bridge.py"} <= names
+            "unet_packed.py", "jax_bridge.py", "fader.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -280,3 +280,107 @@ def test_classify_fn_probs():
     for i, r in enumerate(res):
         want = torch.softmax(torch.tensor([float(i), 0.0]), -1).numpy()
         np.testing.assert_allclose(r["probs"], want, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the seg+clf ensemble: packed UNet masks plus fader encoder/Classificator
+# probabilities, composed by the caller as bench.py's `bench_ensemble` does
+# ---------------------------------------------------------------------------
+
+ENS_SIZE = 48          # a 3-block UNet and a deapth=2 fader encoder (-> 3^3)
+# float32 on both sides; the probabilities differ only by summation order
+PROBS_ATOL = 1e-5
+
+
+def _ensemble_vols(rng, n):
+    g = np.indices((ENS_SIZE,) * 3)
+    vols = []
+    for _ in range(n):
+        v = rng.normal(size=(ENS_SIZE,) * 3) * 40 + 600
+        c = rng.integers(12, 36, 3)
+        v = v + 400 * np.exp(-(((g[0] - c[0]) ** 2 + (g[1] - c[1]) ** 2
+                                + (g[2] - c[2]) ** 2) / 50.0))
+        vols.append(v.astype(np.int16))
+    return vols
+
+
+@pytest.fixture(scope="module")
+def ensemble():
+    """3 volumes at batch 2 through both packages' ensemble serving, with
+    the same bridged weights: masks from the BN-folded packed UNet,
+    softmax probabilities from the fader encoder + Classificator."""
+    from mri_epilepsy_diagnosis_torch.models import fader as TFd
+    from mri_epilepsy_diagnosis_tpu.models import fader as JFd
+    from test_torch_fader import ENC_KW, HEAD_KW as head_kw, randomized
+
+    vols = _ensemble_vols(np.random.default_rng(14), 3)
+    _, seg_v = jax_unet_variables(ocfl=8, nb=3, seed=11)
+    # the random UNet labels every voxel foreground: shift the classifier
+    # bias so that 30% of the voxels are, keeping the mask gate meaningful
+    x = jax_znorm_batch(jnp.asarray(np.stack(vols))[..., None])
+    logits = np.asarray(jax.jit(JU.packed_unet_apply_v2)(
+        JU.fold_bn_inference(seg_v), x))
+    margin = logits[..., 1] - logits[..., 0]
+    shift = np.float32(np.quantile(margin, 0.7))
+    clf_conv = seg_v["params"]["classifier"]["conv_layer"]
+    clf_conv["bias"] = clf_conv["bias"] - np.asarray([0, shift], np.float32)
+    jenc = JFd.make_encoder(ENC_KW)
+    jclf = JFd.Classificator(n_class=2, **head_kw)
+    x0 = jnp.zeros((1,) + (ENS_SIZE,) * 3 + (1,))
+    enc_v = randomized(jenc.init(jax.random.key(12), x0), 12)
+    clf_v = randomized(jclf.init(jax.random.key(13),
+                                 jnp.zeros((1, 3, 3, 3, 16))), 13)
+    # and its classifier saturates: rescale the last Linear so that the
+    # three volumes' logit differences have mean 0 and spread 1
+    _, hidden = jclf.apply(clf_v, jenc.apply(enc_v, x)[0],
+                           return_hidden=True)
+    lf = clf_v["params"]["clf__9_l_f"]
+    z = np.asarray(hidden) @ lf["weight"]
+    d = z[:, 1] - z[:, 0]
+    lf["weight"] = lf["weight"] / d.std()
+    lf["bias"] = np.asarray([0, -d.mean() / d.std()], np.float32)
+    jparams = {"seg": JU.fold_bn_inference(seg_v), "enc": enc_v,
+               "clf": clf_v}
+    tenc = TFd.make_encoder(ENC_KW, device="cpu").eval()
+    tenc.load_state_dict(variables_to_state_dict(enc_v, device="cpu"))
+    tclf = TFd.Classificator(n_class=2, device="cpu", **head_kw).eval()
+    tclf.load_state_dict(variables_to_state_dict(clf_v, device="cpu"))
+    tparams = {"seg": TU.fold_bn_inference(
+        variables_to_state_dict(seg_v, device="cpu")), "enc": tenc,
+        "clf": tclf}
+    kw = dict(batch_size=2, transfer_dtype=np.int16, pack_masks=True)
+
+    ref = list(JS.segment_volumes(
+        None, jparams, vols, dtype=jnp.float32,
+        device_preprocess=jax_znorm_batch,
+        mask_fn=lambda p, x: JU.packed_unet_mask_v2(p["seg"], x),
+        classify_fn=lambda p, x: jclf.apply(p["clf"],
+                                            jenc.apply(p["enc"], x)[0]),
+        **kw))
+    got = list(TS.segment_volumes(
+        None, tparams, vols, dtype=torch.float32, device="cpu",
+        device_preprocess=torch_znorm_batch,
+        mask_fn=lambda p, x: TU.packed_unet_mask_v2(p["seg"], x),
+        classify_fn=lambda p, x: p["clf"](p["enc"](x)[0]), **kw))
+    # the bias shift moves every margin by the same amount
+    return {"ref": ref, "got": got, "margin": np.abs(margin - shift)}
+
+
+def test_ensemble_masks_match_jax(ensemble):
+    ours = np.stack([r["mask"] for r in ensemble["got"]])
+    ref = np.stack([r["mask"] for r in ensemble["ref"]])
+    assert ours.shape == ref.shape == (3,) + (ENS_SIZE,) * 3
+    # ties of the random net (|margin| < 1e-4) may round either way
+    clear = ensemble["margin"] >= 1e-4
+    np.testing.assert_array_equal(ours[clear], ref[clear])
+    assert clear.mean() > 0.9 and 0.2 < ref.mean() < 0.4
+
+
+def test_ensemble_probs_match_jax(ensemble):
+    ours = np.stack([r["probs"] for r in ensemble["got"]])
+    ref = np.stack([np.asarray(r["probs"]) for r in ensemble["ref"]])
+    assert ours.shape == ref.shape == (3, 2) and ours.dtype == np.float32
+    np.testing.assert_allclose(ours, ref, atol=PROBS_ATOL, rtol=0)
+    np.testing.assert_allclose(ours.sum(-1), 1.0, atol=1e-6)
+    # not degenerate: the three volumes get different probabilities
+    assert np.ptp(ref[:, 1]) > 0.1 and (0.01 < ref).all()
