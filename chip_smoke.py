@@ -15,13 +15,19 @@ Phases (each raises on failure, so the script exits nonzero):
    and bfloat16, against the plain PyTorch versions, plus the stride-1 B3
    sites of one fader AE forward at batch 1; CUDA-event times of kernel,
    plain version and (B1, B3) `F.conv3d` as a yardstick at the batch-8
-   bf16 shapes;
+   bf16 shapes.  B1 takes one of two kernels by dtype and shape (the
+   wrapper's `_conv2_route`): in bf16 11 sites run the tensor-core kernel
+   (`conv2_packed_tc.cu`), the stem and every f32 call the CUDA-core one
+   (`conv2_packed.cu`), which is also timed at the tensor-core sites for
+   comparison;
 4. end-to-end serving: a BN-folded random UNet3D serves 16 int16 192^3
    T1w-like volumes at batch 8 in bf16 through `segment_volumes` (device
    z-normalisation, `packed_unet_mask_v2`, bit-packed masks), then again
    with uint8 transfers; launch counters prove every conv site went
    through the kernels; masks are held against the unfolded fine UNet3D in
-   float32, and float32 packed logits against the fine logits.  One batch
+   float32, and float32 packed logits against the fine logits; the
+   tensor-core launches of B1 are counted apart (11 of its 12 per bf16
+   batch).  One batch
    of bench.py's i.i.d. noise volumes records the uint8 agreement there.
    Then the seg+clf ensemble serves the same volumes: the packed UNet's
    masks plus FCD probabilities of the fader encoder and Classificator
@@ -83,6 +89,8 @@ F32_LOGIT_TOL = 1e-4           # f32 packed vs fine logits, x max|logit|
 
 B1_SITES = ("e0c1", "e0c2", "e1c1", "e1c2", "bc1", "bc2", "d0c1.skip",
             "d0c1.up", "d0c2", "d1c1.skip", "d1c1.up", "d1c2")
+# B1 sites on the tensor-core route in bf16: all but the 8Ci = 8 stem e0c1
+B1_TC_PER_BATCH = len(B1_SITES) - 1
 B2_SITES = ("e0c1", "e1c1", "bc1", "d0c1", "d1c1")
 B3_SITES = tuple(f"{blk}{ax}" for blk in ("e0", "e1", "e2", "clf.")
                  for ax in "xyz")
@@ -242,10 +250,14 @@ def check(name, got, ref, dtype_name):
 
 
 def b1_kernel_phase(K, sites, gen):
+    """Each B1 site at batch 1 and 8, f32 and bf16, against its plain
+    version; timed at batch 8 in bf16.  Errors are kept per route (the
+    kernel the wrapper chose) and dtype."""
     import torch
     import torch.nn.functional as TF
 
-    rows, errs = [], {"f32": 0.0, "bf16": 0.0}
+    rows = []
+    errs = {r: {"f32": 0.0, "bf16": 0.0} for r in ("tc", "cuda_core")}
     for name, site in zip(B1_SITES, sites):
         _, di, hi, wi, c8i = site["x"]
         c8o, pad = site["wp"][4], site["pad"]
@@ -257,11 +269,13 @@ def b1_kernel_phase(K, sites, gen):
                       / np.sqrt(8 * c8i)).to(dt)
                 bias = (torch.randn(c8o, generator=gen, device="cuda")
                         if site["bias"] else None)
+                route = K._conv2_route(dt, c8i, c8o)
                 got = K.conv2_packed(x, wp, bias, pad=pad)
                 torch.cuda.synchronize()
                 ref = K.conv2_packed_plain(x, wp, bias, pad=pad)
-                err = check(f"conv2_packed {name} b{batch}", got, ref, dn)
-                errs[dn] = max(errs[dn], err)
+                err = check(f"conv2_packed {name} b{batch} ({route})", got,
+                            ref, dn)
+                errs[route][dn] = max(errs[route][dn], err)
                 if batch == BATCH and dn == "bf16":
                     rows.append(b1_time_row(K, TF, name, x, wp, bias, pad,
                                             got))
@@ -279,8 +293,13 @@ def b1_time_row(K, TF, name, x, wp, bias, pad, out):
     flops = 2.0 * m * (8 * c8i) * c8o
     nbytes = (x.numel() + wp.numel() + out.numel()) * x.element_size() + (
         0 if bias is None else 4 * c8o)
-    reps = 3
+    reps = 10
+    route = K._conv2_route(x.dtype, c8i, c8o)
     ms = time_ms(lambda: K.conv2_packed(x, wp, bias, pad=pad), reps)
+    # the CUDA-core kernel on the same inputs (uncounted launches): what
+    # the tensor-core route replaced at this site
+    cuda_core_ms = (time_ms(lambda: K._conv2_launch(x, wp, bias, pad, False),
+                            2) if route == "tc" else ms)
     plain_ms = time_ms(lambda: K.conv2_packed_plain(x, wp, bias, pad=pad), 1)
     # yardstick only: the same function as one cuDNN call on the packed
     # tensor (NCDHW view of the channels-last data)
@@ -292,11 +311,15 @@ def b1_time_row(K, TF, name, x, wp, bias, pad, out):
                                            padding=pad), reps)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS_PER_S["bf16"] * 1e3
+    bound_ms = max(t_bytes, t_ops)
     row = {"site": name, "x": list(x.shape), "c8o": c8o, "pad": pad,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "flops": flops, "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+           "route": route, "ms": ms, "cuda_core_ms": cuda_core_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "tflops": flops / ms / 1e9}
+           "bound_share": bound_ms / ms, "tflops": flops / ms / 1e9,
+           "tile_waste": (K.conv2_tc_plan(*out.shape[:4], c8o, pad).waste
+                          if route == "tc" else None)}
     log(f"time conv2_packed {name} b{n} bf16: {json.dumps(row)}")
     return row
 
@@ -517,10 +540,11 @@ def profile_batch(fn, top: int = 12):
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     ours = {k: sum(r[1] for r in rows if k in r[0])
-            for k in ("conv2_packed_kernel", "bn_act_zero_pads_kernel",
-                      "conv_axis_kernel")}
+            for k in ("conv2_packed_tc_kernel", "conv2_packed_kernel",
+                      "bn_act_zero_pads_kernel", "conv_axis_kernel")}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": (1 - device_ms / wall_ms) if device_ms else None,
+            "conv2_packed_tc_ms": ours["conv2_packed_tc_kernel"],
             "conv2_packed_ms": ours["conv2_packed_kernel"],
             "bn_act_zero_pads_ms": ours["bn_act_zero_pads_kernel"],
             "conv_axis_ms": ours["conv_axis_kernel"],
@@ -529,7 +553,8 @@ def profile_batch(fn, top: int = 12):
                     for k, ms, n in rows[:top]]}
 
 
-def kernel_entry(name, source, replaces, rows, errs, launches, per_batch):
+def kernel_entry(name, source, replaces, rows, errs, launches, per_batch,
+                 **extra):
     t_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
     t_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
     lib = [r["library_ms"] for r in rows]
@@ -543,7 +568,7 @@ def kernel_entry(name, source, replaces, rows, errs, launches, per_batch):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None if None in lib else sum(lib),
             "shapes": f"sum over the {len(rows)} sites of one batch-{BATCH} "
-                      f"bf16 served batch at {SIZE}^3"}
+                      f"bf16 served batch at {SIZE}^3", **extra}
 
 
 def main() -> int:
@@ -575,7 +600,8 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     K.load()
-    log(f"build: kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    build_s = time.perf_counter() - t0
+    log(f"build: kernels built and loaded in {build_s:.2f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
@@ -654,17 +680,22 @@ def main() -> int:
 
     def counted(fn, per_batch):
         """Run fn with every launch count at 0 before it; the counts of
-        (B1, B2, B3) after it must be `per_batch` times the batches."""
+        (B1, B2, B3) after it must be `per_batch` times the batches, and
+        B1's tensor-core launches B1_TC_PER_BATCH times the batches."""
         K.reset_launch_counts()
         out = fn()
         counts = tuple(k.launches for k in K.KERNELS)
+        tc = K.conv2_packed.tc_launches
         want = tuple(c * n_batches for c in per_batch)
+        want_tc = B1_TC_PER_BATCH * n_batches
         log("launches: " + ", ".join(
             f"{k.__name__} {c} (expected {w})"
-            for k, c, w in zip(K.KERNELS, counts, want)))
-        if counts != want:
-            raise AssertionError(f"launch counts {counts} != {want}")
-        return out, counts
+            for k, c, w in zip(K.KERNELS, counts, want))
+            + f"; conv2_packed on tensor cores {tc} (expected {want_tc})")
+        if counts != want or tc != want_tc:
+            raise AssertionError(f"launch counts {counts}, {tc} tensor-core "
+                                 f"!= {want}, {want_tc}")
+        return out, counts + (tc,)
 
     unet_per_batch = (len(B1_SITES), len(B2_SITES), 0)
     serve(vols, transfer_dtype=np.int16)           # warm-up
@@ -816,11 +847,27 @@ def main() -> int:
     ens_profile = profile_batch(lambda: serve_ensemble(vols[:BATCH]))
     log(f"profile ensemble: {json.dumps(ens_profile)}")
 
+    # B1's two kernels, split by route: launches from the timed ensemble
+    # run, times summed over the sites each serves in bf16
+    tc_rows = [r for r in b1_rows if r["route"] == "tc"]
+    cc_rows = [r for r in b1_rows if r["route"] == "cuda_core"]
+    b1_split = {"tc_launches": ens_counts[3],
+                "cuda_core_launches": ens_counts[0] - ens_counts[3],
+                "ms_total": sum(r["ms"] for r in b1_rows),
+                "cuda_core_kernel_ms_at_tc_sites": sum(
+                    r["cuda_core_ms"] for r in tc_rows)}
     kernels = [
+        kernel_entry("conv2_packed_tc",
+                     "mri_epilepsy_diagnosis_torch/csrc/conv2_packed_tc.cu",
+                     "mri_epilepsy_diagnosis_tpu/ops/pallas_kernels.py:265",
+                     tc_rows, {"f32": None, "bf16": b1_errs["tc"]["bf16"]},
+                     ens_counts[3], B1_TC_PER_BATCH, b1_routes=b1_split),
         kernel_entry("conv2_packed",
                      "mri_epilepsy_diagnosis_torch/csrc/conv2_packed.cu",
                      "mri_epilepsy_diagnosis_tpu/ops/pallas_kernels.py:265",
-                     b1_rows, b1_errs, ens_counts[0], len(B1_SITES)),
+                     cc_rows, b1_errs["cuda_core"],
+                     ens_counts[0] - ens_counts[3],
+                     len(B1_SITES) - B1_TC_PER_BATCH, b1_routes=b1_split),
         kernel_entry("bn_act_zero_pads",
                      "mri_epilepsy_diagnosis_torch/csrc/bn_act_zero_pads.cu",
                      "mri_epilepsy_diagnosis_tpu/ops/pallas_kernels.py:197",
@@ -836,7 +883,7 @@ def main() -> int:
                    "b2_sites": b2_rows, "b3_sites": b3_rows,
                    "ae_b3_sites": ae_rows, "serving": serving,
                    "ensemble": ensemble, "profile": profile,
-                   "profile_ensemble": ens_profile,
+                   "profile_ensemble": ens_profile, "build_s": build_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

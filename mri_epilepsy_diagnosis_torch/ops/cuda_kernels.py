@@ -3,7 +3,7 @@ launch counters and build.
 
 | kernel              | source                    | replaces (JAX package)                    |
 |---------------------|---------------------------|-------------------------------------------|
-| `conv2_packed`      | `csrc/conv2_packed.cu`    | `ops/pallas_kernels.py::conv2_packed_pallas` |
+| `conv2_packed`      | `csrc/conv2_packed_tc.cu` (bf16, 8Ci and 8Co multiples of 64: wgmma + TMA), `csrc/conv2_packed.cu` (the rest: CUDA cores) | `ops/pallas_kernels.py::conv2_packed_pallas` |
 | `bn_act_zero_pads`  | `csrc/bn_act_zero_pads.cu`| `ops/pallas_kernels.py::bn_act_zero_pads` |
 | `conv_axis`         | `csrc/conv_axis.cu`       | `ops/pallas_kernels.py::conv_axis_last`   |
 
@@ -14,7 +14,8 @@ run every one-axis conv through `conv_axis`.
 Each wrapper takes a CPU tensor through the kernel's plain version and a
 CUDA tensor through the kernel, or raises: there is no fallback from one
 to the other.  `<wrapper>.launches` counts kernel launches, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels; `conv2_packed.tc_launches`
+counts those of its calls that took the tensor-core route.
 
 The kernels are CUDA C++ for `sm_90a` with a plain C interface, compiled
 by `nvcc` at first use (one process per source, all started together) and
@@ -32,14 +33,15 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as TF
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("conv2_packed.cu", "bn_act_zero_pads.cu", "conv_axis.cu")
+SOURCES = ("conv2_packed.cu", "conv2_packed_tc.cu", "bn_act_zero_pads.cu",
+           "conv_axis.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -119,6 +121,8 @@ def load() -> ctypes.CDLL:
     lib.mri_conv2_packed.argtypes = [vp, vp, vp, vp, i, ll, i, i, i, i, i, i,
                                      i, i, i, vp]
     lib.mri_conv2_packed.restype = i
+    lib.mri_conv2_packed_tc.argtypes = [vp, vp, vp, vp, ll] + [i] * 16 + [vp]
+    lib.mri_conv2_packed_tc.restype = i
     lib.mri_bn_act_zero_pads.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i,
                                          ll, i, i, i, i, vp]
     lib.mri_bn_act_zero_pads.restype = i
@@ -140,7 +144,17 @@ def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+# refusals of conv2_packed_tc.cu's host code (negative return codes)
+_HOST_ERRORS = {-1: "cuTensorMapEncodeTiled is not available",
+                -2: "a TMA tensor map was refused",
+                -3: "the kernel was not compiled to 168 registers per "
+                    "thread, which its setmaxnreg split needs",
+                -4: "the tile plan or shape is not served"}
+
+
 def _raise_on(rc: int, what: str):
+    if rc < 0:
+        raise RuntimeError(f"{what} launch refused: {_HOST_ERRORS[rc]}")
     if rc != 0:
         raise RuntimeError(f"{what} launch failed with CUDA error {rc}")
 
@@ -172,6 +186,75 @@ def conv2_packed_plain(x: torch.Tensor, wp: torch.Tensor,
     return out.to(x.dtype)
 
 
+# the tensor-core kernel's tile: 128 output cells (two 64-row wgmma
+# halves) by BN output channels, K steps of 64 input channels of one tap
+_TC_ROWS = 128
+_TC_K = 64
+_TAPS = tuple((qd, qh, qw) for qd in range(2) for qh in range(2)
+              for qw in range(2))
+
+
+def _conv2_route(dtype: torch.dtype, c8i: int, c8o: int) -> str:
+    """The kernel that serves a `conv2_packed` call on the card: "tc"
+    (`conv2_packed_tc.cu`: wgmma fed by TMA) for bfloat16 with 8Ci and 8Co
+    multiples of 64, "cuda_core" (`conv2_packed.cu`) for everything else:
+    float32, which is held to float32 references that TF32 would miss, and
+    the 8Ci = 8 stem."""
+    if dtype == torch.bfloat16 and c8i % _TC_K == 0 and c8o % 64 == 0:
+        return "tc"
+    return "cuda_core"
+
+
+class TcPlan(NamedTuple):
+    """Tile plan of one tensor-core `conv2_packed` launch."""
+    box: Tuple[int, int, int]     # (bw, bh, bd) output cells per tile
+    tiles: Tuple[int, int, int]   # boxes along (W, H, D)
+    bn: int                       # output channels per tile
+    grid: int                     # tiles: N x boxes x 8Co / bn
+    waste: float                  # share of the tiles' 128 rows not stored
+    tap_offsets: Tuple[Tuple[int, int, int], ...]  # (dz, dy, dx) per tap
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_box(do: int, ho: int, wo: int) -> Tuple[int, int, int]:
+    """The box of at most 128 output cells that covers (do, ho, wo) with
+    the fewest boxes, then the widest along W (longest contiguous runs)."""
+    best = None
+    for bd in range(1, min(do, _TC_ROWS) + 1):
+        for bh in range(1, min(ho, _TC_ROWS // bd) + 1):
+            bw = min(wo, _TC_ROWS // (bd * bh))
+            n = -(-wo // bw) * -(-ho // bh) * -(-do // bd)
+            key = (n, -bw, -bh)
+            if best is None or key < best[0]:
+                best = (key, (bw, bh, bd))
+    return best[1]
+
+
+def conv2_tc_plan(n: int, do: int, ho: int, wo: int, c8o: int,
+                  pad: int) -> TcPlan:
+    """Box, tile counts, N tile and per-tap input offsets of the
+    tensor-core kernel for an (n, do, ho, wo, c8o) output.  Tile (b, tz,
+    ty, tx) covers output cells [tz*bd, +bd) x [ty*bh, +bh) x [tx*bw, +bw)
+    of item b; its tap (qd, qh, qw) reads the input box shifted by
+    (qd - pad, qh - pad, qw - pad), zero outside the input."""
+    bw, bh, bd = _tc_box(do, ho, wo)
+    tiles = (-(-wo // bw), -(-ho // bh), -(-do // bd))
+    bn = 256 if c8o % 256 == 0 else 128 if c8o % 128 == 0 else 64
+    boxes = tiles[0] * tiles[1] * tiles[2]
+    return TcPlan(box=(bw, bh, bd), tiles=tiles, bn=bn,
+                  grid=n * boxes * (c8o // bn),
+                  waste=1.0 - do * ho * wo / (boxes * _TC_ROWS),
+                  tap_offsets=tuple((qd - pad, qh - pad, qw - pad)
+                                    for qd, qh, qw in _TAPS))
+
+
+def kmajor_weights(wp: torch.Tensor) -> torch.Tensor:
+    """(2, 2, 2, 8Ci, 8Co) packed weights -> (8 taps, 8Co, 8Ci), the
+    K-major B operand of the tensor-core kernel (tap = 4 qd + 2 qh + qw)."""
+    c8i, c8o = wp.shape[3:]
+    return wp.permute(0, 1, 2, 4, 3).reshape(8, c8o, c8i).contiguous()
+
+
 def conv2_packed(x: torch.Tensor, wp: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, *,
                  pad: int = 0) -> torch.Tensor:
@@ -182,7 +265,8 @@ def conv2_packed(x: torch.Tensor, wp: torch.Tensor,
     x's dtype; bias: (8Co,) or None, added in float32 before the one
     rounding to x's dtype.  pad=0: shifted -> aligned, output
     (N, Di-1, Hi-1, Wi-1, 8Co); pad=1: aligned -> shifted, output
-    (N, Di+1, Hi+1, Wi+1, 8Co)."""
+    (N, Di+1, Hi+1, Wi+1, 8Co).  On the card `_conv2_route` picks the
+    tensor-core or the CUDA-core kernel; either failing raises."""
     if x.ndim != 5 or wp.ndim != 5 or tuple(wp.shape[:3]) != (2, 2, 2):
         raise ValueError(f"conv2_packed needs x (N,D,H,W,C8i) and wp "
                          f"(2,2,2,C8i,C8o); got {tuple(x.shape)}, "
@@ -207,26 +291,53 @@ def conv2_packed(x: torch.Tensor, wp: torch.Tensor,
                          f"got {c8i}, {c8o}")
     _check_cuda("x", x, x.dtype, x.device)
     _check_cuda("wp", wp, x.dtype, x.device)
+    tc = _conv2_route(x.dtype, c8i, c8o) == "tc"
+    out = _conv2_launch(x, wp, bias, pad, tc)
+    if out.numel():
+        conv2_packed.launches += 1
+        conv2_packed.tc_launches += tc
+    return out
+
+
+def _conv2_launch(x: torch.Tensor, wp: torch.Tensor,
+                  bias: Optional[torch.Tensor], pad: int,
+                  tc: bool) -> torch.Tensor:
+    """One launch of B1's tensor-core kernel (`tc`) or CUDA-core kernel on
+    checked CUDA tensors; raises if it fails.  Counts nothing: the
+    wrapper counts its own launches."""
+    n, di, hi, wi, c8i = x.shape
+    c8o = wp.shape[4]
     step = 1 if pad else -1
     do, ho, wo = di + step, hi + step, wi + step
     out = torch.empty((n, do, ho, wo, c8o), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
     bias_ptr = None
     if bias is not None:
         bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
         _check_cuda("bias", bias, torch.float32, x.device)
         bias_ptr = bias.data_ptr()
     lib = load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = lib.mri_conv2_packed(
-            x.data_ptr(), wp.data_ptr(), bias_ptr, out.data_ptr(),
-            _DTYPE_CODE[x.dtype], n, di, hi, wi, do, ho, wo, c8i, c8o, pad,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(rc, "conv2_packed")
-    conv2_packed.launches += 1
+        if tc:
+            plan = conv2_tc_plan(n, do, ho, wo, c8o, pad)
+            wk = kmajor_weights(wp)
+            rc = lib.mri_conv2_packed_tc(
+                x.data_ptr(), wk.data_ptr(), bias_ptr, out.data_ptr(), n, di,
+                hi, wi, do, ho, wo, c8i, c8o, pad, *plan.box, *plan.tiles,
+                plan.bn, stream)
+        else:
+            rc = lib.mri_conv2_packed(
+                x.data_ptr(), wp.data_ptr(), bias_ptr, out.data_ptr(),
+                _DTYPE_CODE[x.dtype], n, di, hi, wi, do, ho, wo, c8i, c8o,
+                pad, stream)
+    _raise_on(rc, "conv2_packed_tc" if tc else "conv2_packed")
     return out
 
 
 conv2_packed.launches = 0
+conv2_packed.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -431,3 +542,4 @@ KERNELS = (conv2_packed, bn_act_zero_pads, conv_axis)
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+    conv2_packed.tc_launches = 0

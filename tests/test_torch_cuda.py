@@ -40,6 +40,54 @@ def test_conv2_packed_kernel_matches_plain(cuda_device, pad, c8i, c8o, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c8o", [64, 128, 256, 512])
+@pytest.mark.parametrize("c8i", [64, 128, 512])
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("shape", [(2, 7, 6, 9), (1, 2, 5, 17),
+                                   (1, 13, 2, 2)])
+def test_conv2_packed_tc_matches_plain(cuda_device, shape, pad, c8i, c8o):
+    """The tensor-core route (bf16, 8Ci and 8Co multiples of 64) at
+    extents that no box divides; at pad 0 the last two shapes give
+    single-cell output axes."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(*shape, c8i, generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    wp = (torch.randn(2, 2, 2, c8i, c8o, generator=g, device=cuda_device)
+          / (8 * c8i) ** 0.5).to(torch.bfloat16)
+    bias = torch.randn(c8o, generator=g, device=cuda_device)
+    before = (K.conv2_packed.launches, K.conv2_packed.tc_launches)
+    got = K.conv2_packed(x, wp, bias, pad=pad)
+    torch.cuda.synchronize()
+    assert (K.conv2_packed.launches, K.conv2_packed.tc_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = K.conv2_packed_plain(x, wp, bias, pad=pad)
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c8i", [(torch.float32, 64),
+                                       (torch.float32, 512),
+                                       (torch.bfloat16, 8)])
+def test_conv2_packed_cuda_core_route(cuda_device, dtype, c8i):
+    """float32 and the 8Ci = 8 stem stay on the CUDA-core kernel."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(1, 5, 4, 6, c8i, generator=g, device=cuda_device).to(dtype)
+    wp = (torch.randn(2, 2, 2, c8i, 128, generator=g, device=cuda_device)
+          / (8 * c8i) ** 0.5).to(dtype)
+    before = (K.conv2_packed.launches, K.conv2_packed.tc_launches)
+    got = K.conv2_packed(x, wp, pad=1)
+    torch.cuda.synchronize()
+    assert (K.conv2_packed.launches, K.conv2_packed.tc_launches) == (
+        before[0] + 1, before[1])
+    ref = K.conv2_packed_plain(x, wp, pad=1)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bn_act_zero_pads_kernel_matches_plain(cuda_device, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(0)
