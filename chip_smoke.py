@@ -8,38 +8,50 @@ Phases (each raises on failure, so the script exits nonzero):
 1. environment: the card's name and power limit; TF32 off for f32 checks;
 2. build: compiles the CUDA kernels from `mri_epilepsy_diagnosis_torch/
    csrc/` with nvcc for sm_90a into `build/torch_kernels/`;
-3. kernel checks: every B1 (`conv2_packed`) site and every B2
-   (`bn_act_zero_pads`) site of the 192^3, out_channels_first_layer=8
-   UNet3D, and every B3 (`conv_axis`) site of the fader encoder and
-   Classificator of the seg+clf ensemble, at batch 1 and 8, in float32
-   and bfloat16, against the plain PyTorch versions, plus the stride-1 B3
-   sites of one fader AE forward at batch 1; CUDA-event times of kernel,
-   plain version and (B1, B3) `F.conv3d` as a yardstick at the batch-8
-   bf16 shapes.  B1 takes one of two kernels by dtype and shape (the
-   wrapper's `_conv2_route`): in bf16 11 sites run the tensor-core kernel
-   (`conv2_packed_tc.cu`), the stem and every f32 call the CUDA-core one
-   (`conv2_packed.cu`), which is also timed at the tensor-core sites for
-   comparison;
+3. kernel checks, at batch 1 and 8, in float32 and bfloat16, against
+   the plain PyTorch versions, with CUDA-event times of kernel, plain
+   version and a yardstick at the batch-8 bf16 shapes:
+   - every B1 (`conv2_packed`) site of the 192^3, out_channels_first_
+     layer=8 UNet3D (`F.conv3d` as the yardstick).  B1 takes one of two
+     kernels by dtype and shape (the wrapper's `_conv2_route`): in bf16
+     11 sites run the tensor-core kernel (`conv2_packed_tc.cu`), the stem
+     and every f32 call the CUDA-core one (`conv2_packed.cu`), which is
+     also timed at the tensor-core sites for comparison;
+   - the five aligned->shifted sites, where B2 runs as the epilogue of
+     the B1 launch (`conv2_packed_as_bn_act`; at the two decoder sites
+     with the skip half's partial sum as addend), each timed beside the
+     same launch without the epilogue and the B1 + `y +=` + B2 sequence
+     it replaces; and B2 standalone (`bn_act_zero_pads`) at those shapes;
+   - the four separable stacks of the fader encoder and Classificator of
+     the seg+clf ensemble through the fused B3 kernel
+     (`separable_conv3d`), timed beside the three per-axis `conv_axis`
+     launches it replaces, and every one-axis conv of those stacks
+     through `conv_axis` (`F.conv3d` as its yardstick); the stride-1
+     stacks of one fader AE forward likewise at batch 1;
 4. end-to-end serving: a BN-folded random UNet3D serves 16 int16 192^3
    T1w-like volumes at batch 8 in bf16 through `segment_volumes` (device
    z-normalisation, `packed_unet_mask_v2`, bit-packed masks), then again
    with uint8 transfers; launch counters prove every conv site went
-   through the kernels; masks are held against the unfolded fine UNet3D in
-   float32, and float32 packed logits against the fine logits; the
-   tensor-core launches of B1 are counted apart (11 of its 12 per bf16
-   batch).  One batch
+   through the kernels (per bf16 batch: B1 12, 11 of them on tensor
+   cores, 5 with B2 fused; standalone B2 0); masks are held against the
+   unfolded fine UNet3D in float32, and float32 packed logits against the
+   fine logits.  One batch
    of bench.py's i.i.d. noise volumes records the uint8 agreement there.
    Then the seg+clf ensemble serves the same volumes: the packed UNet's
    masks plus FCD probabilities of the fader encoder and Classificator
    (the reference's kwargs, random weights calibrated to non-degenerate
-   probabilities), with exact launch counts of all three kernels; the
+   probabilities), with exact launch counts (as above, plus 4 fused
+   separable launches and 0 per-axis `conv_axis` ones per batch); the
    served bf16 probabilities are held against float32 probabilities of
    the port on the CPU (plain versions), and float32 ones on the card;
 5. profile: torch.profiler over one served UNet batch and one served
    ensemble batch (device time by kernel, the device's idle share),
    recorded, not gated.
 
-It prints one line per check, then `{"kernels": [...]}`, the card's
+It prints one line per check, then `{"kernels": [...]}` (the kernels of
+the served path: B1 on tensor cores, B2 fused into B1 on either route,
+fused B3; the standalone B2 and per-axis B3 kernels, off that path, go
+to the JSON file with their numbers), the card's
 `nvidia-smi` name and power limit, and last
 `{"ok": true, "device": {...}}`.  Per-site numbers also go to
 `chiprun_out/chip_smoke.json`.  Exits nonzero without printing a result
@@ -73,6 +85,9 @@ SEED = 0
 # * 2^-24 relative); bf16 outputs may differ by one bf16 rounding step
 # (2^-7 relative) where the two float32 sums straddle a rounding boundary
 TOL = {"f32": 1e-5, "bf16": 2.0 ** -7}
+# the fused separable stack rounds each stage to bf16: a one-step
+# difference in an intermediate passes through the later stages
+SEP_TOL = {"f32": 1e-5, "bf16": 2.0 ** -6}
 # served masks: FG_SHARE of the voxels foreground by construction (the
 # classifier bias is set from the first volume), gated to FG_GATE so that a
 # degenerate all-one-class mask cannot pass the agreement gates vacuously.
@@ -91,10 +106,21 @@ B1_SITES = ("e0c1", "e0c2", "e1c1", "e1c2", "bc1", "bc2", "d0c1.skip",
             "d0c1.up", "d0c2", "d1c1.skip", "d1c1.up", "d1c2")
 # B1 sites on the tensor-core route in bf16: all but the 8Ci = 8 stem e0c1
 B1_TC_PER_BATCH = len(B1_SITES) - 1
-B2_SITES = ("e0c1", "e1c1", "bc1", "d0c1", "d1c1")
+# the aligned->shifted sites, where B2 is fused into the B1 launch
+B2_SITES = ("e0c1", "e1c1", "bc1", "d0c1.up", "d1c1.up")
+B3_STACKS = ("e0", "e1", "e2", "clf")
 B3_SITES = tuple(f"{blk}{ax}" for blk in ("e0", "e1", "e2", "clf.")
                  for ax in "xyz")
+AE_B3_STACKS = ("ae.d0", "ae.d1", "ae.d2")
 AE_B3_SITES = tuple(f"ae.d{i}{ax}" for i in range(3) for ax in "xyz")
+# launches per served bf16 batch, by counter
+UNET_PER_BATCH = {"conv2_packed": len(B1_SITES),
+                  "conv2_packed_tc": B1_TC_PER_BATCH,
+                  "conv2_packed_as_bn_act": len(B2_SITES),
+                  "conv2_packed_as_bn_act_tc": len(B2_SITES) - 1,
+                  "bn_act_zero_pads": 0, "conv_axis": 0,
+                  "separable_conv3d": 0}
+ENSEMBLE_PER_BATCH = {**UNET_PER_BATCH, "separable_conv3d": len(B3_STACKS)}
 
 # the fader classifier of the ensemble: the reference's kwargs
 # (train_ENC_CLF.ipynb cells 17-18; bench.py FADER_*_KWARGS), whose
@@ -211,17 +237,26 @@ def t1_like_volumes(gen, n):
 
 
 def record_sites(K, P, fn):
-    """Shapes of every kernel call the served forward `fn()` makes."""
+    """Every B1 launch the served forward `fn()` makes, in call order, with
+    its shapes and whether B2 runs as its epilogue (and with an addend);
+    and the standalone B2 calls (none on the served path)."""
     import types
 
     sites = {"conv2_packed": [], "bn_act_zero_pads": []}
-    conv, epi = K.conv2_packed, K.bn_act_zero_pads
+    conv, fused, epi = (K.conv2_packed, K.conv2_packed_as_bn_act,
+                        K.bn_act_zero_pads)
 
     def rec_conv(x, wp, bias=None, *, pad=0):
         sites["conv2_packed"].append(
             {"x": tuple(x.shape), "wp": tuple(wp.shape), "pad": pad,
-             "bias": bias is not None})
+             "bias": bias is not None, "fused": False, "addend": False})
         return conv(x, wp, bias, pad=pad)
+
+    def rec_fused(x, wp, scale, shift, alpha, *, addend=None):
+        sites["conv2_packed"].append(
+            {"x": tuple(x.shape), "wp": tuple(wp.shape), "pad": 1,
+             "bias": False, "fused": True, "addend": addend is not None})
+        return fused(x, wp, scale, shift, alpha, addend=addend)
 
     def rec_epi(xs, scale, shift, alpha, masks):
         sites["bn_act_zero_pads"].append({"x": tuple(xs.shape)})
@@ -229,6 +264,7 @@ def record_sites(K, P, fn):
 
     # the packed ops reach the kernels through their module's `K`
     P.K = types.SimpleNamespace(conv2_packed=rec_conv,
+                                conv2_packed_as_bn_act=rec_fused,
                                 bn_act_zero_pads=rec_epi)
     try:
         fn()
@@ -237,15 +273,19 @@ def record_sites(K, P, fn):
     return sites
 
 
-def check(name, got, ref, dtype_name):
+def check(name, got, ref, dtype_name, tols=TOL):
+    tol = tols[dtype_name]
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} != "
+                             f"plain {ref.dtype} {tuple(ref.shape)}")
     err = (got.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
-    ok = err <= TOL[dtype_name] * max(scale, 1e-30)
+    ok = err <= tol * max(scale, 1e-30)
     log(f"check {name} {dtype_name}: max_abs_err {err:.3e} "
-        f"(max|ref| {scale:.3e}, tol {TOL[dtype_name]:.1e} x max|ref|)")
+        f"(max|ref| {scale:.3e}, tol {tol:.1e} x max|ref|)")
     if not ok:
         raise AssertionError(f"{name} {dtype_name} disagrees with its plain "
-                             f"version: {err} > {TOL[dtype_name]} x {scale}")
+                             f"version: {err} > {tol} x {scale}")
     return err
 
 
@@ -368,24 +408,235 @@ def b2_kernel_phase(K, P, sites, gen):
     return rows, errs
 
 
-def record_axis_sites(K, fn):
+def fused_kernel_phase(K, P, sites, gen):
+    """B2 fused into B1 at each aligned->shifted site, batch 1 and 8, f32
+    and bf16, against its plain version; timed at batch 8 in bf16.
+    Errors are kept per route."""
+    import torch
+
+    rows = []
+    errs = {r: {"f32": 0.0, "bf16": 0.0} for r in ("tc", "cuda_core")}
+    fused = [(name, site) for name, site in zip(B1_SITES, sites)
+             if site["fused"]]
+    if [name for name, _ in fused] != list(B2_SITES):
+        raise AssertionError(f"fused sites {fused} != {B2_SITES}")
+    for name, site in fused:
+        _, di, hi, wi, c8i = site["x"]
+        c8o = site["wp"][4]
+        for batch in (1, BATCH):
+            for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                x = torch.randn((batch, di, hi, wi, c8i), generator=gen,
+                                device="cuda").to(dt)
+                wp = (torch.randn(site["wp"], generator=gen, device="cuda")
+                      / np.sqrt(8 * c8i)).to(dt)
+                scale = 0.5 + torch.rand(c8o, generator=gen, device="cuda")
+                shift = torch.randn(c8o, generator=gen, device="cuda")
+                alpha = torch.rand(c8o, generator=gen, device="cuda")
+                add = (torch.randn((batch, di + 1, hi + 1, wi + 1, c8o),
+                                   generator=gen, device="cuda").to(dt)
+                       if site["addend"] else None)
+                route = K._conv2_route(dt, c8i, c8o)
+                got = K.conv2_packed_as_bn_act(x, wp, scale, shift, alpha,
+                                               addend=add)
+                torch.cuda.synchronize()
+                ref = K.conv2_packed_as_bn_act_plain(x, wp, scale, shift,
+                                                     alpha, add)
+                err = check(f"conv2_packed_as_bn_act {name} b{batch} "
+                            f"({route})", got, ref, dn)
+                errs[route][dn] = max(errs[route][dn], err)
+                if batch == BATCH and dn == "bf16":
+                    rows.append(fused_time_row(K, P, name, x, wp, scale,
+                                               shift, alpha, add, got))
+                del x, wp, add, got, ref
+                torch.cuda.empty_cache()
+    return rows, errs
+
+
+def fused_time_row(K, P, name, x, wp, scale, shift, alpha, add, out):
+    """Times of the fused launch, of the same launch storing its f32 sums
+    without the epilogue, and of what it replaces: that launch, the
+    decoder's `y += partial`, and B2 standalone."""
+    n, di, hi, wi, c8i = x.shape
+    c8o = wp.shape[4]
+    m = out.shape[0] * out.shape[1] * out.shape[2] * out.shape[3]
+    flops = 2.0 * m * (8 * c8i) * c8o
+    nbytes = (x.numel() + wp.numel() + out.numel()
+              + (0 if add is None else add.numel())) * x.element_size() \
+        + 3 * 4 * c8o
+    route = K._conv2_route(x.dtype, c8i, c8o)
+    tc = route == "tc"
+    masks = P.shifted_pad_mask_tensors(out)
+    ms = time_ms(lambda: K.conv2_packed_as_bn_act(
+        x, wp, scale, shift, alpha, addend=add), 10)
+    unfused_ms = time_ms(lambda: K._conv2_launch(x, wp, None, 1, tc), 10)
+
+    def replaced():
+        y = K._conv2_launch(x, wp, None, 1, tc)
+        if add is not None:
+            y += add
+        K.bn_act_zero_pads(y, scale, shift, alpha, masks)
+
+    replaced_ms = time_ms(replaced, 10)
+    plain_ms = time_ms(lambda: K.conv2_packed_as_bn_act_plain(
+        x, wp, scale, shift, alpha, add), 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS_PER_S["bf16"] * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    row = {"site": name, "x": list(x.shape), "c8o": c8o,
+           "addend": add is not None, "route": route, "ms": ms,
+           "unfused_ms": unfused_ms, "epilogue_ms": ms - unfused_ms,
+           "replaced_ms": replaced_ms, "plain_ms": plain_ms,
+           "library_ms": None, "flops": flops, "bytes": nbytes,
+           "bound_ms": bound_ms,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_share": bound_ms / ms, "tflops": flops / ms / 1e9}
+    log(f"time conv2_packed_as_bn_act {name} b{n} bf16: {json.dumps(row)}")
+    return row
+
+
+def record_stack_sites(K, Fd, fn):
     """Arguments of every B3 call the forward `fn()` makes: the fader
-    models reach `conv_axis` through the kernels module's
-    `conv_one_axis`."""
+    models (module `Fd`) call the kernels module's `separable_conv3d` once
+    per stack."""
+    import types
+
     sites = []
-    one_axis = K.conv_one_axis
+    stack = K.separable_conv3d
 
-    def rec(x, w, axis, *, stride=1, pad=0, bias=None):
-        sites.append({"x": tuple(x.shape), "w": tuple(w.shape), "axis": axis,
-                      "stride": stride, "pad": pad, "bias": bias is not None})
-        return one_axis(x, w, axis, stride=stride, pad=pad, bias=bias)
+    def rec(x, wx, wy, wz, *, stride=(1, 1, 1), pad=(0, 0, 0),
+            biases=(None, None, None)):
+        sites.append({"x": tuple(x.shape),
+                      "w": [tuple(w.shape) for w in (wx, wy, wz)],
+                      "stride": tuple(stride), "pad": tuple(pad),
+                      "bias": [b is not None for b in biases]})
+        return stack(x, wx, wy, wz, stride=stride, pad=pad, biases=biases)
 
-    K.conv_one_axis = rec
+    # the fader reaches the kernels through its module's `K`
+    Fd.K = types.SimpleNamespace(separable_conv3d=rec)
     try:
         fn()
     finally:
-        K.conv_one_axis = one_axis
+        Fd.K = K
     return sites
+
+
+def axis_sites(stacks):
+    """The one-axis convs of the stacks, with the shapes each receives."""
+    sites = []
+    for st in stacks:
+        shape = list(st["x"])
+        for a in range(3):
+            k, _, co = st["w"][a]
+            s, p = st["stride"][a], st["pad"][a]
+            sites.append({"x": tuple(shape), "w": st["w"][a], "axis": a + 1,
+                          "stride": s, "pad": p, "bias": st["bias"][a]})
+            shape[1 + a] = (shape[1 + a] + 2 * p - k) // s + 1
+            shape[4] = co
+    return sites
+
+
+def sep_kernel_phase(K, names, stacks, gen, batches):
+    """Each separable stack through the fused kernel at each batch size,
+    f32 and bf16, against its plain version; timed at the last batch size
+    in bf16."""
+    import torch
+
+    rows, errs = [], {"f32": 0.0, "bf16": 0.0}
+    for name, st in zip(names, stacks):
+        spatial, ci = st["x"][1:4], st["x"][4]
+        ks = [w[0] for w in st["w"]]
+        chans = (ci, *(w[2] for w in st["w"]))
+        for batch in batches:
+            for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                x = torch.randn((batch, *spatial, ci), generator=gen,
+                                device="cuda").to(dt)
+                ws = [(torch.randn(w, generator=gen, device="cuda")
+                       / np.sqrt(w[0] * w[1])).to(dt) for w in st["w"]]
+                bs = tuple(torch.randn(w[2], generator=gen, device="cuda")
+                           if b else None for w, b in zip(st["w"],
+                                                          st["bias"]))
+                kw = dict(stride=st["stride"], pad=st["pad"], biases=bs)
+                plan = K.separable_plan(batch, spatial, chans, ks,
+                                        st["stride"], st["pad"], dt)
+                route = K._separable_route(dt, plan)
+                if route != "fused":
+                    raise AssertionError(f"{name} takes route {route}")
+                got = K.separable_conv3d(x, *ws, **kw)
+                torch.cuda.synchronize()
+                ref = K.separable_conv3d_plain(x, *ws, **kw)
+                err = check(f"separable_conv3d {name} b{batch} (tile "
+                            f"{plan.tile}, tensor cores {plan.mma})", got,
+                            ref, dn, SEP_TOL)
+                errs[dn] = max(errs[dn], err)
+                if batch == batches[-1] and dn == "bf16":
+                    rows.append(sep_time_row(K, name, x, ws, kw, plan, got))
+                del x, ws, got, ref
+                torch.cuda.empty_cache()
+    return rows, errs
+
+
+def sep_time_row(K, name, x, ws, kw, plan, out):
+    """Times of the fused stack, of the three per-axis `conv_axis`
+    launches it replaces, and of three cuDNN one-axis convs (yardstick
+    only: no single torch call computes the stack with its three
+    roundings)."""
+    import torch
+    import torch.nn.functional as TF
+
+    bs = kw["biases"]
+    # each stage's output elements x k x Cin x 2, at the peak of its unit
+    shape, flops, t_ops = list(x.shape), [], 0.0
+    for a, w in enumerate(ws):
+        k, ci, co = w.shape
+        shape[1 + a] = (shape[1 + a] + 2 * kw["pad"][a] - k) \
+            // kw["stride"][a] + 1
+        shape[4] = co
+        flops.append(2.0 * float(np.prod(shape)) * k * ci)
+        t_ops += flops[-1] / PEAK_OPS_PER_S[
+            "bf16" if plan.mma[a] else "f32"] * 1e3
+    nbytes = (x.numel() + out.numel()) * x.element_size() + sum(
+        4 * w.numel() for w in ws) + sum(4 * b.numel() for b in bs
+                                          if b is not None)
+
+    def per_axis():
+        v = x
+        for a in range(3):
+            v = K.conv_axis(v, ws[a], bs[a], axis=a + 1,
+                            stride=kw["stride"][a], pad=kw["pad"][a])
+
+    wcs, conv_kw = [], []
+    for a, w in enumerate(ws):
+        k, ci, co = w.shape
+        wshape, stride, pad = [co, ci, 1, 1, 1], [1, 1, 1], [0, 0, 0]
+        wshape[2 + a], stride[a], pad[a] = k, kw["stride"][a], kw["pad"][a]
+        wcs.append(w.permute(2, 1, 0).reshape(wshape).contiguous(
+            memory_format=torch.channels_last_3d))
+        conv_kw.append(dict(stride=stride, padding=pad))
+
+    def cudnn3():
+        v = x.permute(0, 4, 1, 2, 3)
+        for a in range(3):
+            v = TF.conv3d(v, wcs[a], None if bs[a] is None
+                          else bs[a].to(x.dtype), **conv_kw[a])
+
+    ms = time_ms(lambda: K.separable_conv3d(x, *ws, **kw), 20)
+    per_axis_ms = time_ms(per_axis, 20)
+    cudnn3_ms = time_ms(cudnn3, 20)
+    plain_ms = time_ms(lambda: K.separable_conv3d_plain(x, *ws, **kw), 3)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"site": name, "x": list(x.shape), "w": [list(w.shape) for w in ws],
+           "stride": list(kw["stride"]), "pad": list(kw["pad"]),
+           "tile": list(plan.tile), "halo": list(plan.halo),
+           "tensor_core_stages": list(plan.mma), "smem": plan.smem,
+           "blocks": plan.grid, "ms": ms, "per_axis_ms": per_axis_ms,
+           "plain_ms": plain_ms, "library_ms": None,
+           "cudnn_3calls_ms": cudnn3_ms, "flops": sum(flops),
+           "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "gb_per_s": nbytes / ms / 1e6}
+    log(f"time separable_conv3d {name} b{x.shape[0]} bf16: "
+        f"{json.dumps(row)}")
+    return row
 
 
 def b3_kernel_phase(K, names, sites, gen, batches):
@@ -510,7 +761,8 @@ def calibrate_fader(enc, clf, x_few, latents_fn):
 
 def profile_batch(fn, top: int = 12):
     """torch.profiler over one served batch: device time by kernel name,
-    the port's three kernels, everything else, and the device's idle share
+    the port's kernels (B1 on tensor cores split into its plain-store and
+    B2-epilogue instantiations), everything else, and the device's idle share
     of the window (1 - device time / wall time; kernels run on one stream
     at a time here, so their times add).  A first, tiny profiled op
     absorbs the profiler's own start-up."""
@@ -541,14 +793,28 @@ def profile_batch(fn, top: int = 12):
     device_ms = sum(r[1] for r in rows)
     ours = {k: sum(r[1] for r in rows if k in r[0])
             for k in ("conv2_packed_tc_kernel", "conv2_packed_kernel",
-                      "bn_act_zero_pads_kernel", "conv_axis_kernel")}
+                      "bn_act_zero_pads_kernel", "conv_axis_kernel",
+                      "separable_conv3d_kernel")}
+    # the epilogue instantiations carry `true>` in their template arguments
+    fused_tc = sum(r[1] for r in rows if "conv2_packed_tc_kernel" in r[0]
+                   and "true>" in r[0])
+    fused_cc = sum(r[1] for r in rows if "conv2_packed_kernel" in r[0]
+                   and "true>" in r[0])
+    # copies (host <-> device) run on the copy engines; their time also
+    # depends on the host's memory (pageable destinations)
+    copy_ms = sum(r[1] for r in rows if r[0].startswith("Memcpy")
+                  or r[0].startswith("Memset"))
     return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "kernel_ms": device_ms - copy_ms, "copy_ms": copy_ms,
             "idle_share": (1 - device_ms / wall_ms) if device_ms else None,
             "conv2_packed_tc_ms": ours["conv2_packed_tc_kernel"],
+            "conv2_packed_tc_bn_act_ms": fused_tc,
             "conv2_packed_ms": ours["conv2_packed_kernel"],
+            "conv2_packed_bn_act_ms": fused_cc,
             "bn_act_zero_pads_ms": ours["bn_act_zero_pads_kernel"],
             "conv_axis_ms": ours["conv_axis_kernel"],
-            "other_ms": device_ms - sum(ours.values()),
+            "separable_conv3d_ms": ours["separable_conv3d_kernel"],
+            "other_kernels_ms": device_ms - copy_ms - sum(ours.values()),
             "top": [{"name": k[:90], "ms": ms, "calls": n}
                     for k, ms, n in rows[:top]]}
 
@@ -580,6 +846,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mri_epilepsy_diagnosis_torch.infer.serving import segment_volumes
     from mri_epilepsy_diagnosis_torch.models import UNet3D
+    from mri_epilepsy_diagnosis_torch.models import fader as Fd
     from mri_epilepsy_diagnosis_torch.models.fader import (
         AE, Classificator, make_encoder)
     from mri_epilepsy_diagnosis_torch.models.unet_packed import (
@@ -618,32 +885,42 @@ def main() -> int:
                         device="cuda").to(torch.bfloat16)
     with torch.inference_mode():
         sites = record_sites(K, P, lambda: packed_unet_mask_v2(params, probe))
-    if (len(sites["conv2_packed"]) != len(B1_SITES)
-            or len(sites["bn_act_zero_pads"]) != len(B2_SITES)):
+    b1_sites = sites["conv2_packed"]
+    if (len(b1_sites) != len(B1_SITES) or sites["bn_act_zero_pads"]
+            or sum(s["fused"] for s in b1_sites) != len(B2_SITES)):
         raise AssertionError(f"unexpected site counts: {sites}")
+    # B2 standalone at the fused sites' output shapes
+    b2_sites = [{"x": (1, *(e + 1 for e in s["x"][1:4]), s["wp"][4])}
+                for s in b1_sites if s["fused"]]
     with torch.inference_mode():
-        b3_sites = record_axis_sites(K, lambda: clf(enc(probe)[0]))
+        b3_stacks = record_stack_sites(K, Fd, lambda: clf(enc(probe)[0]))
         ae = AE(**FADER_AE_KWARGS, up_block_kwargs=FADER_UP_BLOCK_KWARGS,
                 device="cuda").eval()
         reference_init(ae, gen, "l_relu")
         recon = []
-        ae_sites = [site for site in record_axis_sites(
-            K, lambda: recon.append(ae(probe))) if site["stride"] == 1]
+        ae_stacks = [st for st in record_stack_sites(
+            K, Fd, lambda: recon.append(ae(probe))) if st["stride"] == (1, 1, 1)]
         recon = recon[0]
-        if (len(b3_sites) != len(B3_SITES) or len(ae_sites) != len(AE_B3_SITES)
+        if (len(b3_stacks) != len(B3_STACKS)
+                or len(ae_stacks) != len(AE_B3_STACKS)
                 or recon.shape != probe.shape
                 or not torch.isfinite(recon).all()):
-            raise AssertionError(f"unexpected fader sites {b3_sites}, "
-                                 f"{ae_sites} or AE output {recon.shape}")
+            raise AssertionError(f"unexpected fader stacks {b3_stacks}, "
+                                 f"{ae_stacks} or AE output {recon.shape}")
         del ae, recon
-        b1_rows, b1_errs = b1_kernel_phase(K, sites["conv2_packed"], gen)
-        b2_rows, b2_errs = b2_kernel_phase(K, P, sites["bn_act_zero_pads"],
-                                           gen)
-        b3_rows, b3_errs = b3_kernel_phase(K, B3_SITES, b3_sites, gen,
-                                           (1, BATCH))
-        ae_rows, ae_errs = b3_kernel_phase(K, AE_B3_SITES, ae_sites, gen,
-                                           (1,))
+        b1_rows, b1_errs = b1_kernel_phase(K, b1_sites, gen)
+        fused_rows, fused_errs = fused_kernel_phase(K, P, b1_sites, gen)
+        b2_rows, b2_errs = b2_kernel_phase(K, P, b2_sites, gen)
+        sep_rows, sep_errs = sep_kernel_phase(K, B3_STACKS, b3_stacks, gen,
+                                              (1, BATCH))
+        ae_sep_rows, ae_sep_errs = sep_kernel_phase(K, AE_B3_STACKS,
+                                                    ae_stacks, gen, (1,))
+        b3_rows, b3_errs = b3_kernel_phase(K, B3_SITES, axis_sites(b3_stacks),
+                                           gen, (1, BATCH))
+        ae_rows, ae_errs = b3_kernel_phase(K, AE_B3_SITES,
+                                           axis_sites(ae_stacks), gen, (1,))
     b3_errs = {dn: max(b3_errs[dn], ae_errs[dn]) for dn in b3_errs}
+    sep_errs = {dn: max(sep_errs[dn], ae_sep_errs[dn]) for dn in sep_errs}
 
     # ---- 4. end-to-end serving
     vols = t1_like_volumes(gen, N_VOLUMES)
@@ -678,26 +955,30 @@ def main() -> int:
             raise AssertionError("serving returned wrong masks")
         return dt, np.stack([o["mask"] for o in outs])
 
+    def launch_counts():
+        return {"conv2_packed": K.conv2_packed.launches,
+                "conv2_packed_tc": K.conv2_packed.tc_launches,
+                "conv2_packed_as_bn_act": K.conv2_packed_as_bn_act.launches,
+                "conv2_packed_as_bn_act_tc":
+                    K.conv2_packed_as_bn_act.tc_launches,
+                "bn_act_zero_pads": K.bn_act_zero_pads.launches,
+                "conv_axis": K.conv_axis.launches,
+                "separable_conv3d": K.separable_conv3d.launches}
+
     def counted(fn, per_batch):
-        """Run fn with every launch count at 0 before it; the counts of
-        (B1, B2, B3) after it must be `per_batch` times the batches, and
-        B1's tensor-core launches B1_TC_PER_BATCH times the batches."""
+        """Run fn with every launch count at 0 before it; each count after
+        it must be `per_batch` times the batches."""
         K.reset_launch_counts()
         out = fn()
-        counts = tuple(k.launches for k in K.KERNELS)
-        tc = K.conv2_packed.tc_launches
-        want = tuple(c * n_batches for c in per_batch)
-        want_tc = B1_TC_PER_BATCH * n_batches
-        log("launches: " + ", ".join(
-            f"{k.__name__} {c} (expected {w})"
-            for k, c, w in zip(K.KERNELS, counts, want))
-            + f"; conv2_packed on tensor cores {tc} (expected {want_tc})")
-        if counts != want or tc != want_tc:
-            raise AssertionError(f"launch counts {counts}, {tc} tensor-core "
-                                 f"!= {want}, {want_tc}")
-        return out, counts + (tc,)
+        counts = launch_counts()
+        want = {k: c * n_batches for k, c in per_batch.items()}
+        log("launches: " + ", ".join(f"{k} {counts[k]} (expected {w})"
+                                     for k, w in want.items()))
+        if counts != want:
+            raise AssertionError(f"launch counts {counts} != {want}")
+        return out, counts
 
-    unet_per_batch = (len(B1_SITES), len(B2_SITES), 0)
+    unet_per_batch = UNET_PER_BATCH
     serve(vols, transfer_dtype=np.int16)           # warm-up
     torch.cuda.reset_peak_memory_stats()
     (t_int16, masks_int16), counts = counted(
@@ -791,7 +1072,7 @@ def main() -> int:
         return dt, (np.stack([o["mask"] for o in outs]),
                     np.stack([o["probs"] for o in outs]))
 
-    ens_per_batch = (len(B1_SITES), len(B2_SITES), len(B3_SITES))
+    ens_per_batch = ENSEMBLE_PER_BATCH
     serve_ensemble(vols)                           # warm-up
     torch.cuda.reset_peak_memory_stats()
     (t_ens, (ens_masks, probs)), ens_counts = counted(
@@ -823,8 +1104,10 @@ def main() -> int:
                 "p_fcd_std": float(p_fcd.std()),
                 "probs_bf16_vs_cpu_f32_max_abs_err": err_bf16,
                 "probs_f32_vs_cpu_f32_max_abs_err": err_f32,
-                "b3_bytes_per_batch": sum(r["bytes"] for r in b3_rows),
-                "b3_gflop_per_batch": sum(r["flops"] for r in b3_rows) / 1e9,
+                "b3_bytes_per_batch": sum(r["bytes"] for r in sep_rows),
+                "b3_per_axis_bytes_per_batch": sum(r["bytes"]
+                                                   for r in b3_rows),
+                "b3_gflop_per_batch": sum(r["flops"] for r in sep_rows) / 1e9,
                 "device": kind, "nvidia_smi": smi}
     log(f"ensemble: {json.dumps(ensemble)}")
     log(f"probs: P(FCD) over the {N_VOLUMES} volumes "
@@ -847,40 +1130,73 @@ def main() -> int:
     ens_profile = profile_batch(lambda: serve_ensemble(vols[:BATCH]))
     log(f"profile ensemble: {json.dumps(ens_profile)}")
 
-    # B1's two kernels, split by route: launches from the timed ensemble
-    # run, times summed over the sites each serves in bf16
-    tc_rows = [r for r in b1_rows if r["route"] == "tc"]
-    cc_rows = [r for r in b1_rows if r["route"] == "cuda_core"]
-    b1_split = {"tc_launches": ens_counts[3],
-                "cuda_core_launches": ens_counts[0] - ens_counts[3],
-                "ms_total": sum(r["ms"] for r in b1_rows),
-                "cuda_core_kernel_ms_at_tc_sites": sum(
-                    r["cuda_core_ms"] for r in tc_rows)}
+    # the kernels of the served path, one entry per kernel instantiation:
+    # launches from the timed ensemble run, times summed over the sites
+    # each serves in bf16.  B1 and its B2-epilogue launches are counted
+    # apart (the wrappers' counters), so the entries do not overlap.
+    c = ens_counts
+    fused_sites = set(B2_SITES)
+    tc_rows = [r for r in b1_rows
+               if r["route"] == "tc" and r["site"] not in fused_sites]
+    f_tc = [r for r in fused_rows if r["route"] == "tc"]
+    f_cc = [r for r in fused_rows if r["route"] == "cuda_core"]
+    src = "mri_epilepsy_diagnosis_torch/csrc/"
+    tpu = "mri_epilepsy_diagnosis_tpu/ops/pallas_kernels.py:"
+    b2_split = {
+        "b2_fused_sites": list(B2_SITES),
+        "fused_ms": sum(r["ms"] for r in fused_rows),
+        "same_launches_without_epilogue_ms": sum(r["unfused_ms"]
+                                                 for r in fused_rows),
+        "replaced_b1_add_b2_ms": sum(r["replaced_ms"] for r in fused_rows),
+        "b2_standalone_ms": sum(r["ms"] for r in b2_rows)}
     kernels = [
-        kernel_entry("conv2_packed_tc",
-                     "mri_epilepsy_diagnosis_torch/csrc/conv2_packed_tc.cu",
-                     "mri_epilepsy_diagnosis_tpu/ops/pallas_kernels.py:265",
-                     tc_rows, {"f32": None, "bf16": b1_errs["tc"]["bf16"]},
-                     ens_counts[3], B1_TC_PER_BATCH, b1_routes=b1_split),
-        kernel_entry("conv2_packed",
-                     "mri_epilepsy_diagnosis_torch/csrc/conv2_packed.cu",
-                     "mri_epilepsy_diagnosis_tpu/ops/pallas_kernels.py:265",
+        kernel_entry("conv2_packed_tc", src + "conv2_packed_tc.cu",
+                     tpu + "265", tc_rows,
+                     {"f32": None, "bf16": b1_errs["tc"]["bf16"]},
+                     c["conv2_packed_tc"] - c["conv2_packed_as_bn_act_tc"],
+                     B1_TC_PER_BATCH - len(f_tc)),
+        kernel_entry("conv2_packed_tc_bn_act", src + "conv2_packed_tc.cu",
+                     tpu + "197", f_tc,
+                     {"f32": None, "bf16": fused_errs["tc"]["bf16"]},
+                     c["conv2_packed_as_bn_act_tc"], len(f_tc),
+                     fuses=tpu + "265 (B1) + " + tpu + "197 (B2)",
+                     b2=b2_split),
+        kernel_entry("conv2_packed_bn_act", src + "conv2_packed.cu",
+                     tpu + "197", f_cc, fused_errs["cuda_core"],
+                     c["conv2_packed_as_bn_act"]
+                     - c["conv2_packed_as_bn_act_tc"], len(f_cc),
+                     fuses=tpu + "265 (B1) + " + tpu + "197 (B2)",
+                     b2=b2_split),
+        kernel_entry("separable_conv3d", src + "separable_conv3d.cu",
+                     tpu + "70", sep_rows, sep_errs,
+                     c["separable_conv3d"], len(B3_STACKS),
+                     fuses="three " + tpu + "70 calls of " + tpu
+                     + "148 separable_conv3d",
+                     per_axis_ms=sum(r["per_axis_ms"] for r in sep_rows),
+                     cudnn_3calls_ms=sum(r["cudnn_3calls_ms"]
+                                         for r in sep_rows)),
+    ]
+    # the counterparts of the JAX functions that the served path no longer
+    # launches (0 launches there), with their phase-3 numbers
+    cc_rows = [r for r in b1_rows if r["route"] == "cuda_core"]
+    off_path = [
+        kernel_entry("conv2_packed", src + "conv2_packed.cu", tpu + "265",
                      cc_rows, b1_errs["cuda_core"],
-                     ens_counts[0] - ens_counts[3],
-                     len(B1_SITES) - B1_TC_PER_BATCH, b1_routes=b1_split),
-        kernel_entry("bn_act_zero_pads",
-                     "mri_epilepsy_diagnosis_torch/csrc/bn_act_zero_pads.cu",
-                     "mri_epilepsy_diagnosis_tpu/ops/pallas_kernels.py:197",
-                     b2_rows, b2_errs, ens_counts[1], len(B2_SITES)),
-        kernel_entry("conv_axis",
-                     "mri_epilepsy_diagnosis_torch/csrc/conv_axis.cu",
-                     "mri_epilepsy_diagnosis_tpu/ops/pallas_kernels.py:70",
-                     b3_rows, b3_errs, ens_counts[2], len(B3_SITES)),
+                     c["conv2_packed"] - c["conv2_packed_tc"]
+                     - (c["conv2_packed_as_bn_act"]
+                        - c["conv2_packed_as_bn_act_tc"]), 0),
+        kernel_entry("bn_act_zero_pads", src + "bn_act_zero_pads.cu",
+                     tpu + "197", b2_rows, b2_errs, c["bn_act_zero_pads"],
+                     0),
+        kernel_entry("conv_axis", src + "conv_axis.cu", tpu + "70", b3_rows,
+                     b3_errs, c["conv_axis"], 0),
     ]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"kernels": kernels, "b1_sites": b1_rows,
-                   "b2_sites": b2_rows, "b3_sites": b3_rows,
+        json.dump({"kernels": kernels, "off_path_kernels": off_path,
+                   "b1_sites": b1_rows, "b2_fused_sites": fused_rows,
+                   "b2_sites": b2_rows, "b3_fused_stacks": sep_rows,
+                   "ae_b3_fused_stacks": ae_sep_rows, "b3_sites": b3_rows,
                    "ae_b3_sites": ae_rows, "serving": serving,
                    "ensemble": ensemble, "profile": profile,
                    "profile_ensemble": ens_profile, "build_s": build_s,

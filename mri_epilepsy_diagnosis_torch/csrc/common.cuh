@@ -24,6 +24,19 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
+// the same 4-wide loads through the non-coherent (read-only) path, for
+// data that no thread writes during the launch
+__device__ __forceinline__ float4 load4_nc(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 load4_nc(const __nv_bfloat16* p) {
+  uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  float2 lo = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
+  float2 hi = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 __device__ __forceinline__ float load1(const float* p) { return *p; }
 
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) {

@@ -29,6 +29,12 @@
 // taps each was a Mosaic workaround and is not reproduced: all 8 taps
 // accumulate in one pass, in float32, with one rounding at the store.
 //
+// The EPI instantiation runs B2 (`bn_act_zero_pads`, pallas_kernels.py:
+// 197) on the f32 sums of an aligned->shifted launch before the store, as
+// conv2_packed_tc.cu does: an optional addend in the output's dtype, then
+// x * scale + shift, PReLU and the shifted pad mask from index arithmetic.
+// It serves the 8Ci = 8 stem in bf16 and every float32 call.
+//
 // Offsets are 64-bit: a batch-8 96^3 x 512 bf16 tensor passes 2^31
 // elements.  Requires 8Ci % 8 == 0 and 8Co % 4 == 0, contiguous tensors
 // and 16-byte-aligned base pointers (checked by the Python wrapper).
@@ -41,12 +47,35 @@ constexpr int kBK = 8;
 constexpr int kTM = 8;
 constexpr int kThreads = 256;
 
-template <typename T, int BN>
+// B2's parameters for the EPI instantiation: packed (8Co,) f32 vectors
+// and an optional addend shaped like the output, in its dtype
+template <typename T>
+struct Epi {
+  const float* scale;
+  const float* shift;
+  const float* alpha;
+  const T* addend;
+};
+
+// the packed subs (bit s = sub s) that are pad voxels at output cell
+// (od, oh, ow) of a (Do, Ho, Wo) shifted tensor: on the last cell of an
+// axis the subs with that axis's bit set (D: bit 2, subs 4-7; H: bit 1;
+// W: bit 0), on the first cell (if it is not also the last) the others.
+// 0 for every interior cell.
+__device__ __forceinline__ unsigned shifted_drop(int od, int oh, int ow,
+                                                 int Do, int Ho, int Wo) {
+  const unsigned d = od == Do - 1 ? 0xF0u : od == 0 ? 0x0Fu : 0u;
+  const unsigned h = oh == Ho - 1 ? 0xCCu : oh == 0 ? 0x33u : 0u;
+  const unsigned w = ow == Wo - 1 ? 0xAAu : ow == 0 ? 0x55u : 0u;
+  return d | h | w;
+}
+
+template <typename T, int BN, bool EPI>
 __global__ void __launch_bounds__(kThreads)
 conv2_packed_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const float* __restrict__ bias, T* __restrict__ out,
                     long long M, int Di, int Hi, int Wi, int Do, int Ho,
-                    int Wo, int C8i, int C8o, int pad) {
+                    int Wo, int C8i, int C8o, int pad, const Epi<T> epi) {
   constexpr int TN = BN / 16;
   constexpr int kBVec = kBK * BN / 4;  // 4-wide vectors in one w slice
   __shared__ __align__(16) float As[kBK][kBM];
@@ -137,6 +166,59 @@ conv2_packed_kernel(const T* __restrict__ x, const T* __restrict__ w,
     __syncthreads();
   }
 
+  if constexpr (EPI) {
+    // B2 on the f32 sums.  This thread's channel parameters and packed
+    // subs are loaded once; its rows' cells are decoded once and then
+    // stepped (rows are consecutive cells); the read-only addend comes
+    // through the non-coherent path.
+    float esc[TN], esh[TN], eal[TN];
+    int esub[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int co = min(n0 + tx * TN + j, C8o - 1);
+      esc[j] = __ldg(epi.scale + co);
+      esh[j] = __ldg(epi.shift + co);
+      eal[j] = __ldg(epi.alpha + co);
+      esub[j] = co / (C8o >> 3);
+    }
+    long long t = m0 + ty * kTM;
+    int ow = (int)(t % Wo);
+    t /= Wo;
+    int oh = (int)(t % Ho);
+    int od = (int)((t / Ho) % Do);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const long long m = m0 + ty * kTM + i;
+      if (m < M) {
+        const unsigned drop = shifted_drop(od, oh, ow, Do, Ho, Wo);
+#pragma unroll
+        for (int j = 0; j < TN; j += 4) {
+          const int co = n0 + tx * TN + j;
+          if (co >= C8o) continue;
+          const float4 a = epi.addend != nullptr
+                               ? load4_nc(epi.addend + m * C8o + co)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float av[4] = {a.x, a.y, a.z, a.w};
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float y = (acc[i][j + e] + av[e]) * esc[j + e] + esh[j + e];
+            y = y >= 0.f ? y : y * eal[j + e];
+            v[e] = (drop >> esub[j + e]) & 1u ? 0.f : y;
+          }
+          store4(out + m * C8o + co, make_float4(v[0], v[1], v[2], v[3]));
+        }
+      }
+      if (++ow == Wo) {
+        ow = 0;
+        if (++oh == Ho) {
+          oh = 0;
+          if (++od == Do) od = 0;
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const long long m = m0 + ty * kTM + i;
@@ -156,41 +238,62 @@ conv2_packed_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+template <typename T, int BN>
+static void launch_bn(const void* x, const void* w, const void* bias,
+                      void* out, long long M, int di, int hi, int wi,
+                      int do_, int ho, int wo, int c8i, int c8o, int pad,
+                      const Epi<T>& epi, cudaStream_t stream) {
+  dim3 grid((unsigned)((M + kBM - 1) / kBM), (c8o + BN - 1) / BN);
+  if (epi.scale != nullptr)
+    conv2_packed_kernel<T, BN, true><<<grid, kThreads, 0, stream>>>(
+        (const T*)x, (const T*)w, (const float*)bias, (T*)out, M, di, hi,
+        wi, do_, ho, wo, c8i, c8o, pad, epi);
+  else
+    conv2_packed_kernel<T, BN, false><<<grid, kThreads, 0, stream>>>(
+        (const T*)x, (const T*)w, (const float*)bias, (T*)out, M, di, hi,
+        wi, do_, ho, wo, c8i, c8o, pad, epi);
+}
+
 template <typename T>
 static void launch(const void* x, const void* w, const void* bias, void* out,
                    long long M, int di, int hi, int wi, int do_, int ho,
-                   int wo, int c8i, int c8o, int pad, cudaStream_t stream) {
-  const unsigned gx = (unsigned)((M + kBM - 1) / kBM);
-  if (c8o % 128 == 0) {
-    dim3 grid(gx, c8o / 128);
-    conv2_packed_kernel<T, 128><<<grid, kThreads, 0, stream>>>(
-        (const T*)x, (const T*)w, (const float*)bias, (T*)out, M, di, hi,
-        wi, do_, ho, wo, c8i, c8o, pad);
-  } else {
-    dim3 grid(gx, (c8o + 63) / 64);
-    conv2_packed_kernel<T, 64><<<grid, kThreads, 0, stream>>>(
-        (const T*)x, (const T*)w, (const float*)bias, (T*)out, M, di, hi,
-        wi, do_, ho, wo, c8i, c8o, pad);
-  }
+                   int wo, int c8i, int c8o, int pad, const void* scale,
+                   const void* shift, const void* alpha, const void* addend,
+                   cudaStream_t stream) {
+  const Epi<T> epi{(const float*)scale, (const float*)shift,
+                   (const float*)alpha, (const T*)addend};
+  if (c8o % 128 == 0)
+    launch_bn<T, 128>(x, w, bias, out, M, di, hi, wi, do_, ho, wo, c8i, c8o,
+                      pad, epi, stream);
+  else
+    launch_bn<T, 64>(x, w, bias, out, M, di, hi, wi, do_, ho, wo, c8i, c8o,
+                     pad, epi, stream);
 }
 
 }  // namespace mri
 
+// With scale non-null the launch runs the B2 epilogue (pad must be 1 and
+// bias null): scale, shift, alpha (8Co,) f32; addend null or like out.
 // Launches on `stream`; returns cudaGetLastError() after the launch.
 extern "C" int mri_conv2_packed(const void* x, const void* w,
                                 const void* bias, void* out, int dtype,
                                 long long n, int di, int hi, int wi, int do_,
                                 int ho, int wo, int c8i, int c8o, int pad,
+                                const void* scale, const void* shift,
+                                const void* alpha, const void* addend,
                                 void* stream) {
   const long long M = n * do_ * ho * wo;
   if (M == 0) return (int)cudaSuccess;
+  if (scale != nullptr && (pad != 1 || bias != nullptr || shift == nullptr ||
+                           alpha == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == mri::kFloat32)
     mri::launch<float>(x, w, bias, out, M, di, hi, wi, do_, ho, wo, c8i,
-                       c8o, pad, s);
+                       c8o, pad, scale, shift, alpha, addend, s);
   else if (dtype == mri::kBFloat16)
     mri::launch<__nv_bfloat16>(x, w, bias, out, M, di, hi, wi, do_, ho, wo,
-                               c8i, c8o, pad, s);
+                               c8i, c8o, pad, scale, shift, alpha, addend, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

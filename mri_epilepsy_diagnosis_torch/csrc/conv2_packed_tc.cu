@@ -38,7 +38,17 @@
 //   setmaxnreg moves registers from the producer warpgroup (40) to the
 //   consumers (232).
 // - Epilogue: f32 bias, one rounding to bf16, guarded st.global of the
-//   cells that lie inside the output.
+//   cells that lie inside the output.  The EPI instantiation instead
+//   applies B2 (`bn_act_zero_pads`, pallas_kernels.py:197) to the f32
+//   accumulators of an aligned->shifted (pad = 1) launch: an optional bf16
+//   addend (the decoder's skip half) added in f32, then x * scale + shift,
+//   PReLU and the shifted pad mask, with one rounding at the store.  The
+//   mask is index arithmetic on the output cell and the channel's packed
+//   sub-position (sub = channel / (8Co / 8), bit 2 for D, 1 for H, 0 for
+//   W): on the last cell of an axis a sub with the bit set is a pad voxel,
+//   on the first cell one with the bit clear (`ops/packed.py::
+//   _shifted_pad_axis_mask`).  So B2 costs no pass of its own over the
+//   shifted tensor, and the decoder's two partial sums meet in registers.
 //
 // Bound on the H100: operations (989 TFLOP/s dense bf16) at every site it
 // serves: K = 8 x 8Ci >= 512 products per output value read from shared
@@ -87,6 +97,28 @@ struct Plan {
   int tiles_n;                    // 8Co / BN
   int Do, Ho, Wo, C8i, C8o, pad;
 };
+
+// B2's parameters for the EPI instantiation: packed (8Co,) f32 vectors
+// and an optional bf16 addend shaped like the output
+struct Epi {
+  const float* scale;
+  const float* shift;
+  const float* alpha;
+  const __nv_bfloat16* addend;
+};
+
+// the packed subs (bit s = sub s) that are pad voxels at output cell
+// (od, oh, ow) of a (Do, Ho, Wo) shifted tensor: on the last cell of an
+// axis the subs with that axis's bit set (D: bit 2, subs 4-7; H: bit 1;
+// W: bit 0), on the first cell (if it is not also the last) the others.
+// 0 for every interior cell.
+__device__ __forceinline__ unsigned shifted_drop(int od, int oh, int ow,
+                                                 int Do, int Ho, int Wo) {
+  const unsigned d = od == Do - 1 ? 0xF0u : od == 0 ? 0x0Fu : 0u;
+  const unsigned h = oh == Ho - 1 ? 0xCCu : oh == 0 ? 0x33u : 0u;
+  const unsigned w = ow == Wo - 1 ? 0xAAu : ow == 0 ? 0x55u : 0u;
+  return d | h | w;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -298,12 +330,13 @@ __device__ __forceinline__ void wgmma_bf16<256>(float* d, uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
-template <int BN>
+template <int BN, bool EPI>
 __global__ void __launch_bounds__(kThreads, 1)
 conv2_packed_tc_kernel(const __grid_constant__ CUtensorMap xmap,
                        const __grid_constant__ CUtensorMap wmap,
                        const float* __restrict__ bias,
-                       __nv_bfloat16* __restrict__ out, const Plan p) {
+                       __nv_bfloat16* __restrict__ out, const Plan p,
+                       const Epi epi) {
   using C = Cfg<BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -408,26 +441,90 @@ conv2_packed_tc_kernel(const __grid_constant__ CUtensorMap xmap,
     // column pairs 8j + 2 (lane % 4) of every 8-column group j
     const int warp = (tid % 128) / 32, lane = tid % 32;
     const int col = n0 + 2 * (lane % 4);
+    if constexpr (EPI) {
+      // B2 on the f32 sums.  Per row: whether it is stored, its offset,
+      // and the packed subs that are pad voxels there (none inside the
+      // volume).  Parameters and addend are read-only here and come
+      // through the non-coherent path: a column's scale, shift and alpha
+      // once for both rows, and the addend of up to 16 column pairs of
+      // both rows in flight together ahead of their math.
+      bool ok[2];
+      long long base[2];
+      unsigned drop[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wg * 64 + warp * 16 + lane / 4 + 8 * h;
-      if (r >= box_rows) continue;
-      const int ow = ow0 + r % p.bw;
-      const int oh = oh0 + (r / p.bw) % p.bh;
-      const int od = od0 + r / (p.bw * p.bh);
-      if (ow >= p.Wo || oh >= p.Ho || od >= p.Do) continue;
-      __nv_bfloat16* dst =
-          out + ((((long long)nb * p.Do + od) * p.Ho + oh) * p.Wo + ow) *
-                    p.C8o + col;
+      for (int h = 0; h < 2; ++h) {
+        const int r = wg * 64 + warp * 16 + lane / 4 + 8 * h;
+        const int ow = ow0 + r % p.bw;
+        const int oh = oh0 + (r / p.bw) % p.bh;
+        const int od = od0 + r / (p.bw * p.bh);
+        ok[h] = r < box_rows && ow < p.Wo && oh < p.Ho && od < p.Do;
+        base[h] = ((((long long)nb * p.Do + od) * p.Ho + oh) * p.Wo + ow) *
+                      p.C8o + col;
+        drop[h] = ok[h] ? shifted_drop(od, oh, ow, p.Do, p.Ho, p.Wo) : 0u;
+      }
+      const int c_sub = p.C8o >> 3;
+      constexpr int kChunk = BN / 8 < 16 ? BN / 8 : 16;
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-        if (bias != nullptr) {
-          v0 += bias[col + 8 * j];
-          v1 += bias[col + 8 * j + 1];
+      for (int j0 = 0; j0 < BN / 8; j0 += kChunk) {
+        uint32_t araw[2][kChunk];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int jj = 0; jj < kChunk; ++jj)
+            araw[h][jj] =
+                epi.addend != nullptr && ok[h]
+                    ? __ldg(reinterpret_cast<const unsigned int*>(
+                          epi.addend + base[h] + 8 * (j0 + jj)))
+                    : 0u;
+#pragma unroll
+        for (int jj = 0; jj < kChunk; ++jj) {
+          const int j = j0 + jj;
+          const int c = col + 8 * j;
+          const float2 sc =
+              __ldg(reinterpret_cast<const float2*>(epi.scale + c));
+          const float2 sh =
+              __ldg(reinterpret_cast<const float2*>(epi.shift + c));
+          const float2 al =
+              __ldg(reinterpret_cast<const float2*>(epi.alpha + c));
+          // columns c and c + 1 share a sub: 8Co / 8 is even here
+          const int sub = (drop[0] | drop[1]) != 0u ? c / c_sub : 0;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (!ok[h]) continue;
+            const float2 a = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&araw[h][jj]));
+            float v0 = (acc[4 * j + 2 * h] + a.x) * sc.x + sh.x;
+            float v1 = (acc[4 * j + 2 * h + 1] + a.y) * sc.y + sh.y;
+            v0 = v0 >= 0.f ? v0 : v0 * al.x;
+            v1 = v1 >= 0.f ? v1 : v1 * al.y;
+            if ((drop[h] >> sub) & 1u) v0 = v1 = 0.f;
+            *reinterpret_cast<__nv_bfloat162*>(out + base[h] + 8 * j) =
+                __floats2bfloat162_rn(v0, v1);
+          }
         }
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-            __floats2bfloat162_rn(v0, v1);
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wg * 64 + warp * 16 + lane / 4 + 8 * h;
+        if (r >= box_rows) continue;
+        const int ow = ow0 + r % p.bw;
+        const int oh = oh0 + (r / p.bw) % p.bh;
+        const int od = od0 + r / (p.bw * p.bh);
+        if (ow >= p.Wo || oh >= p.Ho || od >= p.Do) continue;
+        __nv_bfloat16* dst =
+            out + ((((long long)nb * p.Do + od) * p.Ho + oh) * p.Wo + ow) *
+                      p.C8o + col;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (bias != nullptr) {
+            v0 += bias[col + 8 * j];
+            v1 += bias[col + 8 * j + 1];
+          }
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+              __floats2bfloat162_rn(v0, v1);
+        }
       }
     }
   }
@@ -460,11 +557,11 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <int BN>
+template <int BN, bool EPI>
 static int launch(const CUtensorMap& xm, const CUtensorMap& wm,
                   const float* bias, __nv_bfloat16* out, const Plan& p,
-                  unsigned grid, cudaStream_t stream) {
-  auto kernel = conv2_packed_tc_kernel<BN>;
+                  const Epi& epi, unsigned grid, cudaStream_t stream) {
+  auto kernel = conv2_packed_tc_kernel<BN, EPI>;
   static bool regs_checked = false;
   if (!regs_checked) {
     // setmaxnreg moves registers inside the launch's allocation: it needs
@@ -479,7 +576,8 @@ static int launch(const CUtensorMap& xm, const CUtensorMap& wm,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::kSmem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, kThreads, Cfg<BN>::kSmem, stream>>>(xm, wm, bias, out, p);
+  kernel<<<grid, kThreads, Cfg<BN>::kSmem, stream>>>(xm, wm, bias, out, p,
+                                                     epi);
   return (int)cudaGetLastError();
 }
 
@@ -487,17 +585,25 @@ static int launch(const CUtensorMap& xm, const CUtensorMap& wm,
 }  // namespace mri
 
 // x: (N, Di, Hi, Wi, 8Ci) bf16; wk: (8 taps, 8Co, 8Ci) bf16, K-major;
-// bias: (8Co,) f32 or null; out: (N, Do, Ho, Wo, 8Co) bf16.  The tile plan
-// (box, boxes per axis, BN) comes from the wrapper.  Launches on `stream`;
-// returns cudaGetLastError() after the launch, or a negative code if the
-// launch was refused on the host.
+// bias: (8Co,) f32 or null; out: (N, Do, Ho, Wo, 8Co) bf16.  With scale
+// non-null the launch runs the B2 epilogue (pad must be 1 and bias null):
+// scale, shift, alpha (8Co,) f32, addend null or bf16 like out.  The tile
+// plan (box, boxes per axis, BN) comes from the wrapper.  Launches on
+// `stream`; returns cudaGetLastError() after the launch, or a negative code
+// if the launch was refused on the host.
 extern "C" int mri_conv2_packed_tc(const void* x, const void* wk,
                                    const void* bias, void* out, long long n,
                                    int di, int hi, int wi, int do_, int ho,
                                    int wo, int c8i, int c8o, int pad, int bw,
                                    int bh, int bd, int tiles_w, int tiles_h,
-                                   int tiles_d, int bn, void* stream) {
+                                   int tiles_d, int bn, const void* scale,
+                                   const void* shift, const void* alpha,
+                                   const void* addend, void* stream) {
   using namespace mri::tc;
+  const bool epi_on = scale != nullptr;
+  if (epi_on && (pad != 1 || bias != nullptr || shift == nullptr ||
+                 alpha == nullptr || c8o % 16))
+    return kErrPlan;
   if (c8i % kBK || (bn != 64 && bn != 128 && bn != 256) || c8o % bn ||
       bw < 1 || bh < 1 || bd < 1 || bw * bh * bd > kBM ||
       (long long)tiles_w * bw < wo || (long long)tiles_h * bh < ho ||
@@ -540,7 +646,16 @@ extern "C" int mri_conv2_packed_tc(const void* x, const void* wk,
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = (unsigned)grid;
-  if (bn == 256) return launch<256>(xm, wm, b, o, p, g, s);
-  if (bn == 128) return launch<128>(xm, wm, b, o, p, g, s);
-  return launch<64>(xm, wm, b, o, p, g, s);
+  const Epi epi{static_cast<const float*>(scale),
+                static_cast<const float*>(shift),
+                static_cast<const float*>(alpha),
+                static_cast<const __nv_bfloat16*>(addend)};
+  if (epi_on) {
+    if (bn == 256) return launch<256, true>(xm, wm, b, o, p, epi, g, s);
+    if (bn == 128) return launch<128, true>(xm, wm, b, o, p, epi, g, s);
+    return launch<64, true>(xm, wm, b, o, p, epi, g, s);
+  }
+  if (bn == 256) return launch<256, false>(xm, wm, b, o, p, epi, g, s);
+  if (bn == 128) return launch<128, false>(xm, wm, b, o, p, epi, g, s);
+  return launch<64, false>(xm, wm, b, o, p, epi, g, s);
 }

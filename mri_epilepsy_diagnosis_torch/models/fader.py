@@ -3,9 +3,9 @@ decoder, domain discriminator and FCD classifier (counterpart of the JAX
 package's `models/fader.py`).
 
 Every conv of a block is separable, (k,1,1) then (1,k,1) then (1,1,k), and
-each factor is one launch of kernel B3 (`ops/cuda_kernels.py::conv_axis`)
-with the torch weight (O, I, k, 1, 1) viewed as (k, I, O) and the bias
-fused.  Only the dense convs that the JAX package leaves to XLA (the
+each stack of three is one call of `ops/cuda_kernels.py::separable_conv3d`
+(kernel B3, the three axes fused into one launch) with the torch weights
+(O, I, k, 1, 1) viewed as (k, I, O) and the biases fused.  Only the dense convs that the JAX package leaves to XLA (the
 `reduce_size` 4^3/s4 stem, `Decoder.vox`, the `transpose_conv` up mode)
 run as `torch.nn.functional` convs.
 
@@ -58,15 +58,18 @@ def _separable_convs(c_in: int, c_out: int, k: int, s: int, p: int,
 
 def _separable_conv(convs: Sequence[nn.Conv3d],
                     x: torch.Tensor) -> torch.Tensor:
-    """Three B3 launches, conv `i` along spatial axis i + 1, each with the
-    (O, I, k, 1, 1)-style weight viewed as (k, I, O) in the activations'
-    dtype (JAX casts conv weights to x.dtype) and its bias fused."""
-    for axis, conv in enumerate(convs, start=1):
+    """One B3 call for the stack, conv `i` along spatial axis i + 1, each
+    with the (O, I, k, 1, 1)-style weight viewed as (k, I, O) in the
+    activations' dtype (JAX casts conv weights to x.dtype) and its bias
+    fused."""
+    ws = []
+    for conv in convs:
         w = conv.weight.to(x.dtype)
-        w = w.reshape(w.shape[0], w.shape[1], -1).permute(2, 1, 0)
-        x = K.conv_one_axis(x, w, axis, stride=conv.stride[axis - 1],
-                            pad=conv.padding[axis - 1], bias=conv.bias)
-    return x
+        ws.append(w.reshape(w.shape[0], w.shape[1], -1).permute(2, 1, 0))
+    return K.separable_conv3d(
+        x, *ws, stride=tuple(c.stride[a] for a, c in enumerate(convs)),
+        pad=tuple(c.padding[a] for a, c in enumerate(convs)),
+        biases=tuple(c.bias for c in convs))
 
 
 def _batch_norm(bn: nn.Module, x: torch.Tensor) -> torch.Tensor:

@@ -4,10 +4,10 @@ path (counterpart of the JAX package's `models/unet_packed.py`, v2 forward).
 Runs the `UNet3D` eval forward on the packed `(N, S/2, S/2, S/2, 8C)`
 layout of `ops/packed.py`, from the same `state_dict`, alternating
 aligned->shifted and shifted->aligned k=2 convs so that no repack is ever
-needed.  Every 3x3x3 conv goes through kernel B1 (`conv2_packed`) and the
-BN/PReLU/pad-mask tail of every aligned->shifted conv through kernel B2
-(`bn_act_zero_pads`): 12 B1 and 5 B2 launches per forward at
-num_encoding_blocks=3.
+needed.  Every 3x3x3 conv goes through kernel B1 (`conv2_packed`), and the
+BN/PReLU/pad-mask tail of every aligned->shifted conv (kernel B2) runs as
+the epilogue of that conv's launch (`conv2_packed_as_bn_act`): 12 B1
+launches per forward at num_encoding_blocks=3, 5 of them with B2 fused.
 
 The decoder's up branch is explicit: `upsample2_packed` followed by an
 aligned->shifted k=2 conv of the upsampled tensor with the up half of the
@@ -91,14 +91,18 @@ def _bn_act(y, sd: StateDict, block: str):
     return y if alpha is None else F.prelu(y, alpha)
 
 
-def _block_as(xp_aligned, sd: StateDict, block: str):
-    """ConvBlock as an aligned->shifted packed conv (B1), then bias, BN,
-    PReLU and re-zeroed shifted pad voxels in one pass (B2)."""
-    w = sd[f"{block}.conv_layer.weight"]
-    y = P.conv3_packed_as(xp_aligned, P.pack_weights2_as(w))
+def _block_as(xp_aligned, sd: StateDict, block: str, w=None, addend=None):
+    """ConvBlock as an aligned->shifted packed conv (B1) with bias, BN,
+    PReLU and re-zeroed shifted pad voxels (B2) as its epilogue, one
+    launch.  `w` replaces the block's conv weight (a slice of its input
+    channels) and `addend`, the partial sum of the other slice, is added
+    to the f32 sum first."""
+    if w is None:
+        w = sd[f"{block}.conv_layer.weight"]
     params = _epilogue_params(sd, block, sd.get(f"{block}.conv_layer.bias"),
-                              w.shape[0], y.device)
-    return P.bn_act_zero_pads(y, *params)
+                              w.shape[0], xp_aligned.device)
+    return P.conv3_packed_as_bn_act(xp_aligned, P.pack_weights2_as(w),
+                                    *params, addend=addend)
 
 
 def _block_sa(xs, sd: StateDict, block: str):
@@ -111,17 +115,14 @@ def _block_sa(xs, sd: StateDict, block: str):
 
 def _decoder_conv1(xp, skip, sd: StateDict, block: str):
     """First conv of a decoding block, conv(cat(skip, up(xp))), split over
-    its input channels into an aligned->shifted conv of the skip and one of
-    the explicitly upsampled input (two B1 launches), summed in place,
-    then the B2 tail."""
+    its input channels: an aligned->shifted conv of the skip stores its
+    partial sum (B1), and the conv of the explicitly upsampled input adds
+    it to its own f32 sum in the B2 epilogue (B1 + B2, one launch)."""
     w = sd[f"{block}.conv_layer.weight"]
     c_skip = skip.shape[-1] // 8
-    y = P.conv3_packed_as(skip, P.pack_weights2_as(w[:, :c_skip]))
-    y += P.conv3_packed_as(P.upsample2_packed(xp),
-                           P.pack_weights2_as(w[:, c_skip:]))
-    params = _epilogue_params(sd, block, sd.get(f"{block}.conv_layer.bias"),
-                              w.shape[0], y.device)
-    return P.bn_act_zero_pads(y, *params)
+    partial = P.conv3_packed_as(skip, P.pack_weights2_as(w[:, :c_skip]))
+    return _block_as(P.upsample2_packed(xp), sd, block, w=w[:, c_skip:],
+                     addend=partial)
 
 
 def _trunk_v2(sd: StateDict, x: torch.Tensor, num_encoding_blocks: int = 3):

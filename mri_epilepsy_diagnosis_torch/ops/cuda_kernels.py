@@ -4,18 +4,26 @@ launch counters and build.
 | kernel              | source                    | replaces (JAX package)                    |
 |---------------------|---------------------------|-------------------------------------------|
 | `conv2_packed`      | `csrc/conv2_packed_tc.cu` (bf16, 8Ci and 8Co multiples of 64: wgmma + TMA), `csrc/conv2_packed.cu` (the rest: CUDA cores) | `ops/pallas_kernels.py::conv2_packed_pallas` |
+| `conv2_packed_as_bn_act` | the same two kernels, with B2 as the epilogue of an aligned->shifted launch | `conv2_packed_pallas` + `bn_act_zero_pads` |
 | `bn_act_zero_pads`  | `csrc/bn_act_zero_pads.cu`| `ops/pallas_kernels.py::bn_act_zero_pads` |
 | `conv_axis`         | `csrc/conv_axis.cu`       | `ops/pallas_kernels.py::conv_axis_last`   |
+| `separable_conv3d`  | `csrc/separable_conv3d.cu` (the three axes in one launch) | `ops/pallas_kernels.py::separable_conv3d` |
 
 `conv_one_axis` and `separable_conv3d` keep the signatures of their JAX
-namesakes (without the Mosaic workarounds `interpret` and `max_taps`) and
-run every one-axis conv through `conv_axis`.
+namesakes (without the Mosaic workarounds `interpret` and `max_taps`).
+`separable_conv3d` runs a stack as one fused launch where
+`_separable_route` says so (every stack the fader serves), else as three
+`conv_axis` launches.  The served UNet calls `conv2_packed_as_bn_act`
+at its aligned->shifted sites; the standalone `bn_act_zero_pads` is the
+counterpart of the JAX function and is no longer on that path.
 
 Each wrapper takes a CPU tensor through the kernel's plain version and a
 CUDA tensor through the kernel, or raises: there is no fallback from one
 to the other.  `<wrapper>.launches` counts kernel launches, so a run can
-show that its main path went through the kernels; `conv2_packed.tc_launches`
-counts those of its calls that took the tensor-core route.
+show that its main path went through the kernels; `conv2_packed.launches`
+counts every B1 launch, fused or not, `conv2_packed.tc_launches` those on
+the tensor-core route; `conv2_packed_as_bn_act.launches` (and
+`.tc_launches`) the B1 launches that ran B2 as their epilogue.
 
 The kernels are CUDA C++ for `sm_90a` with a plain C interface, compiled
 by `nvcc` at first use (one process per source, all started together) and
@@ -41,7 +49,7 @@ import torch.nn.functional as TF
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("conv2_packed.cu", "conv2_packed_tc.cu", "bn_act_zero_pads.cu",
-           "conv_axis.cu")
+           "conv_axis.cu", "separable_conv3d.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -119,9 +127,10 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.mri_conv2_packed.argtypes = [vp, vp, vp, vp, i, ll, i, i, i, i, i, i,
-                                     i, i, i, vp]
+                                     i, i, i, vp, vp, vp, vp, vp]
     lib.mri_conv2_packed.restype = i
-    lib.mri_conv2_packed_tc.argtypes = [vp, vp, vp, vp, ll] + [i] * 16 + [vp]
+    lib.mri_conv2_packed_tc.argtypes = ([vp, vp, vp, vp, ll] + [i] * 16
+                                        + [vp] * 5)
     lib.mri_conv2_packed_tc.restype = i
     lib.mri_bn_act_zero_pads.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i,
                                          ll, i, i, i, i, vp]
@@ -129,6 +138,8 @@ def load() -> ctypes.CDLL:
     lib.mri_conv_axis.argtypes = [vp, vp, vp, vp, i, ll, i, i, ll, i, i, i,
                                   i, i, vp]
     lib.mri_conv_axis.restype = i
+    lib.mri_separable_conv3d.argtypes = [vp] * 8 + [i, ll, vp, i, vp]
+    lib.mri_separable_conv3d.restype = i
     return lib
 
 
@@ -164,11 +175,9 @@ def _raise_on(rc: int, what: str):
 # ---------------------------------------------------------------------------
 
 
-def conv2_packed_plain(x: torch.Tensor, wp: torch.Tensor,
-                       bias: Optional[torch.Tensor] = None, *,
-                       pad: int = 0) -> torch.Tensor:
-    """Plain version of `conv2_packed`: the sum of the 8 shifted-slice
-    products, accumulated in float32, bias added, one cast to x.dtype."""
+def _conv2_sum(x: torch.Tensor, wp: torch.Tensor, pad: int) -> torch.Tensor:
+    """The float32 sum of the 8 shifted-slice products of the k=2 packed
+    conv, before any rounding."""
     if pad:
         x = TF.pad(x, (0, 0) + (1, 1) * 3)
     d, h, w = (s - 1 for s in x.shape[1:4])
@@ -181,6 +190,15 @@ def conv2_packed_plain(x: torch.Tensor, wp: torch.Tensor,
                     x[:, qd:qd + d, qh:qh + h, qw:qw + w].float(),
                     wf[qd, qh, qw])
                 out = part if out is None else out.add_(part)
+    return out
+
+
+def conv2_packed_plain(x: torch.Tensor, wp: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None, *,
+                       pad: int = 0) -> torch.Tensor:
+    """Plain version of `conv2_packed`: the sum of the 8 shifted-slice
+    products, accumulated in float32, bias added, one cast to x.dtype."""
+    out = _conv2_sum(x, wp, pad)
     if bias is not None:
         out.add_(bias.float())
     return out.to(x.dtype)
@@ -255,6 +273,31 @@ def kmajor_weights(wp: torch.Tensor) -> torch.Tensor:
     return wp.permute(0, 1, 2, 4, 3).reshape(8, c8o, c8i).contiguous()
 
 
+def _check_conv2_args(x: torch.Tensor, wp: torch.Tensor, pad: int):
+    if x.ndim != 5 or wp.ndim != 5 or tuple(wp.shape[:3]) != (2, 2, 2):
+        raise ValueError(f"conv2_packed needs x (N,D,H,W,C8i) and wp "
+                         f"(2,2,2,C8i,C8o); got {tuple(x.shape)}, "
+                         f"{tuple(wp.shape)}")
+    if wp.shape[3] != x.shape[4]:
+        raise ValueError(f"wp has {wp.shape[3]} input channels, x "
+                         f"{x.shape[4]}")
+    if pad not in (0, 1):
+        raise ValueError(f"pad must be 0 or 1, got {pad}")
+
+
+def _check_conv2_cuda(x: torch.Tensor, wp: torch.Tensor, name: str):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name} takes float32 or bfloat16, not {x.dtype}")
+    c8i, c8o = wp.shape[3:]
+    if c8i % 8 or c8o % 4:
+        raise ValueError(f"{name} needs 8Ci % 8 == 0 and 8Co % 4 == 0; "
+                         f"got {c8i}, {c8o}")
+    _check_cuda("x", x, x.dtype, x.device)
+    _check_cuda("wp", wp, x.dtype, x.device)
+
+
 def conv2_packed(x: torch.Tensor, wp: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, *,
                  pad: int = 0) -> torch.Tensor:
@@ -267,30 +310,13 @@ def conv2_packed(x: torch.Tensor, wp: torch.Tensor,
     (N, Di-1, Hi-1, Wi-1, 8Co); pad=1: aligned -> shifted, output
     (N, Di+1, Hi+1, Wi+1, 8Co).  On the card `_conv2_route` picks the
     tensor-core or the CUDA-core kernel; either failing raises."""
-    if x.ndim != 5 or wp.ndim != 5 or tuple(wp.shape[:3]) != (2, 2, 2):
-        raise ValueError(f"conv2_packed needs x (N,D,H,W,C8i) and wp "
-                         f"(2,2,2,C8i,C8o); got {tuple(x.shape)}, "
-                         f"{tuple(wp.shape)}")
-    n, di, hi, wi, c8i = x.shape
-    c8o = wp.shape[4]
-    if wp.shape[3] != c8i:
-        raise ValueError(f"wp has {wp.shape[3]} input channels, x {c8i}")
-    if pad not in (0, 1):
-        raise ValueError(f"pad must be 0 or 1, got {pad}")
+    _check_conv2_args(x, wp, pad)
+    c8i, c8o = wp.shape[3:]
     if bias is not None and tuple(bias.shape) != (c8o,):
         raise ValueError(f"bias must have shape ({c8o},)")
     if x.device.type == "cpu":
         return conv2_packed_plain(x, wp, bias, pad=pad)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv2_packed runs on cpu or cuda, not {x.device}")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"conv2_packed takes float32 or bfloat16, not "
-                        f"{x.dtype}")
-    if c8i % 8 or c8o % 4:
-        raise ValueError(f"conv2_packed needs 8Ci % 8 == 0 and 8Co % 4 == 0; "
-                         f"got {c8i}, {c8o}")
-    _check_cuda("x", x, x.dtype, x.device)
-    _check_cuda("wp", wp, x.dtype, x.device)
+    _check_conv2_cuda(x, wp, "conv2_packed")
     tc = _conv2_route(x.dtype, c8i, c8o) == "tc"
     out = _conv2_launch(x, wp, bias, pad, tc)
     if out.numel():
@@ -300,11 +326,14 @@ def conv2_packed(x: torch.Tensor, wp: torch.Tensor,
 
 
 def _conv2_launch(x: torch.Tensor, wp: torch.Tensor,
-                  bias: Optional[torch.Tensor], pad: int,
-                  tc: bool) -> torch.Tensor:
+                  bias: Optional[torch.Tensor], pad: int, tc: bool,
+                  epi: Optional[Sequence[Optional[torch.Tensor]]] = None
+                  ) -> torch.Tensor:
     """One launch of B1's tensor-core kernel (`tc`) or CUDA-core kernel on
-    checked CUDA tensors; raises if it fails.  Counts nothing: the
-    wrapper counts its own launches."""
+    checked CUDA tensors; with `epi` = (scale, shift, alpha, addend), float32
+    (8Co,) vectors and an addend like the output or None, the launch runs
+    the B2 epilogue (pad 1, no bias).  Raises if it fails.  Counts nothing:
+    the wrappers count their own launches."""
     n, di, hi, wi, c8i = x.shape
     c8o = wp.shape[4]
     step = 1 if pad else -1
@@ -317,6 +346,15 @@ def _conv2_launch(x: torch.Tensor, wp: torch.Tensor,
         bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
         _check_cuda("bias", bias, torch.float32, x.device)
         bias_ptr = bias.data_ptr()
+    epi_ptrs = [None] * 4
+    if epi is not None:
+        for j, (name, t) in enumerate(zip(("scale", "shift", "alpha"),
+                                          epi[:3])):
+            epi_ptrs[j] = t.data_ptr()
+            _check_cuda(name, t, torch.float32, x.device)
+        if epi[3] is not None:
+            _check_cuda("addend", epi[3], x.dtype, x.device)
+            epi_ptrs[3] = epi[3].data_ptr()
     lib = load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -326,18 +364,107 @@ def _conv2_launch(x: torch.Tensor, wp: torch.Tensor,
             rc = lib.mri_conv2_packed_tc(
                 x.data_ptr(), wk.data_ptr(), bias_ptr, out.data_ptr(), n, di,
                 hi, wi, do, ho, wo, c8i, c8o, pad, *plan.box, *plan.tiles,
-                plan.bn, stream)
+                plan.bn, *epi_ptrs, stream)
         else:
             rc = lib.mri_conv2_packed(
                 x.data_ptr(), wp.data_ptr(), bias_ptr, out.data_ptr(),
                 _DTYPE_CODE[x.dtype], n, di, hi, wi, do, ho, wo, c8i, c8o,
-                pad, stream)
+                pad, *epi_ptrs, stream)
     _raise_on(rc, "conv2_packed_tc" if tc else "conv2_packed")
     return out
 
 
 conv2_packed.launches = 0
 conv2_packed.tc_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B1 + B2: aligned->shifted conv with the BN/PReLU/pad-mask epilogue
+# ---------------------------------------------------------------------------
+
+
+def shifted_pad_keep(axis: int, cells: int, c8: int,
+                     device=None) -> torch.Tensor:
+    """(cells, c8) bool: False at the pad voxels of a shifted packed tensor
+    along `axis` (0 = D, 1 = H, 2 = W), from the index arithmetic of the
+    fused epilogue: with sub = channel // (c8 // 8) and bit = (sub >> (2 -
+    axis)) & 1, the last cell drops the subs with the bit set, the first
+    cell (if it is not also the last) those with it clear.  The same planes
+    as `ops.packed._shifted_pad_axis_mask`."""
+    cell = torch.arange(cells, device=device)[:, None]
+    bit = ((torch.arange(c8, device=device) // (c8 // 8)) >> (2 - axis)) & 1
+    return torch.where(cell == cells - 1, bit == 0, (cell != 0) | (bit == 1))
+
+
+def conv2_packed_as_bn_act_plain(x: torch.Tensor, wp: torch.Tensor, scale,
+                                 shift, alpha,
+                                 addend: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """Plain version of `conv2_packed_as_bn_act`: the float32 tap sum of
+    the aligned->shifted conv, plus the addend in float32, then `* scale +
+    shift`, PReLU and the shifted pad mask, one cast to x.dtype."""
+    y = _conv2_sum(x, wp, 1)
+    if addend is not None:
+        y.add_(addend.float())
+    y = y * scale.float() + shift.float()
+    y = torch.where(y >= 0, y, y * alpha.float())
+    kd, kh, kw = (shifted_pad_keep(a, y.shape[1 + a], y.shape[4], y.device)
+                  for a in range(3))
+    keep = kd[:, None, None, :] & kh[None, :, None, :] & kw[None, None, :, :]
+    return torch.where(keep, y, 0.0).to(x.dtype)
+
+
+def conv2_packed_as_bn_act(x: torch.Tensor, wp: torch.Tensor,
+                           scale: torch.Tensor, shift: torch.Tensor,
+                           alpha: torch.Tensor, *,
+                           addend: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The aligned->shifted k=2 packed conv (`conv2_packed(x, wp, pad=1)`)
+    with kernel B2 as its epilogue, in one launch:
+
+        y = sum_q xin[...] @ wp[q] (+ addend), in float32
+        out = mask(prelu(y * scale + shift, alpha)), rounded once
+
+    x: (N, D, H, W, 8Ci) float32 or bfloat16; wp (2, 2, 2, 8Ci, 8Co) in its
+    dtype; scale, shift, alpha: packed (8Co,) (read as float32); addend:
+    None or the (N, D+1, H+1, W+1, 8Co) partial sum of another conv in x's
+    dtype (the decoder's skip half).  The pad mask zeroes the pad voxels
+    of the shifted output (`shifted_pad_keep`).  On the card
+    `_conv2_route` picks the kernel as for `conv2_packed`; a failure
+    raises."""
+    _check_conv2_args(x, wp, 1)
+    n, d, h, w, c8i = x.shape
+    c8o = wp.shape[4]
+    for name, t in (("scale", scale), ("shift", shift), ("alpha", alpha)):
+        if tuple(t.shape) != (c8o,):
+            raise ValueError(f"{name} must have shape ({c8o},), got "
+                             f"{tuple(t.shape)}")
+    if c8o % 8:
+        raise ValueError(f"conv2_packed_as_bn_act needs 8Co % 8 == 0, got "
+                         f"{c8o}")
+    out_shape = (n, d + 1, h + 1, w + 1, c8o)
+    if addend is not None and (tuple(addend.shape) != out_shape
+                               or addend.dtype != x.dtype):
+        raise ValueError(f"addend must be {x.dtype} of shape {out_shape}, "
+                         f"got {addend.dtype} {tuple(addend.shape)}")
+    if x.device.type == "cpu":
+        return conv2_packed_as_bn_act_plain(x, wp, scale, shift, alpha,
+                                            addend)
+    _check_conv2_cuda(x, wp, "conv2_packed_as_bn_act")
+    vecs = [t.to(device=x.device, dtype=torch.float32).contiguous()
+            for t in (scale, shift, alpha)]
+    tc = _conv2_route(x.dtype, c8i, c8o) == "tc"
+    out = _conv2_launch(x, wp, None, 1, tc, (*vecs, addend))
+    if out.numel():
+        conv2_packed.launches += 1
+        conv2_packed.tc_launches += tc
+        conv2_packed_as_bn_act.launches += 1
+        conv2_packed_as_bn_act.tc_launches += tc
+    return out
+
+
+conv2_packed_as_bn_act.launches = 0
+conv2_packed_as_bn_act.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -522,24 +649,198 @@ def conv_one_axis(x: torch.Tensor, w: torch.Tensor, axis: int, *,
                      pad=pad)
 
 
+# ---------------------------------------------------------------------------
+# B3 fused: the three one-axis convs of a separable stack in one launch
+# ---------------------------------------------------------------------------
+
+# output cells of the largest tile (D, H, W); the plan halves it until its
+# shared memory fits _SEP_SMEM_TARGET (two blocks per SM), and refuses a
+# stack whose 1x1x1 tile needs more than one block's 227 KB
+_SEP_TILE = (4, 8, 16)
+_SEP_SMEM_TARGET = 112 * 1024
+_SMEM_MAX = 232448
+_SEP_MMA_MAX_K = 512          # k x Cin of a tensor-core stage (its K table)
+
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+class SepPlan(NamedTuple):
+    """Tile plan of one fused `separable_conv3d` launch."""
+    out: Tuple[int, int, int]     # output extents (Do, Ho, Wo)
+    tile: Tuple[int, int, int]    # output cells per tile (TD, TH, TW)
+    halo: Tuple[int, int, int]    # input cells per tile (LD, LH, LW)
+    tiles: Tuple[int, int, int]   # tiles along (D, H, W)
+    mma: Tuple[bool, bool, bool]  # stage on tensor cores (D, H, W)
+    off_y1: int                   # shared-memory layout, bytes: input / y2
+    off_w: int                    # at 0, y1 at off_y1, weights at off_w
+    smem: int
+    grid: int                     # blocks: N x tiles
+
+
+def _sep_smem(tile, halo, chans, ks, mma, esize):
+    """(off_y1, off_w, total) bytes of the kernel's shared memory.  Input
+    rows whose cells are narrower than the kernel's 16-byte copy units are
+    padded to whole units, with a lead of up to one unit less one cell."""
+    (td, th, tw), (ld, lh, lw) = tile, halo
+    ci, c1, c2, _ = chans
+    cell = ci * esize
+    per = 16 // cell if cell < 16 and 16 % cell == 0 else 1
+    pitch = -(-(lw + per - 1) // per) * per
+    region_a = _align16(max(ld * lh * pitch * ci, td * th * lw * c2) * esize)
+    y1 = _align16(td * lh * lw * c1 * esize)
+    wbytes = 0
+    for k, cin, cout, on_tc in zip(ks, chans[:3], chans[1:], mma):
+        kpad = -(-k * cin // 16) * 16
+        wbytes = max(wbytes, cout * (kpad + 8) * 2 if on_tc
+                     else k * cin * cout * 4)
+    return region_a, region_a + y1, region_a + y1 + _align16(wbytes)
+
+
+def separable_plan(n: int, spatial: Sequence[int], chans: Sequence[int],
+                   ks: Sequence[int], strides: Sequence[int],
+                   pads: Sequence[int],
+                   dtype: torch.dtype) -> Optional[SepPlan]:
+    """The fused kernel's plan for x (n, *spatial, chans[0]) through stages
+    of chans[1], chans[2], chans[3] output channels, or None where even a
+    1x1x1 tile does not fit one block's shared memory.  The tile starts at
+    `_SEP_TILE` (clipped to the output) and its longest axis (D first on
+    ties) is halved until the shared memory fits `_SEP_SMEM_TARGET`.
+    Tensor cores take the bf16 stages whose Cin and Cout are multiples of
+    8 and whose k x Cin is at most 512.  Plans are cached."""
+    return _separable_plan(int(n), *(tuple(int(v) for v in a) for a in
+                                     (spatial, chans, ks, strides, pads)),
+                           dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _separable_plan(n, spatial, chans, ks, strides, pads, dtype):
+    out = tuple(_axis_out_len(length, k, s, p)
+                for length, k, s, p in zip(spatial, ks, strides, pads))
+    esize = 2 if dtype == torch.bfloat16 else 4
+    mma = tuple(dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0
+                and k * cin <= _SEP_MMA_MAX_K
+                for k, cin, cout in zip(ks, chans[:3], chans[1:]))
+    tile = [min(t, o) for t, o in zip(_SEP_TILE, out)]
+    while True:
+        halo = tuple((t - 1) * s + k for t, s, k in zip(tile, strides, ks))
+        off_y1, off_w, smem = _sep_smem(tile, halo, chans, ks, mma, esize)
+        if smem <= _SEP_SMEM_TARGET or tile == [1, 1, 1]:
+            break
+        a = max(range(3), key=lambda i: (tile[i], -i))
+        tile[a] = -(-tile[a] // 2)
+    if smem > _SMEM_MAX:
+        return None
+    tiles = tuple(-(-o // t) for o, t in zip(out, tile))
+    return SepPlan(out=out, tile=tuple(tile), halo=halo, tiles=tiles,
+                   mma=mma, off_y1=off_y1, off_w=off_w, smem=smem,
+                   grid=n * tiles[0] * tiles[1] * tiles[2])
+
+
+def _separable_route(dtype: torch.dtype, plan: Optional[SepPlan]) -> str:
+    """The kernel that serves a `separable_conv3d` call on the card:
+    "fused" (`separable_conv3d.cu`, one launch) for float32 and bfloat16
+    stacks whose tile plan fits shared memory, "per_axis" (three
+    `conv_axis` launches) otherwise.  It depends on dtype and shape only,
+    never on whether a build or launch failed."""
+    return "fused" if dtype in _DTYPE_CODE and plan is not None \
+        else "per_axis"
+
+
+def separable_conv3d_plain(x: torch.Tensor, wx: torch.Tensor,
+                           wy: torch.Tensor, wz: torch.Tensor, *,
+                           stride=(1, 1, 1), pad=(0, 0, 0),
+                           biases=(None, None, None)) -> torch.Tensor:
+    """Plain version of `separable_conv3d`: `conv_axis_plain` along D, H
+    and W in turn, each rounded to x.dtype."""
+    for axis, w in zip((1, 2, 3), (wx, wy, wz)):
+        x = conv_axis_plain(x, w, biases[axis - 1], axis=axis,
+                            stride=stride[axis - 1], pad=pad[axis - 1])
+    return x
+
+
 def separable_conv3d(x: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
                      wz: torch.Tensor, *, stride=(1, 1, 1), pad=(0, 0, 0),
                      biases=(None, None, None)) -> torch.Tensor:
     """The fader conv stack: (k,1,1), then (1,k,1), then (1,1,k), each with
-    its own stride, pad and bias, as three `conv_axis` launches.
+    its own stride, pad and bias, each summed in float32 and rounded to
+    x.dtype.  On the card `_separable_route` sends it to the fused kernel
+    (one launch, intermediates in shared memory) or to three `conv_axis`
+    launches; a failure raises.
 
-    wx: (k, Ci, C), wy: (k, C, C), wz: (k, C, C): torch (O, I, k, 1, 1)-style
-    weights viewed as (k, I, O)."""
-    for axis, w in zip((1, 2, 3), (wx, wy, wz)):
-        x = conv_one_axis(x, w, axis, stride=stride[axis - 1],
-                          pad=pad[axis - 1], bias=biases[axis - 1])
-    return x
+    wx: (k, Ci, C1), wy: (k, C1, C2), wz: (k, C2, C3): torch (O, I, k, 1,
+    1)-style weights viewed as (k, I, O)."""
+    if x.ndim != 5 or any(w.ndim != 3 for w in (wx, wy, wz)):
+        raise ValueError("separable_conv3d needs x (N,D,H,W,Ci) and three "
+                         "(k,Ci,Co) weights")
+    chans = (x.shape[4], wx.shape[2], wy.shape[2], wz.shape[2])
+    if (wx.shape[1], wy.shape[1], wz.shape[1]) != chans[:3]:
+        raise ValueError(f"channel chain {chans[:3]} does not match the "
+                         f"weights {tuple(wx.shape)}, {tuple(wy.shape)}, "
+                         f"{tuple(wz.shape)}")
+    ks = (wx.shape[0], wy.shape[0], wz.shape[0])
+    for axis, (k, s, p) in enumerate(zip(ks, stride, pad), start=1):
+        if s < 1 or p < 0 or _axis_out_len(x.shape[axis], k, s, p) < 1:
+            raise ValueError(f"axis {axis} of length {x.shape[axis]} does "
+                             f"not take k={k}, stride={s}, pad={p}")
+    for b, c in zip(biases, chans[1:]):
+        if b is not None and tuple(b.shape) != (c,):
+            raise ValueError(f"bias must have shape ({c},)")
+    if x.device.type == "cpu":
+        return separable_conv3d_plain(x, wx, wy, wz, stride=stride, pad=pad,
+                                      biases=biases)
+    if x.device.type != "cuda":
+        raise ValueError(f"separable_conv3d runs on cpu or cuda, not "
+                         f"{x.device}")
+    plan = separable_plan(x.shape[0], x.shape[1:4], chans, ks, stride, pad,
+                          x.dtype)
+    if _separable_route(x.dtype, plan) == "per_axis":
+        for axis, w in zip((1, 2, 3), (wx, wy, wz)):
+            x = conv_one_axis(x, w, axis, stride=stride[axis - 1],
+                              pad=pad[axis - 1], bias=biases[axis - 1])
+        return x
+    x = x.contiguous()
+    _check_cuda("x", x, x.dtype, x.device)
+    # the kernel reads the weights in x's dtype in torch's (O, I, k)
+    # layout: the fader's (k, I, O) views of its conv weights need no copy
+    ws = [w.to(device=x.device, dtype=x.dtype).permute(2, 1, 0).contiguous()
+          for w in (wx, wy, wz)]
+    bs = [None if b is None else
+          b.to(device=x.device, dtype=torch.float32).contiguous()
+          for b in biases]
+    for name, t in zip(("wx", "wy", "wz", "bx", "by", "bz"), ws + bs):
+        if t is not None:
+            _check_cuda(name, t, x.dtype if name[0] == "w" else torch.float32,
+                        x.device)
+    out = torch.empty((x.shape[0], *plan.out, chans[3]), dtype=x.dtype,
+                      device=x.device)
+    geo = (*x.shape[1:4], *plan.out, *plan.tile, *plan.halo, *plan.tiles,
+           *chans, *ks, *stride, *pad, *map(int, plan.mma), plan.off_y1,
+           plan.off_w, plan.smem)
+    geo_arr = (ctypes.c_int * len(geo))(*geo)
+    lib = load()
+    with torch.cuda.device(x.device):
+        rc = lib.mri_separable_conv3d(
+            x.data_ptr(), *[t.data_ptr() for t in ws],
+            *[None if t is None else t.data_ptr() for t in bs],
+            out.data_ptr(), _DTYPE_CODE[x.dtype], x.shape[0],
+            ctypes.cast(geo_arr, ctypes.c_void_p), len(geo),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "separable_conv3d")
+    if out.numel():
+        separable_conv3d.launches += 1
+    return out
 
 
-KERNELS = (conv2_packed, bn_act_zero_pads, conv_axis)
+separable_conv3d.launches = 0
+
+KERNELS = (conv2_packed, bn_act_zero_pads, conv_axis, conv2_packed_as_bn_act,
+           separable_conv3d)
 
 
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
     conv2_packed.tc_launches = 0
+    conv2_packed_as_bn_act.tc_launches = 0

@@ -14,8 +14,9 @@ cells in one of two parities:
 
 Both run as kernel B1 (`ops/cuda_kernels.py::conv2_packed`).  The shifted
 layout carries one pad voxel per axis (fine -1 and S); after the
-aligned->shifted conv's BN/PReLU they are re-zeroed, fused into kernel B2
-(`bn_act_zero_pads`) on the served path.
+aligned->shifted conv's BN/PReLU they are re-zeroed.  On the served path
+that tail (kernel B2) is the epilogue of the aligned->shifted B1 launch
+(`conv3_packed_as_bn_act`); `bn_act_zero_pads` runs it standalone.
 
 Fine conv weights arrive in torch layout `(Co, Ci, 3, 3, 3)`; packed
 weights are `(2, 2, 2, 8Ci, 8Co)`, as in JAX.
@@ -168,6 +169,21 @@ def conv3_packed_as(xp_aligned: torch.Tensor, wp: torch.Tensor,
     wp = wp.to(xp_aligned.dtype).contiguous()
     return K.conv2_packed(xp_aligned.contiguous(), wp, _tiled_bias(bias),
                           pad=1)
+
+
+def conv3_packed_as_bn_act(xp_aligned: torch.Tensor, wp: torch.Tensor,
+                           scale: torch.Tensor, shift: torch.Tensor,
+                           alpha: torch.Tensor,
+                           addend: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """`bn_act_zero_pads(conv3_packed_as(xp_aligned, wp) + addend, scale,
+    shift, alpha)` as one launch of B1 with B2 as its epilogue, the sum and
+    the tail in float32 and one rounding.  addend: None or a shifted
+    (N, S/2+1, ..., 8Co) partial sum in the input's dtype."""
+    wp = wp.to(xp_aligned.dtype).contiguous()
+    return K.conv2_packed_as_bn_act(
+        xp_aligned.contiguous(), wp, scale, shift, alpha,
+        addend=None if addend is None else addend.contiguous())
 
 
 def conv1_packed_blockdiag(xp: torch.Tensor, w: torch.Tensor,

@@ -35,23 +35,29 @@ def _int_tensor(rng, shape, lo=-3, hi=4):
 
 @pytest.fixture(scope="module")
 def served_sites():
-    """(8Ci, 8Co, pad) of every conv2_packed call of one packed forward."""
+    """(8Ci, 8Co, pad) of every B1 launch of one packed forward: the
+    conv2_packed calls and the conv2_packed_as_bn_act calls (pad 1, B2
+    fused), in call order."""
     torch.manual_seed(0)
     model = UNet3D(out_classes=2, num_encoding_blocks=3,
                    out_channels_first_layer=8, device="cpu").eval()
     params = TU.fold_bn_inference(model.state_dict())
-    sites, conv = [], K.conv2_packed
+    sites, conv, fused = [], K.conv2_packed, K.conv2_packed_as_bn_act
 
     def record(x, wp, bias=None, *, pad=0):
         sites.append((x.shape[4], wp.shape[4], pad))
         return conv(x, wp, bias, pad=pad)
 
-    K.conv2_packed = record
+    def record_fused(x, wp, *args, **kw):
+        sites.append((x.shape[4], wp.shape[4], 1))
+        return fused(x, wp, *args, **kw)
+
+    K.conv2_packed, K.conv2_packed_as_bn_act = record, record_fused
     try:
         with torch.no_grad():
             TU.packed_unet_mask_v2(params, torch.zeros(1, 16, 16, 16, 1))
     finally:
-        K.conv2_packed = conv
+        K.conv2_packed, K.conv2_packed_as_bn_act = conv, fused
     return sites
 
 

@@ -142,3 +142,128 @@ def test_conv_axis_kernel_large_weights(cuda_device):
     ref = K.conv_axis_plain(x, w, axis=1, stride=2, pad=2)
     err = (got - ref).abs().max().item()
     assert err <= 1e-5 * ref.abs().max().item()
+
+
+# B1 + B2 fused: (x extents at batch 1, 8Ci, 8Co, addend) of the five
+# aligned->shifted sites of the served 192^3 UNet3D (out_channels_first_
+# layer 8); the decoder's up launches add the skip launch's partial sum
+FUSED_SITES = {"e0c1": ((96, 96, 96), 8, 64, False),
+               "e1c1": ((48, 48, 48), 128, 128, False),
+               "bc1": ((24, 24, 24), 256, 256, False),
+               "d0c1.up": ((48, 48, 48), 512, 256, True),
+               "d1c1.up": ((96, 96, 96), 256, 128, True)}
+
+
+def _check_fused(dev, shape, c8i, c8o, addend, dtype, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(*shape, c8i, generator=g, device=dev).to(dtype)
+    wp = (torch.randn(2, 2, 2, c8i, c8o, generator=g, device=dev)
+          / (8 * c8i) ** 0.5).to(dtype)
+    scale = 0.5 + torch.rand(c8o, generator=g, device=dev)
+    shift = torch.randn(c8o, generator=g, device=dev)
+    alpha = torch.rand(c8o, generator=g, device=dev)
+    out_shape = (shape[0], *(s + 1 for s in shape[1:]), c8o)
+    add = (torch.randn(out_shape, generator=g, device=dev).to(dtype)
+           if addend else None)
+    tc = K._conv2_route(dtype, c8i, c8o) == "tc"
+    before = (K.conv2_packed.launches, K.conv2_packed.tc_launches,
+              K.conv2_packed_as_bn_act.launches,
+              K.conv2_packed_as_bn_act.tc_launches)
+    got = K.conv2_packed_as_bn_act(x, wp, scale, shift, alpha, addend=add)
+    torch.cuda.synchronize()
+    assert (K.conv2_packed.launches, K.conv2_packed.tc_launches,
+            K.conv2_packed_as_bn_act.launches,
+            K.conv2_packed_as_bn_act.tc_launches) == (
+        before[0] + 1, before[1] + tc, before[2] + 1, before[3] + tc)
+    ref = K.conv2_packed_as_bn_act_plain(x, wp, scale, shift, alpha, add)
+    assert got.shape == ref.shape == out_shape and got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item()
+    # the pad voxels are exactly zero
+    keep = [K.shifted_pad_keep(a, out_shape[1 + a], c8o, dev)
+            for a in range(3)]
+    pads = ~(keep[0][:, None, None] & keep[1][None, :, None]
+             & keep[2][None, None, :])
+    assert not got[:, pads].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", list(FUSED_SITES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2_packed_as_bn_act_served_sites(cuda_device, site, dtype):
+    extents, c8i, c8o, addend = FUSED_SITES[site]
+    _check_fused(cuda_device, (1, *extents), c8i, c8o, addend, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("addend", [False, True])
+@pytest.mark.parametrize("c8i,c8o", [(64, 64), (128, 256), (8, 64),
+                                     (64, 128)])
+@pytest.mark.parametrize("shape", [(2, 7, 6, 9), (1, 2, 5, 17),
+                                   (1, 13, 2, 2), (1, 1, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2_packed_as_bn_act_ragged(cuda_device, shape, c8i, c8o, addend,
+                                       dtype):
+    """Extents that no box divides, so the last cell of an axis lies
+    anywhere in a tile, on both routes."""
+    _check_fused(cuda_device, shape, c8i, c8o, addend, dtype, seed=4)
+
+
+# B3 fused: (x extents at batch 1, Ci, C, k, stride, pad) of the four
+# separable stacks of the served fader encoder and Classificator
+SEP_SITES = {"e0": ((192, 192, 192), 1, 8, 6, 2, 2),
+             "e1": ((48, 48, 48), 8, 16, 6, 2, 2),
+             "e2": ((12, 12, 12), 16, 32, 6, 2, 2),
+             "clf": ((3, 3, 3), 32, 64, 3, 1, 0)}
+# bf16: each stage rounds its output to bf16; a one-step difference in an
+# intermediate (two f32 sums in another order straddling a rounding
+# boundary) passes through the later stages
+SEP_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+def _check_separable(dev, shape, ci, c, k, s, p, dtype, with_bias=True,
+                     seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(*shape, ci, generator=g, device=dev).to(dtype)
+    ws = [(torch.randn(k, cin, c, generator=g, device=dev)
+           / (k * cin) ** 0.5).to(dtype) for cin in (ci, c, c)]
+    bs = tuple(torch.randn(c, generator=g, device=dev) if with_bias
+               else None for _ in range(3))
+    kw = dict(stride=(s,) * 3, pad=(p,) * 3, biases=bs)
+    plan = K.separable_plan(shape[0], shape[1:4], (ci, c, c, c), (k,) * 3,
+                            (s,) * 3, (p,) * 3, dtype)
+    assert K._separable_route(dtype, plan) == "fused"
+    before = (K.separable_conv3d.launches, K.conv_axis.launches)
+    got = K.separable_conv3d(x, *ws, **kw)
+    torch.cuda.synchronize()
+    assert (K.separable_conv3d.launches, K.conv_axis.launches) == (
+        before[0] + 1, before[1])
+    ref = K.separable_conv3d_plain(x, *ws, **kw)
+    assert got.shape == ref.shape and got.dtype == dtype
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= SEP_TOL[dtype] * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", list(SEP_SITES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_separable_conv3d_served_stacks(cuda_device, site, dtype):
+    extents, ci, c, k, s, p = SEP_SITES[site]
+    _check_separable(cuda_device, (1, *extents), ci, c, k, s, p, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 9, 7, 11), (1, 10, 6, 40)])
+@pytest.mark.parametrize("ci,c", [(1, 8), (8, 16), (16, 8), (3, 5), (8, 1),
+                                  (32, 64)])
+@pytest.mark.parametrize("k,s,p", [(6, 2, 2), (3, 1, 1), (5, 1, 2),
+                                   (3, 1, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_separable_conv3d_ragged(cuda_device, shape, ci, c, k, s, p, dtype):
+    """Extents no tile divides; Ci = 1 and Cout = 1 (CUDA-core stages),
+    widths that are no multiple of 8, and the tensor-core stages.  W = 11
+    takes the element-wise and 4-byte input copies, W = 40 the 16-byte
+    ones (with a lead of cells where a cell is narrower than 16 bytes)."""
+    _check_separable(cuda_device, shape, ci, c, k, s, p, dtype,
+                     with_bias=(ci + c) % 2 == 1, seed=6)
