@@ -46,12 +46,34 @@ Phases (each raises on failure, so the script exits nonzero):
    the port on the CPU (plain versions), and float32 ones on the card;
 5. profile: torch.profiler over one served UNet batch and one served
    ensemble batch (device time by kernel, the device's idle share),
-   recorded, not gated.
+   recorded, not gated;
+6. training, the packed UNet3D segmentation trainer:
+   a. every B1 launch of one 192^3 batch-2 bf16 train step is recorded:
+      the 12 forward convs and the 11 input gradients (`conv2_packed_dx`,
+      B1 in the other parity with flipped, io-swapped weights; the stem's
+      input takes none), and the 12 weight gradients (`_dw_packed_qgroup`,
+      8 cuBLAS GEMMs with a float32 result each).  Each site's forward at
+      batch 2 and dx at batch 1 and 2, in f32 and bf16, is held against
+      the plain version, dw against an f32 einsum, and all three are timed
+      beside cuDNN's `convolution_backward` of the same packed conv;
+   b. f32 parity at 64^3, batch 1, TF32 off: the packed step's loss,
+      gradients and running statistics against the fine UNet3D train
+      step (cuDNN);
+   c. `train_segmentation` (packed, bf16, one epoch of 3 batches of 2
+      T1w-like 192^3 volumes with FreeSurfer-style labels, a validation
+      batch, a checkpoint into `chiprun_out/` that is reloaded), then 1
+      warm-up and 5 timed `packed_seg_train_step`s: finite and falling
+      losses, float32 master weights, exact launch counts per step (B1 23,
+      22 on tensor cores, 11 of them input gradients; B2 0), ms per step,
+      vol/s, peak memory, and the B1-forward / B1-dx / dw / other split
+      of one profiled step.
 
 It prints one line per check, then `{"kernels": [...]}` (the kernels of
 the served path: B1 on tensor cores, B2 fused into B1 on either route,
-fused B3; the standalone B2 and per-axis B3 kernels, off that path, go
-to the JSON file with their numbers), the card's
+fused B3; and of the training path: B1's forward on tensor cores, the
+stem's forward on CUDA cores, B1 as input gradient; the standalone B2 and
+per-axis B3 kernels, off both paths, go to the JSON file with their
+numbers, as does dw, which is cuBLAS and no kernel of the port), the card's
 `nvidia-smi` name and power limit, and last
 `{"ok": true, "device": {...}}`.  Per-site numbers also go to
 `chiprun_out/chip_smoke.json`.  Exits nonzero without printing a result
@@ -116,11 +138,52 @@ AE_B3_SITES = tuple(f"ae.d{i}{ax}" for i in range(3) for ax in "xyz")
 # launches per served bf16 batch, by counter
 UNET_PER_BATCH = {"conv2_packed": len(B1_SITES),
                   "conv2_packed_tc": B1_TC_PER_BATCH,
+                  "conv2_packed_dx": 0, "conv2_packed_dx_tc": 0,
                   "conv2_packed_as_bn_act": len(B2_SITES),
                   "conv2_packed_as_bn_act_tc": len(B2_SITES) - 1,
                   "bn_act_zero_pads": 0, "conv_axis": 0,
                   "separable_conv3d": 0}
 ENSEMBLE_PER_BATCH = {**UNET_PER_BATCH, "separable_conv3d": len(B3_STACKS)}
+
+# training (phase 6): a packed train step launches B1 for each of the 12
+# convs (none with the B2 epilogue: BN needs the batch statistics of the
+# conv's output) and for each input gradient but the stem's input (11).
+# In bf16 all but the 8Ci = 8 stem forward take the tensor cores: every
+# dx has 8Ci and 8Co multiples of 64.
+TRAIN_BATCH = 2
+TRAIN_BATCHES = 3              # training loader of train_segmentation
+TIMED_STEPS = 5
+DX_SITES = B1_SITES[1:]
+TRAIN_PER_STEP = {"conv2_packed": len(B1_SITES) + len(DX_SITES),
+                  "conv2_packed_tc": len(B1_SITES) - 1 + len(DX_SITES),
+                  "conv2_packed_dx": len(DX_SITES),
+                  "conv2_packed_dx_tc": len(DX_SITES),
+                  "conv2_packed_as_bn_act": 0, "conv2_packed_as_bn_act_tc": 0,
+                  "bn_act_zero_pads": 0, "conv_axis": 0,
+                  "separable_conv3d": 0}
+# dw sums K = N x cells ~ 1.8M products per entry in f32 in an order that
+# neither side controls; sequential f32 accumulation errs by about
+# sqrt(K) 2^-24 ~ 1e-4 of a typical entry, a few times less of the
+# largest one: the gate is 2e-4 x max|ref| (runs showed up to 3.3e-5)
+DW_TOL = 2e-4
+# f32 packed train step (kernels) vs the fine UNet3D's (cuDNN, TF32 off).
+# Rounding decides the kinks: where two values of a 2x2x2 max-pool window,
+# or a PReLU input and 0, lie within f32 rounding of each other, the two
+# paths may route one voxel's gradient differently, which moves a weight
+# gradient upstream of it by up to ~1e-2 of its max (the deep BN chain
+# cancels most of each leaf's sum), on either path alike: the gate is
+# 2e-2, and the f64 fine step is recorded beside the two f32 ones.
+PARITY_SIZE = 64
+PARITY_LOSS_RTOL = 1e-5
+PARITY_GRAD_RTOL = 2e-2        # x max|grad| of the leaf
+# conv biases followed by BN have a true gradient of 0 and an f32-noise one
+# on both sides: every leaf also gets this floor, x the largest gradient
+PARITY_GRAD_FLOOR = 1e-6
+PARITY_STATS_TOL = 1e-5        # x max(1, max|running stat|)
+# labels: FreeSurfer ids, cortical ids >= 1000 in a sphere that is also
+# brighter in the image, a LIST_FCD subcortical id (17) in a smaller one,
+# background ids outside LIST_FCD (2, 41) elsewhere
+LABEL_RADII = (SIZE / 5.5, SIZE / 16)
 
 # the fader classifier of the ensemble: the reference's kwargs
 # (train_ENC_CLF.ipynb cells 17-18; bench.py FADER_*_KWARGS), whose
@@ -214,21 +277,21 @@ def random_state_dict(model, gen):
     return sd
 
 
-def t1_like_volumes(gen, n):
+def t1_like_volumes(gen, n, size=SIZE):
     """int16 volumes like tests/test_serving_quant.py's T1w stand-ins at
-    SIZE^3: N(600, 40) noise plus six smooth bright blobs (amplitude 400,
-    radius SIZE/24..SIZE/10), made on the card from `gen`."""
+    size^3: N(600, 40) noise plus six smooth bright blobs (amplitude 400,
+    radius size/24..size/10), made on the card from `gen`."""
     import torch
 
-    ax = torch.arange(SIZE, device="cuda", dtype=torch.float32)
+    ax = torch.arange(size, device="cuda", dtype=torch.float32)
     out = []
     for _ in range(n):
-        v = 600 + 40 * torch.randn((SIZE,) * 3, generator=gen, device="cuda")
+        v = 600 + 40 * torch.randn((size,) * 3, generator=gen, device="cuda")
         for _ in range(6):
-            c = SIZE / 8 + torch.rand(3, generator=gen, device="cuda") * (
-                SIZE * 3 / 4)
-            r = SIZE / 24 + torch.rand((), generator=gen, device="cuda") * (
-                SIZE / 10 - SIZE / 24)
+            c = size / 8 + torch.rand(3, generator=gen, device="cuda") * (
+                size * 3 / 4)
+            r = size / 24 + torch.rand((), generator=gen, device="cuda") * (
+                size / 10 - size / 24)
             g = [((ax - c[i]) ** 2) for i in range(3)]
             v += 400 * torch.exp(-(g[0][:, None, None] + g[1][None, :, None]
                                    + g[2][None, None, :]) / (2 * r * r))
@@ -265,7 +328,8 @@ def record_sites(K, P, fn):
     # the packed ops reach the kernels through their module's `K`
     P.K = types.SimpleNamespace(conv2_packed=rec_conv,
                                 conv2_packed_as_bn_act=rec_fused,
-                                bn_act_zero_pads=rec_epi)
+                                bn_act_zero_pads=rec_epi,
+                                conv2_packed_dx=K.conv2_packed_dx)
     try:
         fn()
     finally:
@@ -819,6 +883,486 @@ def profile_batch(fn, top: int = 12):
                     for k, ms, n in rows[:top]]}
 
 
+def record_train_sites(K, P, fn):
+    """The B1 launches (forward and input gradient) and the dw
+    contractions of one packed train step `fn()`, in call order, with
+    their shapes."""
+    import types
+
+    sites = {"forward": [], "dx": [], "dw": []}
+    conv, dx, dw = K.conv2_packed, K.conv2_packed_dx, P._dw_packed_qgroup
+
+    def rec_conv(x, wp, bias=None, *, pad=0):
+        sites["forward"].append({"x": tuple(x.shape), "wp": tuple(wp.shape),
+                                 "pad": pad, "bias": bias is not None})
+        return conv(x, wp, bias, pad=pad)
+
+    def rec_dx(g, wp, *, pad):
+        sites["dx"].append({"g": tuple(g.shape), "wp": tuple(wp.shape),
+                            "pad": pad})
+        return dx(g, wp, pad=pad)
+
+    def rec_dw(x_padded, g):
+        sites["dw"].append({"x": tuple(x_padded.shape), "g": tuple(g.shape)})
+        return dw(x_padded, g)
+
+    # the packed convs reach B1 through their module's `K` and dw through
+    # the module-level `_dw_packed_qgroup`
+    P.K = types.SimpleNamespace(conv2_packed=rec_conv, conv2_packed_dx=rec_dx,
+                                conv2_packed_as_bn_act=K.conv2_packed_as_bn_act,
+                                bn_act_zero_pads=K.bn_act_zero_pads)
+    P._dw_packed_qgroup = rec_dw
+    try:
+        fn()
+    finally:
+        P.K = K
+        P._dw_packed_qgroup = dw
+    return sites
+
+
+def _out_cells(site):
+    step = 1 if site["pad"] else -1
+    return tuple(e + step for e in site["x"][1:4])
+
+
+def name_train_sites(sites):
+    """Names of the recorded dx and dw calls: the forward site (B1_SITES
+    order) whose weights, parity and output shape each one matches."""
+    fwd = sites["forward"]
+    if len(fwd) != len(B1_SITES):
+        raise AssertionError(f"{len(fwd)} forward B1 launches per step")
+
+    def find(pred):
+        hits = [n for n, s in zip(B1_SITES, fwd) if pred(s)]
+        if len(hits) != 1:
+            raise AssertionError(f"ambiguous or missing site: {hits}")
+        return hits[0]
+
+    dx = [find(lambda s, d=d: s["wp"] == d["wp"] and s["pad"] == d["pad"]
+               and _out_cells(s) == d["g"][1:4]) for d in sites["dx"]]
+    dw = [find(lambda s, d=d: _out_cells(s) == d["g"][1:4]
+               and s["wp"][3] == d["x"][4] and s["wp"][4] == d["g"][4]
+               and tuple(e + 2 * s["pad"] for e in s["x"][1:4])
+               == d["x"][1:4]) for d in sites["dw"]]
+    if sorted(dx) != sorted(DX_SITES) or sorted(dw) != sorted(B1_SITES):
+        raise AssertionError(f"dx sites {dx}, dw sites {dw}")
+    return dx, dw
+
+
+def _bound(flops, nbytes, peak):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS_PER_S[peak] * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def train_kernel_phase(K, P, sites, gen):
+    """Phase 6a, at each site of the train step: B1's forward at batch
+    TRAIN_BATCH and its input gradient (`conv2_packed_dx`) at batch 1 and
+    TRAIN_BATCH, in f32 and bf16, against the plain versions; dw against
+    an f32 einsum of the same operands (bf16 at TRAIN_BATCH, f32 at batch
+    1).  Timed at TRAIN_BATCH in bf16, each beside cuDNN's
+    `convolution_backward` of the same packed k=2 conv as yardstick."""
+    import torch
+    import torch.nn.functional as TF
+
+    rows = {"forward": [], "dx": [], "dw": []}
+    errs = {k: {r: {"f32": 0.0, "bf16": 0.0} for r in ("tc", "cuda_core")}
+            for k in ("forward", "dx")}
+    errs["dw"] = {"f32": 0.0, "bf16": 0.0}
+    for name, site in zip(B1_SITES, sites):
+        _, di, hi, wi, c8i = site["x"]
+        c8o, pad = site["wp"][4], site["pad"]
+        for batch in (1, TRAIN_BATCH):
+            for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                x = torch.randn((batch, di, hi, wi, c8i), generator=gen,
+                                device="cuda").to(dt)
+                wp = (torch.randn(site["wp"], generator=gen, device="cuda")
+                      / np.sqrt(8 * c8i)).to(dt)
+                bias = (torch.randn(c8o, generator=gen, device="cuda")
+                        if site["bias"] else None)
+                g = torch.randn((batch, *_out_cells(site), c8o),
+                                generator=gen, device="cuda").to(dt)
+                out = None
+                if batch == TRAIN_BATCH:
+                    route = K._conv2_route(dt, c8i, c8o)
+                    out = K.conv2_packed(x, wp, bias, pad=pad)
+                    torch.cuda.synchronize()
+                    ref = K.conv2_packed_plain(x, wp, bias, pad=pad)
+                    e = check(f"train forward conv2_packed {name} b{batch} "
+                              f"({route})", out, ref, dn)
+                    errs["forward"][route][dn] = max(
+                        errs["forward"][route][dn], e)
+                dx = None
+                if name in DX_SITES:
+                    route = K._conv2_route(dt, c8o, c8i)
+                    dx = K.conv2_packed_dx(g, wp, pad=pad)
+                    torch.cuda.synchronize()
+                    ref = K.conv2_packed_plain(g, K.flipped_weights(wp),
+                                               pad=1 - pad)
+                    e = check(f"conv2_packed_dx {name} b{batch} ({route})",
+                              dx, ref, dn)
+                    errs["dx"][route][dn] = max(errs["dx"][route][dn], e)
+                if (batch, dn) in ((1, "f32"), (TRAIN_BATCH, "bf16")):
+                    e, dw_row = dw_check(P, TF, name, x, g, pad)
+                    errs["dw"][dn] = max(errs["dw"][dn], e)
+                if batch == TRAIN_BATCH and dn == "bf16":
+                    rows["forward"].append(b1_time_row(K, TF, name, x, wp,
+                                                       bias, pad, out))
+                    rows["dw"].append(dw_row)
+                    yard = cudnn_backward(x, wp, g, pad)
+                    rows["dw"][-1]["library_ms"] = time_ms(
+                        lambda: yard((False, True, False)), 5)
+                    if dx is not None:
+                        rows["dx"].append(dx_time_row(K, name, g, wp, pad,
+                                                      dx, yard))
+                del x, wp, g, out, dx
+                torch.cuda.empty_cache()
+    return rows, errs
+
+
+def cudnn_backward(x, wp, g, pad):
+    """Yardstick only: cuDNN's gradients of the packed k=2 conv
+    `conv2_packed(x, wp, pad=pad)` (NCDHW views of the channels-last data)
+    for an output mask (dx, dw, bias)."""
+    import torch
+
+    xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+    wc = wp.permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    return lambda mask: torch.ops.aten.convolution_backward(
+        gc, xc, wc, None, [1, 1, 1], [pad] * 3, [1, 1, 1], False, [0, 0, 0],
+        1, list(mask))
+
+
+def dx_time_row(K, name, g, wp, pad, dx, yard):
+    c8i, c8o = wp.shape[3:]
+    m = dx.shape[0] * dx.shape[1] * dx.shape[2] * dx.shape[3]
+    flops = 2.0 * m * (8 * c8o) * c8i
+    nbytes = (g.numel() + wp.numel() + dx.numel()) * g.element_size()
+    bound_ms, bound_by = _bound(flops, nbytes, "bf16")
+    ms = time_ms(lambda: K.conv2_packed_dx(g, wp, pad=pad), 10)
+    row = {"site": name, "g": list(g.shape), "c8i": c8i, "pad": 1 - pad,
+           "route": K._conv2_route(g.dtype, c8o, c8i), "ms": ms,
+           "plain_ms": time_ms(lambda: K.conv2_packed_dx_plain(
+               g, wp, pad=pad), 1),
+           "library_ms": time_ms(lambda: yard((True, False, False)), 10),
+           "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_share": bound_ms / ms,
+           "tflops": flops / ms / 1e9}
+    log(f"time conv2_packed_dx {name} b{g.shape[0]} bf16: {json.dumps(row)}")
+    return row
+
+
+def dw_check(P, TF, name, x, g, pad):
+    """dw of one site (`_dw_packed_qgroup` over the padded input, as the
+    backward runs it) against the f32 einsum of the same operands; its
+    time and bound.  Returns (error, row)."""
+    import torch
+
+    od, oh, ow = g.shape[1:4]
+    dt = "f32" if x.dtype == torch.float32 else "bf16"
+
+    def dw():
+        xpad = TF.pad(x, (0, 0) + (1, 1) * 3) if pad else x
+        return P._dw_packed_qgroup(xpad, g)
+
+    got = dw()
+    torch.cuda.synchronize()
+    xpad = TF.pad(x, (0, 0) + (1, 1) * 3) if pad else x
+
+    def einsum_f32():
+        return torch.stack([torch.einsum(
+            "ndhwi,ndhwo->io",
+            xpad[:, qd:qd + od, qh:qh + oh, qw:qw + ow].float(), g.float())
+            for qd in range(2) for qh in range(2) for qw in range(2)]
+        ).reshape(got.shape)
+
+    ref = einsum_f32()
+    route = P.dw_gemm_route(x.dtype, x.device)
+    err = check(f"dw_packed_qgroup {name} b{x.shape[0]} ({route})", got,
+                ref, dt, {dt: DW_TOL})
+    c8i, c8o = x.shape[4], g.shape[4]
+    m = g.shape[0] * od * oh * ow
+    flops = 2.0 * 8 * m * c8i * c8o
+    nbytes = (x.numel() + g.numel()) * x.element_size() + 4 * 8 * c8i * c8o
+    bound_ms, bound_by = _bound(flops, nbytes, "bf16" if route
+                                == "bf16_out_f32" else "f32")
+    ms = time_ms(dw, 5)
+    row = {"site": name, "x": list(x.shape), "g": list(g.shape),
+           "route": route, "ms": ms, "einsum_f32_ms": time_ms(einsum_f32, 1),
+           "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_share": bound_ms / ms,
+           "tflops": flops / ms / 1e9}
+    log(f"time dw_packed_qgroup {name} b{x.shape[0]} {dt}: "
+        f"{json.dumps(row)}")
+    del ref, got
+    return err, row
+
+
+def seg_batches(gen, n_batches, batch, size):
+    """(inputs, labels) numpy batches: T1w-like volumes (`t1_like_volumes`
+    at `size`^3, z-normalized float32, (batch, S, S, S, 1)) and int16
+    FreeSurfer-style labels: background ids outside LIST_FCD (2 and 41 by
+    hemisphere), cortical ids 1000-1034 in a sphere of radius
+    LABEL_RADII[0] that is also 300 brighter in the image, and the
+    subcortical LIST_FCD id 17 in a smaller one."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.transforms import znormalization
+
+    ax = torch.arange(size, device="cuda", dtype=torch.float32)
+    vols = t1_like_volumes(gen, n_batches * batch, size)
+    out = []
+    for b in range(n_batches):
+        xs, ls = [], []
+        for v in vols[b * batch:(b + 1) * batch]:
+            v = torch.from_numpy(v).cuda().float()
+            lab = torch.full(v.shape, 2, dtype=torch.int16, device="cuda")
+            lab[:, :, size // 2:] = 41
+            for radius, kind in zip(LABEL_RADII, ("cortex", "fcd")):
+                c = size / 4 + torch.rand(3, generator=gen,
+                                          device="cuda") * (size / 2)
+                r2 = ((ax - c[0])[:, None, None] ** 2
+                      + (ax - c[1])[None, :, None] ** 2
+                      + (ax - c[2])[None, None, :] ** 2)
+                inside = r2 <= (radius * size / SIZE) ** 2
+                ids = (1000 + r2.long() % 35 if kind == "cortex"
+                       else torch.full_like(lab, 17))
+                lab = torch.where(inside, ids.to(torch.int16), lab)
+                if kind == "cortex":
+                    v = v + 300 * inside
+            xs.append(znormalization(v))
+            ls.append(lab)
+        out.append((torch.stack(xs)[..., None].cpu().numpy(),
+                    torch.stack(ls)[..., None].cpu().numpy()))
+    return out
+
+
+def parity_phase(TS, UNet3D, gen):
+    """Phase 6b: one f32 step at PARITY_SIZE^3, batch 1: the packed loss,
+    gradients and running statistics (B1 forward and dx, f32 dw) against
+    the fine UNet3D train step (cuDNN convolutions, TF32 off).  Random
+    normal inputs leave the max pools without ties."""
+    import copy
+
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.transforms import binarize_segmentation
+
+    model = UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
+                   out_channels_first_layer=OCFL, device="cuda")
+    random_state_dict(model, gen)
+    x = torch.randn((1, PARITY_SIZE, PARITY_SIZE, PARITY_SIZE, 1),
+                    generator=gen, device="cuda")
+    _, labels = seg_batches(gen, 1, 1, PARITY_SIZE)[0]
+    t = binarize_segmentation(torch.from_numpy(labels).cuda())
+    packed, fine = copy.deepcopy(model), copy.deepcopy(model)
+    fine64 = copy.deepcopy(model).double()
+    loss_p, stats = TS.packed_seg_loss(packed, x, t)
+    loss_p.backward()
+    loss_f = TS.seg_loss(fine, x, t)
+    loss_f.backward()
+    TS.seg_loss(fine64, x.double(), t.double()).backward()
+    lp, lf = loss_p.item(), loss_f.item()
+    gp = dict(packed.named_parameters())
+    gf = dict(fine.named_parameters())
+    g64 = dict(fine64.named_parameters())
+    floor = PARITY_GRAD_FLOOR * max(p.grad.abs().max().item()
+                                    for p in gf.values())
+    leaves = {}
+    for k, p in gf.items():
+        scale = p.grad.abs().max().item()
+        leaves[k] = {
+            "max_grad": scale,
+            "err": (gp[k].grad - p.grad).abs().max().item(),
+            "tol": PARITY_GRAD_RTOL * scale + floor,
+            "packed_vs_f64": (gp[k].grad.double() - g64[k].grad).abs()
+            .max().item(),
+            "fine_vs_f64": (p.grad.double() - g64[k].grad).abs().max()
+            .item()}
+    buffers = dict(fine.named_buffers())
+    stats_err = max((v - buffers[k]).abs().max().item()
+                    / max(1.0, buffers[k].abs().max().item())
+                    for k, v in stats.items())
+    # leaves with a true gradient of 0 (pre-BN biases) left out of the
+    # relative errors
+    real = [k for k, v in leaves.items() if v["max_grad"] > 1e3 * floor]
+
+    def worst(key):
+        return max(leaves[k][key] / leaves[k]["max_grad"] for k in real)
+
+    out = {"size": PARITY_SIZE, "batch": 1, "loss_packed": lp,
+           "loss_fine": lf, "loss_rel_err": abs(lp - lf) / abs(lf),
+           "foreground_share": t.mean().item(),
+           "grad_worst_err_over_tol": max(v["err"] / v["tol"]
+                                          for v in leaves.values()),
+           "grad_max_rel_err": worst("err"),
+           "grad_max_rel_err_packed_vs_f64": worst("packed_vs_f64"),
+           "grad_max_rel_err_fine_vs_f64": worst("fine_vs_f64"),
+           "running_stats_err": stats_err, "leaves": leaves}
+    log(f"f32 parity (packed kernels vs fine cuDNN, {PARITY_SIZE}^3 b1): "
+        f"{json.dumps({k: v for k, v in out.items() if k != 'leaves'})}")
+    bad = [k for k, v in leaves.items() if v["err"] > v["tol"]]
+    if bad:
+        raise AssertionError(f"f32 parity: gradients differ: "
+                             f"{[(k, leaves[k]) for k in bad]}")
+    if out["loss_rel_err"] > PARITY_LOSS_RTOL:
+        raise AssertionError(f"f32 parity: loss {lp} vs {lf}")
+    if stats_err > PARITY_STATS_TOL:
+        raise AssertionError(f"f32 parity: running stats differ by "
+                             f"{stats_err}")
+    return out
+
+
+def step_split(K, P, fn):
+    """Device time of the B1 forward launches, the B1 input-gradient
+    launches and the dw contractions of one call of fn, from CUDA events
+    recorded around each call on the stream (the wrappers' own weight
+    re-layouts included).  Returns fn's result and a function that reads
+    the sums (after a synchronize)."""
+    import types
+
+    import torch
+
+    pairs = {"b1_forward": [], "b1_dx": [], "dw": []}
+
+    def bracket(key, f):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = f(*args, **kw)
+            end.record()
+            pairs[key].append((start, end))
+            return out
+        return run
+
+    dw = P._dw_packed_qgroup
+    P.K = types.SimpleNamespace(
+        conv2_packed=bracket("b1_forward", K.conv2_packed),
+        conv2_packed_dx=bracket("b1_dx", K.conv2_packed_dx),
+        conv2_packed_as_bn_act=K.conv2_packed_as_bn_act,
+        bn_act_zero_pads=K.bn_act_zero_pads)
+    P._dw_packed_qgroup = bracket("dw", dw)
+    try:
+        out = fn()
+    finally:
+        P.K = K
+        P._dw_packed_qgroup = dw
+    return out, lambda: {f"{k}_ms": sum(s.elapsed_time(e) for s, e in v)
+                         for k, v in pairs.items()} | {
+        f"{k}_calls": len(v) for k, v in pairs.items()}
+
+
+def training_phase(K, P, UNet3D, gen, launch_counts):
+    """Phase 6c: `train_segmentation` (packed, bf16, 1 epoch) over
+    TRAIN_BATCHES batches of TRAIN_BATCH T1w-like volumes with a
+    validation batch, its checkpoint reloaded; then 1 warm-up and
+    TIMED_STEPS timed `packed_seg_train_step`s on one batch, and one more
+    under the profiler with the B1-forward / B1-dx / dw split."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch import train as Tr
+    from mri_epilepsy_diagnosis_torch.transforms import binarize_segmentation
+
+    def new_state():
+        return Tr.create_train_state(
+            UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
+                   out_channels_first_layer=OCFL, device="cuda"),
+            Tr.torch_adamw())
+
+    state = new_state()
+    random_state_dict(state.model, gen)
+    sched = Tr.ReduceLROnPlateau(state.optimizer, mode="min", factor=0.1,
+                                 patience=3, threshold=0.01)
+    batches = seg_batches(gen, TRAIN_BATCHES + 1, TRAIN_BATCH, SIZE)
+    train, val = batches[:TRAIN_BATCHES], batches[TRAIN_BATCHES:]
+    fg = float(np.mean([binarize_segmentation(torch.from_numpy(lab)).mean()
+                        for _, lab in batches]))
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, tr, va = Tr.train_segmentation(
+        1, train, val, state, sched, "chip_smoke_seg",
+        weights_dir="chiprun_out", verbose=False, packed=True,
+        input_dtype=torch.bfloat16)
+    epoch_s = time.perf_counter() - t0
+    counts_epoch = launch_counts()
+    want = {k: TRAIN_BATCHES * v + 2 * UNET_PER_BATCH[k]
+            for k, v in TRAIN_PER_STEP.items()}
+    log("launches (train_segmentation, 3 train steps + 2 validation "
+        "batches): " + ", ".join(f"{k} {counts_epoch[k]} (expected {w})"
+                                 for k, w in want.items()))
+    if counts_epoch != want:
+        raise AssertionError(f"launch counts {counts_epoch} != {want}")
+    ckpt = os.path.join("chiprun_out", "chip_smoke_seg_epoch_1.ckpt")
+    restored = Tr.load_checkpoint(ckpt, new_state())
+    sd, rd = state.model.state_dict(), restored.model.state_dict()
+    if restored.step != state.step or any(not torch.equal(sd[k], rd[k])
+                                          for k in sd):
+        raise AssertionError("the checkpoint does not restore the state")
+
+    xb = torch.from_numpy(train[0][0]).cuda().to(torch.bfloat16)
+    lb = torch.from_numpy(train[0][1]).cuda()
+    state, loss = Tr.packed_seg_train_step(state, xb, lb)     # warm-up
+    warm_loss = float(loss)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        state, loss = Tr.packed_seg_train_step(state, xb, lb)
+        losses.append(float(loss))
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = launch_counts()
+    want = {k: TIMED_STEPS * v for k, v in TRAIN_PER_STEP.items()}
+    log(f"launches ({TIMED_STEPS} train steps): " + ", ".join(
+        f"{k} {counts[k]} (expected {w})" for k, w in want.items()))
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    master_f32 = (all(p.dtype == torch.float32
+                      for p in state.model.parameters())
+                  and all(st[k].dtype == torch.float32
+                          for st in state.optimizer.state.values()
+                          for k in ("exp_avg", "exp_avg_sq"))
+                  and all(b.dtype == torch.float32 for n, b in
+                          state.model.named_buffers() if "running" in n))
+
+    box = {}
+
+    def profiled_step():
+        _, box["read"] = step_split(K, P, lambda: Tr.packed_seg_train_step(
+            state, xb, lb))
+
+    prof = profile_batch(profiled_step)
+    split = box["read"]()
+    split["other_kernels_ms"] = (prof["kernel_ms"] - split["b1_forward_ms"]
+                                 - split["b1_dx_ms"] - split["dw_ms"])
+    out = {"size": SIZE, "batch": TRAIN_BATCH, "dtype": "bf16",
+           "ocfl": OCFL, "dec_up": "explicit", "remat": False,
+           "foreground_share": fg,
+           "epoch_train_losses": [float(v) for v in tr],
+           "epoch_val_losses": [float(v) for v in va],
+           "epoch_s": epoch_s, "warmup_loss": warm_loss,
+           "timed_losses": losses, "ms_per_step": step_s * 1e3,
+           "vol_per_s": TRAIN_BATCH / step_s, "peak_memory_gb": peak_gb,
+           "master_weights_f32": master_f32,
+           "dw_route": P.dw_gemm_route(torch.bfloat16, xb.device),
+           "launches_epoch": counts_epoch, "launches_timed_steps": counts,
+           "step_split": split, "profile": prof, "checkpoint": ckpt}
+    log(f"training: {json.dumps(out)}")
+    if not (np.isfinite(losses + [warm_loss]).all()
+            and np.isfinite(out["epoch_train_losses"]
+                            + out["epoch_val_losses"]).all()):
+        raise AssertionError(f"non-finite training losses: {out}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    if not master_f32:
+        raise AssertionError("master weights or AdamW state left float32")
+    return out
+
+
 def kernel_entry(name, source, replaces, rows, errs, launches, per_batch,
                  **extra):
     t_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
@@ -958,6 +1502,8 @@ def main() -> int:
     def launch_counts():
         return {"conv2_packed": K.conv2_packed.launches,
                 "conv2_packed_tc": K.conv2_packed.tc_launches,
+                "conv2_packed_dx": K.conv2_packed_dx.launches,
+                "conv2_packed_dx_tc": K.conv2_packed_dx.tc_launches,
                 "conv2_packed_as_bn_act": K.conv2_packed_as_bn_act.launches,
                 "conv2_packed_as_bn_act_tc":
                     K.conv2_packed_as_bn_act.tc_launches,
@@ -1130,6 +1676,34 @@ def main() -> int:
     ens_profile = profile_batch(lambda: serve_ensemble(vols[:BATCH]))
     log(f"profile ensemble: {json.dumps(ens_profile)}")
 
+    # ---- 6. training
+    from mri_epilepsy_diagnosis_torch.train import seg as TS
+
+    del vols, noise, model, params, ens_params, enc, clf
+    torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    # 6a. every B1 launch and dw of one 192^3 batch-2 bf16 train step
+    rec_model = UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
+                       out_channels_first_layer=OCFL, device="cuda")
+    random_state_dict(rec_model, gen)
+    xr = torch.randn((TRAIN_BATCH, SIZE, SIZE, SIZE, 1), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    yr = (torch.rand(xr.shape, generator=gen, device="cuda") > 0.97).float()
+    train_sites = record_train_sites(
+        K, P, lambda: TS.packed_seg_loss(rec_model, xr, yr)[0].backward())
+    dx_names, dw_names = name_train_sites(train_sites)
+    del rec_model, xr, yr
+    torch.cuda.empty_cache()
+    train_rows, train_errs = train_kernel_phase(K, P, train_sites["forward"],
+                                                gen)
+    # 6b. f32 parity of the packed step (kernels) with the fine one (cuDNN)
+    parity = parity_phase(TS, UNet3D, gen)
+    torch.cuda.empty_cache()
+    # 6c. training at full width through the entry points
+    training = training_phase(K, P, UNet3D, gen, launch_counts)
+    train_s = time.perf_counter() - t_train
+    log(f"training phase: {train_s:.1f} s")
+
     # the kernels of the served path, one entry per kernel instantiation:
     # launches from the timed ensemble run, times summed over the sites
     # each serves in bf16.  B1 and its B2-epilogue launches are counted
@@ -1154,28 +1728,67 @@ def main() -> int:
                      tpu + "265", tc_rows,
                      {"f32": None, "bf16": b1_errs["tc"]["bf16"]},
                      c["conv2_packed_tc"] - c["conv2_packed_as_bn_act_tc"],
-                     B1_TC_PER_BATCH - len(f_tc)),
+                     B1_TC_PER_BATCH - len(f_tc), path="serving"),
         kernel_entry("conv2_packed_tc_bn_act", src + "conv2_packed_tc.cu",
                      tpu + "197", f_tc,
                      {"f32": None, "bf16": fused_errs["tc"]["bf16"]},
                      c["conv2_packed_as_bn_act_tc"], len(f_tc),
                      fuses=tpu + "265 (B1) + " + tpu + "197 (B2)",
-                     b2=b2_split),
+                     b2=b2_split, path="serving"),
         kernel_entry("conv2_packed_bn_act", src + "conv2_packed.cu",
                      tpu + "197", f_cc, fused_errs["cuda_core"],
                      c["conv2_packed_as_bn_act"]
                      - c["conv2_packed_as_bn_act_tc"], len(f_cc),
                      fuses=tpu + "265 (B1) + " + tpu + "197 (B2)",
-                     b2=b2_split),
+                     b2=b2_split, path="serving"),
         kernel_entry("separable_conv3d", src + "separable_conv3d.cu",
                      tpu + "70", sep_rows, sep_errs,
-                     c["separable_conv3d"], len(B3_STACKS),
+                     c["separable_conv3d"], len(B3_STACKS), path="serving",
                      fuses="three " + tpu + "70 calls of " + tpu
                      + "148 separable_conv3d",
                      per_axis_ms=sum(r["per_axis_ms"] for r in sep_rows),
                      cudnn_3calls_ms=sum(r["cudnn_3calls_ms"]
                                          for r in sep_rows)),
     ]
+    # training: launches from the timed train steps, times summed over the
+    # sites of one step (batch 2, bf16); B1's forward on tensor cores, the
+    # stem's forward on the CUDA-core kernel, and the input gradients
+    t = training["launches_timed_steps"]
+    per_step = (f"sum over the sites of one batch-{TRAIN_BATCH} bf16 train "
+                f"step at {SIZE}^3; launches from {TIMED_STEPS} steps")
+    fwd_tc = [r for r in train_rows["forward"] if r["route"] == "tc"]
+    fwd_cc = [r for r in train_rows["forward"] if r["route"] == "cuda_core"]
+    kernels += [
+        kernel_entry("conv2_packed_tc.train_forward",
+                     src + "conv2_packed_tc.cu", tpu + "265", fwd_tc,
+                     {"f32": None,
+                      "bf16": train_errs["forward"]["tc"]["bf16"]},
+                     t["conv2_packed_tc"] - t["conv2_packed_dx_tc"],
+                     len(fwd_tc), path="training", shapes=per_step),
+        kernel_entry("conv2_packed.train_stem", src + "conv2_packed.cu",
+                     tpu + "265", fwd_cc, train_errs["forward"]["cuda_core"],
+                     t["conv2_packed"] - t["conv2_packed_tc"]
+                     - (t["conv2_packed_dx"] - t["conv2_packed_dx_tc"]),
+                     len(fwd_cc), path="training", shapes=per_step),
+        kernel_entry("conv2_packed_tc.dx", src + "conv2_packed_tc.cu",
+                     tpu + "265", train_rows["dx"],
+                     {"f32": None, "bf16": train_errs["dx"]["tc"]["bf16"]},
+                     t["conv2_packed_dx_tc"], len(DX_SITES), path="training",
+                     shapes=per_step, gradient_of="mri_epilepsy_diagnosis_tpu"
+                     "/ops/packed.py:230 (_conv3_packed_bwd), :479 "
+                     "(_conv3_packed_as_bwd)",
+                     max_abs_err_f32_cuda_core=train_errs["dx"]["cuda_core"]
+                     ["f32"]),
+    ]
+    dw_rows = train_rows["dw"]
+    dw = {"route": training["dw_route"],
+          "ms": sum(r["ms"] for r in dw_rows),
+          "einsum_f32_ms": sum(r["einsum_f32_ms"] for r in dw_rows),
+          "library_ms": sum(r["library_ms"] for r in dw_rows),
+          "bound_ms": sum(r["bound_ms"] for r in dw_rows),
+          "flops": sum(r["flops"] for r in dw_rows),
+          "max_abs_err": train_errs["dw"], "shapes": per_step}
+    log(f"dw (cuBLAS GEMMs, not a kernel of the port): {json.dumps(dw)}")
     # the counterparts of the JAX functions that the served path no longer
     # launches (0 launches there), with their phase-3 numbers
     cc_rows = [r for r in b1_rows if r["route"] == "cuda_core"]
@@ -1199,7 +1812,15 @@ def main() -> int:
                    "ae_b3_fused_stacks": ae_sep_rows, "b3_sites": b3_rows,
                    "ae_b3_sites": ae_rows, "serving": serving,
                    "ensemble": ensemble, "profile": profile,
-                   "profile_ensemble": ens_profile, "build_s": build_s,
+                   "profile_ensemble": ens_profile,
+                   "train_sites": train_sites,
+                   "train_site_names": {"dx": dx_names, "dw": dw_names},
+                   "train_forward_sites": train_rows["forward"],
+                   "train_dx_sites": train_rows["dx"],
+                   "train_dw_sites": dw_rows, "dw": dw,
+                   "train_errs": train_errs, "parity_f32": parity,
+                   "training": training, "training_phase_s": train_s,
+                   "build_s": build_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

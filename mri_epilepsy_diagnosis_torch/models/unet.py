@@ -4,9 +4,14 @@
 Submodules carry the checkpoint's names (`encoder.encoding_blocks.0.conv1.
 conv_layer.weight`, ...), so a reference `.pth` state dict loads with
 `load_state_dict`.  The forward takes and returns channels-last
-`(N, D, H, W, C)` tensors and runs eval-mode BatchNorm: this model is the
-weight container and the parity oracle of the packed serving path
-(`models/unet_packed.py`), which is what serving runs.
+`(N, D, H, W, C)` tensors.  In eval mode BatchNorm uses the running
+statistics; in train mode (`.train()`) it normalizes with the batch's and
+updates the running buffers, as `nn.BatchNorm3d` does (torch momentum,
+unbiased variance into the running statistics).  Its convolutions are
+`F.conv3d` (cuDNN on the card), with the weights cast to the input's
+dtype.  This model is the weight container of the packed serving and
+training paths (`models/unet_packed.py`), their parity oracle, and the
+fine `seg_train_step`.
 """
 from __future__ import annotations
 
@@ -34,13 +39,29 @@ class ConvBlock(nn.Module):
         self.activation_layer = nn.PReLU(device=device) if activation else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = TF.conv3d(x.permute(0, 4, 1, 2, 3), self.conv_layer.weight,
-                      self.conv_layer.bias, padding=self.padding)
+        conv = self.conv_layer
+        bias = None if conv.bias is None else conv.bias.to(x.dtype)
+        y = TF.conv3d(x.permute(0, 4, 1, 2, 3), conv.weight.to(x.dtype),
+                      bias, padding=self.padding)
         y = y.permute(0, 2, 3, 4, 1)
         if self.norm_layer is not None:
             nl = self.norm_layer
-            y = F.batch_norm(y, nl.running_mean, nl.running_var, nl.weight,
-                             nl.bias, nl.eps)
+            if self.training:
+                count = y[..., 0].numel()
+                if count == 1:
+                    raise ValueError("Expected more than 1 value per channel "
+                                     "when training (nn.BatchNorm3d)")
+                mean, var = F.batch_moments(y)
+                with torch.no_grad():
+                    new = F.update_running_stats(
+                        nl.running_mean, nl.running_var, mean, var, count,
+                        nl.momentum)
+                    nl.running_mean.copy_(new[0])
+                    nl.running_var.copy_(new[1])
+                    nl.num_batches_tracked.add_(1)
+            else:
+                mean, var = nl.running_mean, nl.running_var
+            y = F.batch_norm(y, mean, var, nl.weight, nl.bias, nl.eps)
         if self.activation_layer is not None:
             y = F.prelu(y, self.activation_layer.weight)
         return y
@@ -114,7 +135,7 @@ class _Decoder(nn.Module):
 class UNet3D(nn.Module):
     """Parity UNet: `(N, D, H, W, in_channels)` -> logits
     `(N, D, H, W, out_classes)`.  Spatial dims must be divisible by
-    2^(num_encoding_blocks - 1).  Eval mode only: call `.eval()` first."""
+    2^(num_encoding_blocks - 1)."""
 
     def __init__(self, in_channels: int = 1, out_classes: int = 2,
                  num_encoding_blocks: int = 3,
@@ -139,9 +160,6 @@ class UNet3D(nn.Module):
                                     padding=0, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise RuntimeError("UNet3D runs eval-mode BatchNorm only; call "
-                               ".eval() first")
         x, skips = self.encoder(x)
         x = self.bottom_block(x)
         x = self.decoder(x, skips)

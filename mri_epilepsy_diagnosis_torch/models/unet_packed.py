@@ -1,5 +1,7 @@
-"""Packed-layout (space-to-depth) inference path of UNet3D: the served
-path (counterpart of the JAX package's `models/unet_packed.py`, v2 forward).
+"""Packed-layout (space-to-depth) inference and training paths of UNet3D:
+the served path and the trained one (counterpart of the JAX package's
+`models/unet_packed.py`: the v2 forward, `packed_unet_train_apply` with
+`dec_up="explicit"`, and `packed_dice_loss`).
 
 Runs the `UNet3D` eval forward on the packed `(N, S/2, S/2, S/2, 8C)`
 layout of `ops/packed.py`, from the same `state_dict`, alternating
@@ -16,6 +18,11 @@ first decoder conv's weights (the JAX package's `dec_up="explicit"` form of
 conv into one 5^3 kernel with face corrections instead; both compute the
 same function.
 
+The train-mode forward (`packed_unet_train_apply`) runs the same 12 convs
+through B1 without the epilogue, since BatchNorm normalizes with the
+statistics of the conv's output; its backward runs every input gradient
+but the stem's through B1 as well (`ops/packed.py::Conv3Packed`).
+
 `state_dict` arguments are the `UNet3D` state dict, optionally BN-folded
 by `fold_bn_inference`: a flat mapping of fepegar keys to tensors.
 """
@@ -24,6 +31,7 @@ from __future__ import annotations
 from typing import Dict, Mapping
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import functional as F
 from ..ops import packed as P
@@ -169,3 +177,165 @@ def packed_unet_mask_v2(state_dict: StateDict, x: torch.Tensor,
                          f"{yp.shape[-1] // 8} classes")
     mask = yp[..., 1::2] > yp[..., 0::2]
     return P.unpack2(mask)[..., 0].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# training in packed layout
+#
+# BatchNorm batch statistics are computed exactly as the fine layout would:
+# per-fine-channel sums fold the 8 sub-position blocks, and shifted tensors
+# have their pad voxels (fine -1 / S) zeroed, so they add nothing to the
+# sums and only the N*S^3 real voxels divide them.
+# ---------------------------------------------------------------------------
+
+
+def _bn_train_packed(y, sd: StateDict, block: str, *, valid: float,
+                     momentum: float = 0.1, eps: float = 1e-5):
+    """Normalize packed `y` (pad voxels zeroed, or aligned) with its own
+    fine-exact batch statistics: one pass of float32 sums E[x] and E[x^2],
+    var = max(E[x^2] - E[x]^2, 0), `valid` = N*S^3 fine voxels per
+    channel; normalized in y's dtype.  Returns (normalized y, the new
+    running statistics as new tensors keyed like the state dict), as the
+    JAX package's `models/unet_packed.py::_bn_train_packed`."""
+    c = y.shape[-1] // 8
+    yf = y.float()
+    s1 = yf.sum(dim=(0, 1, 2, 3)).reshape(8, c).sum(0)
+    s2 = yf.square().sum(dim=(0, 1, 2, 3)).reshape(8, c).sum(0)
+    mean = s1 / valid
+    # f32 cancellation can round E[x^2]-E[x]^2 slightly negative for a
+    # near-constant channel with a large mean; rsqrt(var+eps) would NaN
+    var = torch.clamp_min(s2 / valid - mean * mean, 0.0)
+    nl = f"{block}.norm_layer"
+    out = F.batch_norm(y, P.tile_channel_param(mean),
+                       P.tile_channel_param(var),
+                       P.tile_channel_param(sd[f"{nl}.weight"]),
+                       P.tile_channel_param(sd[f"{nl}.bias"]), eps)
+    rm, rv = F.update_running_stats(sd[f"{nl}.running_mean"],
+                                    sd[f"{nl}.running_var"], mean, var,
+                                    valid, momentum)
+    return out, {f"{nl}.running_mean": rm, f"{nl}.running_var": rv}
+
+
+def _block_train(y, sd: StateDict, block: str, *, shifted: bool,
+                 valid: float):
+    """Train-mode tail of a ConvBlock whose conv output is `y` (shifted or
+    aligned packed): zero the pads, BN with batch statistics, PReLU, zero
+    the pads again.  Returns (activated y, new running statistics)."""
+    stats = {}
+    if shifted:
+        y = P.zero_shifted_pads(y)
+    if f"{block}.norm_layer.weight" in sd:
+        y, stats = _bn_train_packed(y, sd, block, valid=valid)
+    alpha = sd.get(f"{block}.activation_layer.weight")
+    if alpha is not None:
+        y = F.prelu(y, alpha)
+    if shifted:
+        y = P.zero_shifted_pads(y)
+    return y, stats
+
+
+def packed_unet_train_apply(state_dict: StateDict, x: torch.Tensor,
+                            num_encoding_blocks: int = 3, remat: bool = False,
+                            dec_up: str = "explicit"):
+    """Train-mode packed forward: fine (N, S, S, S, 1) -> (packed logits
+    (N, S/2, S/2, S/2, 8 out_classes), new running statistics keyed like
+    the state dict), matching `UNet3D(...).train()(x)` (BN normalizes with
+    the batch statistics; the running ones come back as new tensors, the
+    caller stores them).  Differentiable in every parameter of
+    `state_dict` (pass `model.state_dict(keep_vars=True)`).
+
+    Every 3x3x3 conv is a B1 launch (12 at num_encoding_blocks=3, none
+    with the B2 epilogue: BN needs the batch statistics of the conv's
+    output), every input gradient but the stem's another (11).  The
+    decoder's first conv is the sum of an aligned->shifted conv of the
+    skip and one of the explicitly upsampled input (JAX's
+    `dec_up="explicit"`, its training default); "composed" and "hybrid"
+    need the composed decoder, which the port does not have yet.
+    `remat=True` recomputes each two-conv block in the backward
+    (`torch.utils.checkpoint`, non-reentrant) instead of keeping its
+    activations."""
+    if dec_up != "explicit":
+        raise NotImplementedError(
+            f'dec_up="{dec_up}" needs the composed decoder (ROADMAP A3b); '
+            'the port trains with dec_up="explicit"')
+    sd = state_dict
+    nb = num_encoding_blocks
+    n, s = x.shape[0], x.shape[1]
+
+    def conv_as(xp, block, w=None, bias=True):
+        w = sd[f"{block}.conv_layer.weight"] if w is None else w
+        b = sd.get(f"{block}.conv_layer.bias") if bias else None
+        return P.conv3_packed_as(xp, P.pack_weights2_as(w), b)
+
+    def conv_sa(xs, block):
+        return P.conv3_packed(xs, P.pack_weights2(
+            sd[f"{block}.conv_layer.weight"]),
+            sd.get(f"{block}.conv_layer.bias"))
+
+    def tail(y_s, blk, s):
+        valid = float(n) * s ** 3
+        y, st1 = _block_train(y_s, sd, f"{blk}.conv1", shifted=True,
+                              valid=valid)
+        out, st2 = _block_train(conv_sa(y, f"{blk}.conv2"), sd,
+                                f"{blk}.conv2", shifted=False, valid=valid)
+        return out, {**st1, **st2}
+
+    def double_block(xp, blk, s):
+        return tail(conv_as(xp, f"{blk}.conv1"), blk, s)
+
+    def dec_block(xp, skip, blk, s):
+        w = sd[f"{blk}.conv1.conv_layer.weight"]
+        c_skip = skip.shape[-1] // 8
+        y_s = conv_as(skip, f"{blk}.conv1", w[:, :c_skip])
+        y_u = conv_as(P.upsample2_packed(xp), f"{blk}.conv1", w[:, c_skip:],
+                      bias=False)
+        return tail(y_s + y_u, blk, s)
+
+    def run(fn, *args):
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    new_stats = {}
+    xp = P.pack2(x)
+    skips = []
+    for i in range(nb - 1):
+        xp, st = run(double_block, xp, f"encoder.encoding_blocks.{i}", s)
+        new_stats.update(st)
+        skips.append(xp)
+        xp = P.maxpool2_packed(xp)
+        s //= 2
+    xp, st = run(double_block, xp, "bottom_block", s)
+    new_stats.update(st)
+    for i in range(nb - 1):
+        s *= 2
+        xp, st = run(dec_block, xp, skips[-(i + 1)],
+                     f"decoder.decoding_blocks.{i}", s)
+        new_stats.update(st)
+    yp = P.conv1_packed_blockdiag(xp, sd["classifier.conv_layer.weight"],
+                                  sd.get("classifier.conv_layer.bias"))
+    return yp, new_stats
+
+
+def packed_dice_loss(logits_packed: torch.Tensor,
+                     targets_fine: torch.Tensor) -> torch.Tensor:
+    """Soft dice loss from packed logits (N, S/2, S/2, S/2, 8 C) and fine
+    targets (N, S, S, S, 1): the softmax runs over the class channels of
+    each sub-position, and the sub-position axis is folded into a spatial
+    axis (dice is a voxel sum, so the layout does not matter as long as
+    probabilities and targets align; the targets are packed with `pack2`).
+    Binary (0/1 float) targets for out_classes == 2, integer class labels
+    otherwise.  Mean over batch and classes."""
+    from ..metrics.dice import get_dice_loss
+
+    n, d2, h2, w2, c8 = logits_packed.shape
+    co = c8 // 8
+    probs = torch.softmax(logits_packed.reshape(n, d2, h2, w2, 8, co), -1)
+    probs = probs.reshape(n, d2, h2, w2 * 8, co)
+    tp = P.pack2(targets_fine.float()).reshape(n, d2, h2, w2 * 8, 1)
+    if co == 2:
+        onehot = torch.cat([1.0 - tp, tp], dim=-1)
+    else:
+        onehot = torch.nn.functional.one_hot(
+            tp[..., 0].long(), co).to(probs.dtype)
+    return get_dice_loss(probs, onehot, spatial_dimensions=(1, 2, 3)).mean()

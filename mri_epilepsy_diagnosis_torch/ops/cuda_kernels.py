@@ -5,6 +5,7 @@ launch counters and build.
 |---------------------|---------------------------|-------------------------------------------|
 | `conv2_packed`      | `csrc/conv2_packed_tc.cu` (bf16, 8Ci and 8Co multiples of 64: wgmma + TMA), `csrc/conv2_packed.cu` (the rest: CUDA cores) | `ops/pallas_kernels.py::conv2_packed_pallas` |
 | `conv2_packed_as_bn_act` | the same two kernels, with B2 as the epilogue of an aligned->shifted launch | `conv2_packed_pallas` + `bn_act_zero_pads` |
+| `conv2_packed_dx`   | the same two kernels, in the other parity with flipped, io-swapped weights: B1's input gradient | the dx of `ops/packed.py::_conv3_packed_bwd` / `_conv3_packed_as_bwd` |
 | `bn_act_zero_pads`  | `csrc/bn_act_zero_pads.cu`| `ops/pallas_kernels.py::bn_act_zero_pads` |
 | `conv_axis`         | `csrc/conv_axis.cu`       | `ops/pallas_kernels.py::conv_axis_last`   |
 | `separable_conv3d`  | `csrc/separable_conv3d.cu` (the three axes in one launch) | `ops/pallas_kernels.py::separable_conv3d` |
@@ -23,7 +24,9 @@ to the other.  `<wrapper>.launches` counts kernel launches, so a run can
 show that its main path went through the kernels; `conv2_packed.launches`
 counts every B1 launch, fused or not, `conv2_packed.tc_launches` those on
 the tensor-core route; `conv2_packed_as_bn_act.launches` (and
-`.tc_launches`) the B1 launches that ran B2 as their epilogue.
+`.tc_launches`) the B1 launches that ran B2 as their epilogue,
+`conv2_packed_dx.launches` (and `.tc_launches`) those that computed an
+input gradient.
 
 The kernels are CUDA C++ for `sm_90a` with a plain C interface, compiled
 by `nvcc` at first use (one process per source, all started together) and
@@ -376,6 +379,59 @@ def _conv2_launch(x: torch.Tensor, wp: torch.Tensor,
 
 conv2_packed.launches = 0
 conv2_packed.tc_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B1 as the input gradient of B1
+# ---------------------------------------------------------------------------
+
+
+def flipped_weights(wp: torch.Tensor) -> torch.Tensor:
+    """(2, 2, 2, 8Ci, 8Co) packed weights -> the spatially flipped,
+    io-swapped (2, 2, 2, 8Co, 8Ci) weights of the conv's transpose."""
+    return torch.flip(wp, (0, 1, 2)).transpose(3, 4).contiguous()
+
+
+def conv2_packed_dx_plain(g: torch.Tensor, wp: torch.Tensor, *,
+                          pad: int) -> torch.Tensor:
+    """Plain version of `conv2_packed_dx`."""
+    return conv2_packed_plain(g, flipped_weights(wp), pad=1 - pad)
+
+
+def conv2_packed_dx(g: torch.Tensor, wp: torch.Tensor, *,
+                    pad: int) -> torch.Tensor:
+    """Input gradient of `y = conv2_packed(x, wp, pad=pad)`: with y's
+    cotangent g (N, Do, Ho, Wo, 8Co),
+
+        dx[n, i] = sum_q g[n, i - q + pad] @ wp[q]^T
+                 = conv2_packed(g, flipped_weights(wp), pad=1 - pad)[n, i],
+
+    one B1 launch in the other parity (the JAX package's
+    `ops/packed.py::_conv3_packed_bwd` and `_conv3_packed_as_bwd`): the dx
+    of a shifted->aligned conv is an aligned->shifted one and the other way
+    round.  Summed in float32, rounded once to g's dtype; wp in g's dtype.
+    `conv2_packed_dx.launches` (and `.tc_launches`) count these launches,
+    which `conv2_packed.launches` counts too."""
+    if pad not in (0, 1) or wp.ndim != 5:
+        raise ValueError(f"conv2_packed_dx needs pad 0 or 1 and wp "
+                         f"(2,2,2,C8i,C8o); got {pad}, {tuple(wp.shape)}")
+    wt = flipped_weights(wp)
+    _check_conv2_args(g, wt, 1 - pad)
+    if g.device.type == "cpu":
+        return conv2_packed_plain(g, wt, pad=1 - pad)
+    _check_conv2_cuda(g, wt, "conv2_packed_dx")
+    tc = _conv2_route(g.dtype, wt.shape[3], wt.shape[4]) == "tc"
+    out = _conv2_launch(g, wt, None, 1 - pad, tc)
+    if out.numel():
+        conv2_packed.launches += 1
+        conv2_packed.tc_launches += tc
+        conv2_packed_dx.launches += 1
+        conv2_packed_dx.tc_launches += tc
+    return out
+
+
+conv2_packed_dx.launches = 0
+conv2_packed_dx.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -836,7 +892,7 @@ def separable_conv3d(x: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
 separable_conv3d.launches = 0
 
 KERNELS = (conv2_packed, bn_act_zero_pads, conv_axis, conv2_packed_as_bn_act,
-           separable_conv3d)
+           conv2_packed_dx, separable_conv3d)
 
 
 def reset_launch_counts():
@@ -844,3 +900,4 @@ def reset_launch_counts():
         k.launches = 0
     conv2_packed.tc_launches = 0
     conv2_packed_as_bn_act.tc_launches = 0
+    conv2_packed_dx.tc_launches = 0

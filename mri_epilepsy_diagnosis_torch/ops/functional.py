@@ -1,7 +1,8 @@
 """Channels-last functional ops of the fine UNet3D and the fader family
-(counterpart of the JAX package's `ops/functional.py`: `prelu`, eval
-`batch_norm`, `maxpool3d`, `resize_linear`, `resize_nearest`, and the
-fader's `relu`/`l_relu` activations).  Every function takes and returns
+(counterpart of the JAX package's `ops/functional.py`: `prelu`,
+`batch_norm` with the train-mode statistics of `ops/layers.py::BatchNorm`,
+`maxpool3d`, `resize_linear`, `resize_nearest`, and the fader's
+`relu`/`l_relu` activations).  Every function takes and returns
 `(N, D, H, W, C)` tensors."""
 from __future__ import annotations
 
@@ -21,11 +22,32 @@ def prelu(x: torch.Tensor, a) -> torch.Tensor:
 
 
 def batch_norm(x, mean, var, gamma, beta, eps: float = 1e-5):
-    """Eval-mode BatchNorm of channels-last `x` with the given statistics;
+    """BatchNorm of channels-last `x` with the given statistics (the
+    running ones in eval mode, the batch's in train mode), in x's dtype;
     the reciprocal square root is taken in float32, as in JAX."""
     inv = torch.rsqrt(var.float() + eps).to(x.dtype)
     return ((x - mean.to(x.dtype)) * inv * gamma.to(x.dtype)
             + beta.to(x.dtype))
+
+
+def batch_moments(x: torch.Tensor):
+    """Train-mode BatchNorm statistics of channels-last `x`: the float32
+    per-channel mean and biased (centered) variance over every other axis,
+    differentiable (the JAX package's `ops/layers.py::BatchNorm`)."""
+    xf = x.float()
+    axes = tuple(range(x.ndim - 1))
+    mean = xf.mean(dim=axes)
+    return mean, (xf - mean).square().mean(dim=axes)
+
+
+def update_running_stats(running_mean, running_var, mean, var,
+                         count: float, momentum: float = 0.1):
+    """torch's running-statistics rule, `(1 - m) * running + m * batch`,
+    with the unbiased batch variance (`var * count / (count - 1)`); the
+    results are new tensors, detached from the graph."""
+    unbiased = var.detach() * (count / max(count - 1.0, 1.0))
+    return ((1 - momentum) * running_mean + momentum * mean.detach(),
+            (1 - momentum) * running_var + momentum * unbiased)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

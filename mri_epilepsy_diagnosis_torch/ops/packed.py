@@ -1,5 +1,6 @@
-"""Space-to-depth ("packed") layout ops of the packed UNet3D serving path
-(counterpart of the JAX package's `ops/packed.py`, forward subset).
+"""Space-to-depth ("packed") layout ops of the packed UNet3D serving and
+training paths (counterpart of the JAX package's `ops/packed.py`, the
+explicit-decoder subset).
 
 A channels-last `(N, D, H, W, C)` volume packs 2x2x2 voxel blocks into
 channels: `(N, D/2, H/2, W/2, 8C)`, channel index `(sd, sh, sw, c)`
@@ -12,7 +13,10 @@ cells in one of two parities:
 - aligned -> shifted (`conv3_packed_as`): a pad-1 k=2 conv from the aligned
   packing to the shifted one, weights from `pack_weights2_as`.
 
-Both run as kernel B1 (`ops/cuda_kernels.py::conv2_packed`).  The shifted
+Both run as kernel B1 (`ops/cuda_kernels.py::conv2_packed`), and both are
+`torch.autograd.Function`s (`Conv3Packed`, `Conv3PackedAs`) whose input
+gradient is B1 again in the other parity (`conv2_packed_dx`) and whose
+weight gradient is 8 float32 GEMMs (`_dw_packed_qgroup`).  The shifted
 layout carries one pad voxel per axis (fine -1 and S); after the
 aligned->shifted conv's BN/PReLU they are re-zeroed.  On the served path
 that tail (kernel B2) is the epilogue of the aligned->shifted B1 launch
@@ -28,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as TF
 
 from . import cuda_kernels as K
 from . import functional as F
@@ -100,9 +105,16 @@ def _packed_tap_index(kind: str) -> np.ndarray:
     return np.where(valid, td * 9 + th * 3 + tw, 27)
 
 
+def _device_constant(array: np.ndarray, **kw) -> torch.Tensor:
+    """A cached device constant that autograd may save for backward: made
+    outside inference mode even when its first caller serves in it."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(array, **kw)
+
+
 @functools.lru_cache(maxsize=None)
 def _device_tap_index(kind: str, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(_packed_tap_index(kind), device=device)
+    return _device_constant(_packed_tap_index(kind), device=device)
 
 
 def _pack_weights(w: torch.Tensor, kind: str) -> torch.Tensor:
@@ -146,6 +158,113 @@ def _tiled_bias(bias):
     return None if bias is None else tile_channel_param(bias).float()
 
 
+@functools.lru_cache(maxsize=None)
+def _mm_out_f32(device: torch.device) -> bool:
+    """Whether this torch multiplies bfloat16 operands into a float32
+    result on `device` (`torch.mm(..., out_dtype=torch.float32)`)."""
+    a = torch.zeros((16, 16), dtype=torch.bfloat16, device=device)
+    try:
+        torch.mm(a, a, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return False
+    return True
+
+
+def dw_gemm_route(dtype: torch.dtype, device: torch.device) -> str:
+    """How `_dw_packed_qgroup` multiplies: "bf16_out_f32" (bfloat16
+    operands, float32 products summed into a float32 result) on CUDA where
+    torch has `mm`'s `out_dtype`, else "f32" (operands upcast to float32;
+    TF32 stays as `torch.backends.cuda.matmul.allow_tf32` has it, off by
+    default).  Never a bfloat16 result: dw is float32, as in JAX."""
+    if (dtype == torch.bfloat16 and device.type == "cuda"
+            and _mm_out_f32(device)):
+        return "bf16_out_f32"
+    return "f32"
+
+
+def _dw_packed_qgroup(x_padded: torch.Tensor, g: torch.Tensor
+                      ) -> torch.Tensor:
+    """Dense packed dw (2, 2, 2, 8Ci, 8Co), float32, as 8 per-offset
+    contractions `x_padded[:, q + cells].T @ g` (the JAX package's
+    `ops/packed.py::_dw_packed_qgroup`).  `x_padded` is the conv's input
+    including its padding, so its slice at offset q lines up with every
+    output cell of g.  Each contraction is one GEMM of K = N x cells; each
+    slice is copied once to make it a matrix."""
+    od, oh, ow, c8o = g.shape[1:]
+    c8i = x_padded.shape[-1]
+    route = dw_gemm_route(g.dtype, g.device)
+    g2 = g.reshape(-1, c8o)
+    if route == "f32":
+        g2 = g2.float()
+    rows = []
+    for qd in range(2):
+        for qh in range(2):
+            for qw in range(2):
+                sl = x_padded[:, qd:qd + od, qh:qh + oh,
+                              qw:qw + ow].reshape(-1, c8i)
+                rows.append(torch.mm(sl.t(), g2, out_dtype=torch.float32)
+                            if route == "bf16_out_f32"
+                            else torch.mm(sl.float().t(), g2))
+    return torch.stack(rows).reshape(2, 2, 2, c8i, c8o)
+
+
+def _packed_conv_forward(ctx, x, wp, bias, pad: int):
+    wpc = wp.to(x.dtype).contiguous()
+    x = x.contiguous()
+    ctx.save_for_backward(x, wpc)
+    ctx.dtypes = (wp.dtype, None if bias is None else bias.dtype)
+    return K.conv2_packed(x, wpc, _tiled_bias(bias), pad=pad)
+
+
+def _packed_conv_backward(ctx, g, pad: int):
+    """dx: B1 in the other parity with flipped, io-swapped weights, skipped
+    where x takes no gradient (the stem's input); dw: the 8 per-offset
+    contractions, float32; bias: the sum of g over the cells with the 8
+    sub-positions folded, in float32."""
+    x, wp = ctx.saved_tensors
+    g = g.contiguous()
+    dx = dw = db = None
+    if ctx.needs_input_grad[0]:
+        dx = K.conv2_packed_dx(g, wp, pad=pad)
+    if ctx.needs_input_grad[1]:
+        xpad = TF.pad(x, (0, 0) + (1, 1) * 3) if pad else x
+        dw = _dw_packed_qgroup(xpad, g).to(ctx.dtypes[0])
+    if ctx.needs_input_grad[2]:
+        c8o = g.shape[-1]
+        db = g.sum(dim=(0, 1, 2, 3), dtype=torch.float32).reshape(
+            8, c8o // 8).sum(0).to(ctx.dtypes[1])
+    return dx, dw, db
+
+
+class Conv3Packed(torch.autograd.Function):
+    """Shifted->aligned packed conv (B1, pad 0) with the hand-rolled
+    gradient of the JAX package's `_conv3_packed_core`
+    (`_conv3_packed_bwd`): dx is an aligned->shifted B1 launch."""
+
+    @staticmethod
+    def forward(ctx, xp_shifted, wp, bias):
+        return _packed_conv_forward(ctx, xp_shifted, wp, bias, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _packed_conv_backward(ctx, g, 0)
+
+
+class Conv3PackedAs(torch.autograd.Function):
+    """Aligned->shifted packed conv (B1, pad 1) with the gradient of
+    `_conv3_packed_as_core` (`_conv3_packed_as_bwd`): dx is a
+    shifted->aligned B1 launch, dw contracts the one-cell zero-padded
+    input."""
+
+    @staticmethod
+    def forward(ctx, xp_aligned, wp, bias):
+        return _packed_conv_forward(ctx, xp_aligned, wp, bias, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _packed_conv_backward(ctx, g, 1)
+
+
 def conv3_packed(xp_shifted: torch.Tensor, wp: torch.Tensor,
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """k=2 VALID conv over shifted-packed input == fine k=3/pad=1 conv.
@@ -153,10 +272,9 @@ def conv3_packed(xp_shifted: torch.Tensor, wp: torch.Tensor,
     xp_shifted: (N, S/2+1, ..., 8Ci); wp: (2, 2, 2, 8Ci, 8Co) from
     `pack_weights2`, cast to the input dtype; bias: fine (Co,), added in
     float32 before the output's one rounding.  Returns the aligned packed
-    output (N, S/2, ..., 8Co)."""
-    wp = wp.to(xp_shifted.dtype).contiguous()
-    return K.conv2_packed(xp_shifted.contiguous(), wp, _tiled_bias(bias),
-                          pad=0)
+    output (N, S/2, ..., 8Co).  Differentiable (`Conv3Packed`): the
+    gradients of wp and bias come back in their own dtypes."""
+    return Conv3Packed.apply(xp_shifted, wp, bias)
 
 
 def conv3_packed_as(xp_aligned: torch.Tensor, wp: torch.Tensor,
@@ -165,10 +283,9 @@ def conv3_packed_as(xp_aligned: torch.Tensor, wp: torch.Tensor,
 
     xp_aligned: (N, S/2, ..., 8Ci); wp from `pack_weights2_as`.  Returns
     the shifted packed output (N, S/2+1, ..., 8Co), whose pad voxels hold
-    the conv's zero-padded extrapolation (bias alone)."""
-    wp = wp.to(xp_aligned.dtype).contiguous()
-    return K.conv2_packed(xp_aligned.contiguous(), wp, _tiled_bias(bias),
-                          pad=1)
+    the conv's zero-padded extrapolation (bias alone).  Differentiable
+    (`Conv3PackedAs`)."""
+    return Conv3PackedAs.apply(xp_aligned, wp, bias)
 
 
 def conv3_packed_as_bn_act(xp_aligned: torch.Tensor, wp: torch.Tensor,
@@ -223,8 +340,8 @@ def maxpool2_packed(xp: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _device_upsample_matrix(fine_in: int, dtype, device) -> torch.Tensor:
     """Fine trilinear x2 matrix (2 fine_in, fine_in), align_corners=False."""
-    return torch.as_tensor(F._linear_matrix(fine_in, 2 * fine_in, False),
-                           dtype=dtype, device=device)
+    return _device_constant(F._linear_matrix(fine_in, 2 * fine_in, False),
+                            dtype=dtype, device=device)
 
 
 def upsample2_packed(xp: torch.Tensor) -> torch.Tensor:
@@ -291,8 +408,8 @@ def _shifted_pad_axis_mask(axis: int, cells: int, c8: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _device_pad_masks(cells: tuple, c8: int, device: torch.device):
-    return tuple(torch.as_tensor(_shifted_pad_axis_mask(a, cells[a], c8),
-                                 device=device) for a in range(3))
+    return tuple(_device_constant(_shifted_pad_axis_mask(a, cells[a], c8),
+                                  device=device) for a in range(3))
 
 
 def shifted_pad_mask_tensors(xs: torch.Tensor):

@@ -129,7 +129,9 @@ def test_fine_unet_matches_jax(ocfl, nb, size):
 
 
 def test_fine_unet_refuses_train_mode():
+    """Train mode refuses what `nn.BatchNorm3d` refuses in training: a
+    batch with one value per channel (here the bottom block at 1^3)."""
     model = TorchUNet3D(out_channels_first_layer=4, num_encoding_blocks=2,
-                        device="cpu")
-    with pytest.raises(RuntimeError, match="eval"):
-        model(torch.zeros(1, 8, 8, 8, 1))
+                        device="cpu").train()
+    with pytest.raises(ValueError, match="more than 1 value per channel"):
+        model(torch.zeros(1, 2, 2, 2, 1))

@@ -267,3 +267,151 @@ def test_separable_conv3d_ragged(cuda_device, shape, ci, c, k, s, p, dtype):
     ones (with a lead of cells where a cell is narrower than 16 bytes)."""
     _check_separable(cuda_device, shape, ci, c, k, s, p, dtype,
                      with_bias=(ci + c) % 2 == 1, seed=6)
+
+
+# B1 as input gradient: (x extents at batch 1, 8Ci, 8Co, forward pad) of
+# the 11 dx sites of the 192^3 train step (every conv but the stem); the
+# dx launch maps g (8Co) back to x (8Ci) in the other parity
+DX_SITES = {"e0c2": ((97, 97, 97), 64, 128, 0),
+            "e1c1": ((48, 48, 48), 128, 128, 1),
+            "e1c2": ((49, 49, 49), 128, 256, 0),
+            "bc1": ((24, 24, 24), 256, 256, 1),
+            "bc2": ((25, 25, 25), 256, 512, 0),
+            "d0c1.skip": ((48, 48, 48), 256, 256, 1),
+            "d0c1.up": ((48, 48, 48), 512, 256, 1),
+            "d0c2": ((49, 49, 49), 256, 256, 0),
+            "d1c1.skip": ((96, 96, 96), 128, 128, 1),
+            "d1c1.up": ((96, 96, 96), 256, 128, 1),
+            "d1c2": ((97, 97, 97), 128, 128, 0)}
+
+
+def _check_dx(dev, shape, c8i, c8o, pad, dtype, seed=7):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    wp = (torch.randn(2, 2, 2, c8i, c8o, generator=g, device=dev)
+          / (8 * c8o) ** 0.5).to(dtype)
+    step = -1 if pad == 0 else 1
+    gy = torch.randn(shape[0], *(s + step for s in shape[1:]), c8o,
+                     generator=g, device=dev).to(dtype)
+    tc = K._conv2_route(dtype, c8o, c8i) == "tc"
+    before = (K.conv2_packed.launches, K.conv2_packed.tc_launches,
+              K.conv2_packed_dx.launches, K.conv2_packed_dx.tc_launches)
+    got = K.conv2_packed_dx(gy, wp, pad=pad)
+    torch.cuda.synchronize()
+    assert (K.conv2_packed.launches, K.conv2_packed.tc_launches,
+            K.conv2_packed_dx.launches, K.conv2_packed_dx.tc_launches) == (
+        before[0] + 1, before[1] + tc, before[2] + 1, before[3] + tc)
+    ref = K.conv2_packed_dx_plain(gy, wp, pad=pad)
+    assert got.shape == ref.shape == (*shape, c8i) and got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", list(DX_SITES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2_packed_dx_train_sites(cuda_device, site, dtype):
+    extents, c8i, c8o, pad = DX_SITES[site]
+    _check_dx(cuda_device, (1, *extents), c8i, c8o, pad, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c8i,c8o", [(64, 128), (128, 64), (8, 64),
+                                     (256, 512)])
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("shape", [(2, 7, 6, 9), (1, 3, 5, 17)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2_packed_dx_ragged(cuda_device, shape, pad, c8i, c8o, dtype):
+    """Extents that no box divides, both parities, both routes (8Ci = 8
+    keeps the launch on CUDA cores in bf16)."""
+    _check_dx(cuda_device, shape, c8i, c8o, pad, dtype, seed=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sa", "as"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_conv_function_backward_on_the_card(cuda_device, kind, dtype):
+    """`Conv3Packed` / `Conv3PackedAs` on CUDA tensors: the forward and dx
+    launch B1 (counted), dw is float32 (bf16 operands, float32 result where
+    torch has it), and all three match the same Function run on the CPU
+    (plain versions) from the same inputs."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    cells = (9, 8, 7) if kind == "sa" else (8, 7, 6)
+    x = torch.randn(2, *cells, 64, generator=g, device=cuda_device)
+    w = torch.randn(2, 2, 2, 64, 128, generator=g, device=cuda_device) / 23
+    b = torch.randn(16, generator=g, device=cuda_device)
+    fn = TP.conv3_packed if kind == "sa" else TP.conv3_packed_as
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        xs = x.detach().to(dev, dtype, copy=True).requires_grad_(True)
+        ws, bs = (t.detach().to(dev, copy=True).requires_grad_(True)
+                  for t in (w, b))
+        before = (K.conv2_packed.launches, K.conv2_packed_dx.launches)
+        y = fn(xs, ws, bs)
+        y.float().sin().sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (K.conv2_packed.launches, K.conv2_packed_dx.launches) == (
+                before[0] + 2, before[1] + 1)
+        assert ws.grad.dtype == bs.grad.dtype == torch.float32
+        grads.append([t.detach().float().cpu()
+                      for t in (y, xs.grad, ws.grad, bs.grad)])
+    # f32: summation order; bf16: one rounding step of y and dx, and dw
+    # from bf16 operands that agree on both sides
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for got, ref in zip(*grads):
+        err = (got - ref).abs().max().item()
+        assert err <= tol * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_dw_route_keeps_float32(cuda_device):
+    route = TP.dw_gemm_route(torch.bfloat16, cuda_device)
+    assert route in ("bf16_out_f32", "f32")
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    xpad = torch.randn(2, 9, 9, 9, 64, generator=g,
+                       device=cuda_device).to(torch.bfloat16)
+    gy = torch.randn(2, 8, 8, 8, 128, generator=g,
+                     device=cuda_device).to(torch.bfloat16)
+    got = TP._dw_packed_qgroup(xpad, gy)
+    assert got.dtype == torch.float32
+    ref = TP._dw_packed_qgroup(xpad.cpu(), gy.cpu())
+    err = (got.cpu() - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_packed_train_step_on_the_card(cuda_device):
+    """One bf16 packed train step at 32^3 through the kernels: 23 B1
+    launches (11 of them dx), no B2, finite loss, float32 master weights;
+    the served forward under inference_mode keeps its 12 launches."""
+    from mri_epilepsy_diagnosis_torch.models import UNet3D
+    from mri_epilepsy_diagnosis_torch.models.unet_packed import (
+        fold_bn_inference, packed_unet_mask_v2)
+    from mri_epilepsy_diagnosis_torch.train import (create_train_state,
+                                                    packed_seg_train_step,
+                                                    torch_adamw)
+
+    torch.manual_seed(0)
+    model = UNet3D(out_channels_first_layer=8, device=cuda_device)
+    state = create_train_state(model, torch_adamw())
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(2, 32, 32, 32, 1, generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    labels = (torch.rand(x.shape, generator=g, device=cuda_device) > 0.9
+              ).to(torch.int16) * 1001
+    K.reset_launch_counts()
+    state, loss = packed_seg_train_step(state, x, labels)
+    torch.cuda.synchronize()
+    assert (K.conv2_packed.launches, K.conv2_packed.tc_launches,
+            K.conv2_packed_dx.launches, K.conv2_packed_dx.tc_launches,
+            K.conv2_packed_as_bn_act.launches,
+            K.bn_act_zero_pads.launches) == (23, 22, 11, 11, 0, 0)
+    assert torch.isfinite(loss)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        packed_unet_mask_v2(fold_bn_inference(model.state_dict()), x)
+    assert (K.conv2_packed.launches, K.conv2_packed.tc_launches,
+            K.conv2_packed_dx.launches,
+            K.conv2_packed_as_bn_act.launches) == (12, 11, 0, 5)

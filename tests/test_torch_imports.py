@@ -25,7 +25,9 @@ def imported_modules(path: Path):
 def test_port_sources_found():
     names = {p.name for p in SOURCES}
     assert {"chip_smoke.py", "cuda_kernels.py", "serving.py",
-            "unet_packed.py", "jax_bridge.py", "fader.py"} <= names
+            "unet_packed.py", "jax_bridge.py", "fader.py", "labels.py",
+            "dice.py", "state.py", "optim.py", "checkpoint.py",
+            "seg.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
