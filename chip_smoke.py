@@ -66,7 +66,26 @@ Phases (each raises on failure, so the script exits nonzero):
       losses, float32 master weights, exact launch counts per step (B1 23,
       22 on tensor cores, 11 of them input gradients; B2 0), ms per step,
       vol/s, peak memory, and the B1-forward / B1-dx / dw / other split
-      of one profiled step.
+      of one profiled step;
+7. training as users run it:
+   a. gradient accumulation (`packed_seg_train_step_accum`): in f32 at
+      64^3, batch 2, TF32 off, micro = 2 against the flat packed step and
+      the fine cuDNN step, micro = 1 against the fine step's per-volume
+      gradients with its running statistics threaded; then an effective
+      batch of 8 whole 192^3 volumes in micro-batches of 2, bf16: ms per
+      step, vol/s, peak memory, B1 launches per step (asserted: 4 x 23);
+   b. resilient training: `train_segmentation` with a `CheckpointManager`
+      (packed, bf16, 192^3, batch 2, max_failures 1): two clean epochs; a
+      NaN volume rolls the epoch back to the checkpoint bit for bit, and
+      a second poisoned epoch raises; a fresh state resumes at the newest
+      epoch with the scheduler's state; SIGTERM from inside the loader
+      stops the loop at the epoch boundary after a checkpoint;
+   c. `validate_dsc_asd(packed=True)` on four 192^3 subjects in f32 (B1
+      on CUDA cores, 5 of 12 with B2 fused, each site checked and timed):
+      packed masks against the fine cuDNN masks (>= 0.999), DSC / ASD /
+      IoU over the native EDT (which must build) against scipy's EDT
+      (1e-9), the device ms of the forward and the host ms of the metrics
+      per subject; then `sweep_checkpoints` over 7b's directory.
 
 It prints one line per check, then `{"kernels": [...]}` (the kernels of
 the served path: B1 on tensor cores, B2 fused into B1 on either route,
@@ -180,6 +199,27 @@ PARITY_GRAD_RTOL = 2e-2        # x max|grad| of the leaf
 # on both sides: every leaf also gets this floor, x the largest gradient
 PARITY_GRAD_FLOOR = 1e-6
 PARITY_STATS_TOL = 1e-5        # x max(1, max|running stat|)
+# training as users run it (phase 7).  7a: an effective batch of
+# ACCUM_BATCH whole volumes in micro-batches of ACCUM_MICRO, each
+# micro-batch a full train step's B1 launches
+ACCUM_BATCH = 8
+ACCUM_MICRO = 2
+ACCUM_STEPS = 3
+ACCUM_PER_STEP = {k: ACCUM_BATCH // ACCUM_MICRO * v
+                  for k, v in TRAIN_PER_STEP.items()}
+RESILIENT_BATCHES = 2          # 7b: training batches per epoch
+VAL_SUBJECTS = 4               # 7c: validated 192^3 subjects
+VAL_BATCH = 2
+# 7c runs in f32, as the loaders give the volumes: every B1 launch takes
+# the CUDA-core kernel, 5 with B2 fused
+VAL_PER_BATCH = {**UNET_PER_BATCH, "conv2_packed_tc": 0,
+                 "conv2_packed_as_bn_act_tc": 0}
+# f32 packed masks (kernels) vs the fine UNet3D's (cuDNN, TF32 off): only
+# voxels whose two logits tie within f32 rounding may differ
+VAL_MASK_AGREEMENT = 0.999
+# DSC/ASD/IoU over the native EDT vs over scipy's: both exact transforms
+# in float64, so only the order of a few float64 operations differs
+METRIC_TOL = 1e-9
 # labels: FreeSurfer ids, cortical ids >= 1000 in a sphere that is also
 # brighter in the image, a LIST_FCD subcortical id (17) in a smaller one,
 # background ids outside LIST_FCD (2, 41) elsewhere
@@ -1363,6 +1403,498 @@ def training_phase(K, P, UNet3D, gen, launch_counts):
     return out
 
 
+def _counted_b1(c):
+    """B1 launches of a counts dict per kernel instantiation (the entries
+    of the kernels line): tensor-core plain store (forward, no dx),
+    tensor-core with B2 fused, CUDA-core plain store (the stem and all of
+    f32), CUDA-core with B2 fused, tensor-core input gradients."""
+    return {"conv2_packed_tc": c["conv2_packed_tc"]
+            - c["conv2_packed_as_bn_act_tc"] - c["conv2_packed_dx_tc"],
+            "conv2_packed_tc_bn_act": c["conv2_packed_as_bn_act_tc"],
+            "conv2_packed": (c["conv2_packed"] - c["conv2_packed_tc"])
+            - (c["conv2_packed_as_bn_act"] - c["conv2_packed_as_bn_act_tc"])
+            - (c["conv2_packed_dx"] - c["conv2_packed_dx_tc"]),
+            "conv2_packed_bn_act": c["conv2_packed_as_bn_act"]
+            - c["conv2_packed_as_bn_act_tc"],
+            "conv2_packed_tc.dx": c["conv2_packed_dx_tc"],
+            "separable_conv3d": c["separable_conv3d"]}
+
+
+def _expect_counts(label, counts, want):
+    log(f"launches ({label}): " + ", ".join(
+        f"{k} {counts[k]} (expected {w})" for k, w in want.items()))
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+
+
+def _grads_and_stats_agree(label, model, ref, loss, ref_loss):
+    """The packed model's gradients, running statistics and loss against
+    the reference model's, at the tolerances of phase 6b."""
+    gp = dict(model.named_parameters())
+    gr = dict(ref.named_parameters())
+    floor = PARITY_GRAD_FLOOR * max(p.grad.abs().max().item()
+                                    for p in gr.values())
+    worst = max(((gp[k].grad - p.grad).abs().max().item()
+                 / (PARITY_GRAD_RTOL * p.grad.abs().max().item() + floor))
+                for k, p in gr.items())
+    rb = dict(ref.named_buffers())
+    stats_err = max((b - rb[k]).abs().max().item()
+                    / max(1.0, rb[k].abs().max().item())
+                    for k, b in model.named_buffers() if "running" in k)
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    out = {"loss": loss, "ref_loss": ref_loss, "loss_rel_err": loss_err,
+           "grad_worst_err_over_tol": worst, "running_stats_err": stats_err}
+    log(f"{label}: {json.dumps(out)}")
+    if worst > 1 or loss_err > PARITY_LOSS_RTOL or stats_err > PARITY_STATS_TOL:
+        raise AssertionError(f"{label} disagrees: {out}")
+    return out
+
+
+def accumulation_phase(K, UNet3D, gen, launch_counts):
+    """Phase 7a: `packed_seg_train_step_accum`.  Gates in f32 at
+    PARITY_SIZE^3, batch 2, TF32 off: micro = 2 against the flat
+    `packed_seg_train_step` and against the fine UNet3D (cuDNN), micro = 1
+    against the fine UNet3D's per-volume gradients at the same parameters
+    with its running statistics threaded volume to volume.  Then an
+    effective batch of ACCUM_BATCH whole 192^3 volumes in micro-batches of
+    ACCUM_MICRO, bf16: 1 warm-up and ACCUM_STEPS timed steps with exact
+    launch counts."""
+    import copy
+
+    import torch
+
+    from mri_epilepsy_diagnosis_torch import train as Tr
+    from mri_epilepsy_diagnosis_torch.train import seg as TS
+    from mri_epilepsy_diagnosis_torch.transforms import binarize_segmentation
+
+    model = UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
+                   out_channels_first_layer=OCFL, device="cuda")
+    random_state_dict(model, gen)
+    x = torch.randn((2, PARITY_SIZE, PARITY_SIZE, PARITY_SIZE, 1),
+                    generator=gen, device="cuda")
+    lab = torch.from_numpy(seg_batches(gen, 1, 2, PARITY_SIZE)[0][1]).cuda()
+    t = binarize_segmentation(lab)
+    gates = {}
+    for micro in (2, 1):
+        acc = Tr.create_train_state(copy.deepcopy(model), Tr.torch_adamw())
+        acc, loss = Tr.packed_seg_train_step_accum(acc, x, lab, micro=micro)
+        fine = copy.deepcopy(model)
+        n = 2 // micro
+        ref_loss = 0.0
+        for i in range(n):
+            li = TS.seg_loss(fine, x[i * micro:(i + 1) * micro],
+                             t[i * micro:(i + 1) * micro])
+            (li / n).backward()
+            ref_loss += li.item() / n
+        gates[f"micro{micro}_vs_fine_cudnn"] = _grads_and_stats_agree(
+            f"accumulation micro={micro} vs fine cuDNN (f32 "
+            f"{PARITY_SIZE}^3 b2)", acc.model, fine, loss.item(), ref_loss)
+        if micro == 2:
+            flat = Tr.create_train_state(copy.deepcopy(model),
+                                         Tr.torch_adamw())
+            flat, flat_loss = Tr.packed_seg_train_step(flat, x, lab)
+            gates["micro2_vs_flat_packed"] = _grads_and_stats_agree(
+                f"accumulation micro=2 vs flat packed step (f32 "
+                f"{PARITY_SIZE}^3 b2)", acc.model, flat.model, loss.item(),
+                flat_loss.item())
+    del model, acc, fine, flat, x
+    torch.cuda.empty_cache()
+
+    state = Tr.create_train_state(
+        UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
+               out_channels_first_layer=OCFL, device="cuda"),
+        Tr.torch_adamw())
+    random_state_dict(state.model, gen)
+    xs, ls = seg_batches(gen, 1, ACCUM_BATCH, SIZE)[0]
+    xb = torch.from_numpy(xs).cuda().to(torch.bfloat16)
+    lb = torch.from_numpy(ls).cuda()
+    del xs, ls
+    state, loss = Tr.packed_seg_train_step_accum(state, xb, lb,
+                                                 micro=ACCUM_MICRO)
+    warm_loss = float(loss)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(ACCUM_STEPS):
+        state, loss = Tr.packed_seg_train_step_accum(state, xb, lb,
+                                                     micro=ACCUM_MICRO)
+        losses.append(float(loss))
+    step_s = (time.perf_counter() - t0) / ACCUM_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = launch_counts()
+    _expect_counts(f"{ACCUM_STEPS} accumulated steps, batch {ACCUM_BATCH} "
+                   f"in micro-batches of {ACCUM_MICRO}", counts,
+                   {k: ACCUM_STEPS * v for k, v in ACCUM_PER_STEP.items()})
+    out = {"size": SIZE, "batch": ACCUM_BATCH, "micro": ACCUM_MICRO,
+           "dtype": "bf16", "warmup_loss": warm_loss, "timed_losses": losses,
+           "ms_per_step": step_s * 1e3, "vol_per_s": ACCUM_BATCH / step_s,
+           "peak_memory_gb": peak_gb,
+           "b1_launches_per_step": counts["conv2_packed"] // ACCUM_STEPS,
+           "launches": counts, "gates_f32": gates}
+    log(f"accumulation: {json.dumps(out)}")
+    if not np.isfinite(losses + [warm_loss]).all():
+        raise AssertionError(f"non-finite accumulated losses: {losses}")
+    return out
+
+
+def _state_snapshot(state):
+    """Every parameter, buffer and optimizer-state tensor of a train state,
+    cloned, and its step."""
+    return ({k: v.detach().clone() for k, v in
+             state.model.state_dict().items()},
+            {i: {k: v.clone() for k, v in s.items()} for i, s in
+             state.optimizer.state_dict()["state"].items()}, state.step)
+
+
+def _snapshots_equal(a, b):
+    """Bit for bit: every tensor of two `_state_snapshot`s, and the step."""
+    import torch
+
+    (ma, oa, sa), (mb, ob, sb) = a, b
+    return (sa == sb and ma.keys() == mb.keys() and oa.keys() == ob.keys()
+            and all(torch.equal(ma[k], mb[k]) for k in ma)
+            and all(oa[i].keys() == ob[i].keys()
+                    and all(torch.equal(oa[i][k], ob[i][k]) for k in oa[i])
+                    for i in oa))
+
+
+class _EpochLoader:
+    """The batches of a training loader; `poison` serves the first volume
+    of the first batch as NaN on every pass, `on_pass` runs at the start
+    of every pass."""
+
+    def __init__(self, batches, poison=False, on_pass=None):
+        self.batches, self.poison, self.on_pass = batches, poison, on_pass
+
+    def __iter__(self):
+        if self.on_pass is not None:
+            self.on_pass()
+        for i, (x, y) in enumerate(self.batches):
+            if self.poison and i == 0:
+                x = x.copy()
+                x[0] = np.nan
+            yield x, y
+
+
+def resilient_phase(K, UNet3D, gen, launch_counts, ckpt_dir):
+    """Phase 7b: `train_segmentation` with a `CheckpointManager`
+    (max_failures 1, packed, bf16) at 192^3, batch TRAIN_BATCH, epochs of
+    RESILIENT_BATCHES batches: two clean epochs with exact launch counts;
+    a poisoned epoch that rolls back to the checkpoint bit for bit and,
+    poisoned again, raises; a fresh state that resumes with the
+    scheduler's state; SIGTERM from inside the loader, which stops the
+    loop at the epoch boundary after a checkpoint."""
+    import signal
+
+    import torch
+
+    from mri_epilepsy_diagnosis_torch import train as Tr
+
+    def new_state():
+        st = Tr.create_train_state(
+            UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
+                   out_channels_first_layer=OCFL, device="cuda"),
+            Tr.torch_adamw())
+        random_state_dict(st.model, gen)
+        sched = Tr.ReduceLROnPlateau(st.optimizer, mode="min", factor=0.1,
+                                     patience=3, threshold=0.01)
+        return st, sched
+
+    batches = seg_batches(gen, RESILIENT_BATCHES + 1, TRAIN_BATCH, SIZE)
+    train, val = batches[:RESILIENT_BATCHES], batches[RESILIENT_BATCHES:]
+    mgr = Tr.CheckpointManager(ckpt_dir, stem="smoke")
+    kw = dict(manager=mgr, max_failures=1, packed=True,
+              input_dtype=torch.bfloat16, verbose=False)
+    out = {"size": SIZE, "batch": TRAIN_BATCH, "dtype": "bf16",
+           "batches_per_epoch": RESILIENT_BATCHES}
+
+    state, sched = new_state()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, tr, va = Tr.train_segmentation(2, train, val, state, sched,
+                                          "smoke", **kw)
+    out["two_epochs_s"] = time.perf_counter() - t0
+    counts = launch_counts()
+    steps, val_batches = 2 * RESILIENT_BATCHES, 3 * len(val)
+    _expect_counts("resilient train_segmentation, 2 epochs", counts,
+                   {k: steps * v + val_batches * UNET_PER_BATCH[k]
+                    for k, v in TRAIN_PER_STEP.items()})
+    out["launches"] = counts
+    if mgr.latest_epoch() != 2 or len(tr) != 2 or not np.isfinite(
+            tr + va).all():
+        raise AssertionError(f"resilient run: epoch {mgr.latest_epoch()}, "
+                             f"losses {tr} {va}")
+    out["epoch_train_losses"], out["epoch_val_losses"] = tr, va
+    saved, saved_sched = _state_snapshot(state), sched.state_dict()
+
+    passes = []
+    poisoned = _EpochLoader(train, poison=True, on_pass=lambda: passes.append(
+        _state_snapshot(state)))
+    t0 = time.perf_counter()
+    try:
+        Tr.train_segmentation(3, poisoned, val, state, sched, "smoke", **kw)
+        raise AssertionError("two poisoned epochs past max_failures=1 did "
+                             "not raise")
+    except RuntimeError as e:
+        if "non-finite epochs" not in str(e):
+            raise
+        out["past_max_failures"] = str(e)
+    out["poisoned_s"] = time.perf_counter() - t0
+    out["rollback_bit_exact"] = (len(passes) == 2
+                                 and _snapshots_equal(passes[1], saved))
+    log(f"rollback: {len(passes)} passes of the poisoned epoch; the retry "
+        f"started from the epoch-2 checkpoint bit for bit: "
+        f"{out['rollback_bit_exact']}; then: {out['past_max_failures']}")
+    if not out["rollback_bit_exact"]:
+        raise AssertionError("the rollback did not restore the checkpoint")
+
+    fresh, fresh_sched = new_state()
+    _, tr0, _ = Tr.train_segmentation(2, train, val, fresh, fresh_sched,
+                                      "smoke", **kw)
+    out["resume_exact"] = (tr0 == [] and _snapshots_equal(
+        _state_snapshot(fresh), saved)
+        and fresh_sched.state_dict() == saved_sched)
+    t0 = time.perf_counter()
+    fresh, tr3, _ = Tr.train_segmentation(3, train, val, fresh, fresh_sched,
+                                          "smoke", **kw)
+    out["resumed_epoch_s"] = time.perf_counter() - t0
+    log(f"resume: a fresh state restored epoch 2 exactly (model, AdamW, "
+        f"scheduler): {out['resume_exact']}; trained epoch 3: {tr3}")
+    if not out["resume_exact"] or len(tr3) != 1 or mgr.latest_epoch() != 3:
+        raise AssertionError(f"resume failed: {out}, {tr3}")
+
+    handler = signal.getsignal(signal.SIGTERM)
+
+    def preempt():
+        if signal.getsignal(signal.SIGTERM) in (signal.SIG_DFL, handler):
+            raise AssertionError("no preemption guard is installed")
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    fresh, tr4, _ = Tr.train_segmentation(
+        5, _EpochLoader(train, on_pass=preempt), val, fresh, fresh_sched,
+        "smoke", **kw)
+    out["sigterm_stopped_at"] = mgr.latest_epoch()
+    log(f"SIGTERM inside the loader of epoch 4: {len(tr4)} epoch trained, "
+        f"newest checkpoint epoch {mgr.latest_epoch()}")
+    if (len(tr4) != 1 or mgr.latest_epoch() != 4
+            or signal.getsignal(signal.SIGTERM) != handler):
+        raise AssertionError("SIGTERM did not stop the loop at the epoch "
+                             "boundary")
+    out["checkpoints"] = sorted(os.listdir(ckpt_dir))
+    log(f"resilient training: {json.dumps(out)}")
+    return fresh, out
+
+
+def _scipy_edt(mask, spacing=(1.0, 1.0, 1.0)):
+    """`native.edt3d` through scipy's exact EDT."""
+    from scipy import ndimage
+
+    mask = np.asarray(mask, bool)
+    if not mask.any():
+        return np.full(mask.shape, np.inf)
+    return ndimage.distance_transform_edt(~mask, sampling=spacing)
+
+
+def validation_kernel_phase(K, P, sites, gen):
+    """Each B1 site of the f32 validation forward (CUDA-core kernel, B2
+    fused at the five aligned->shifted sites) at its own shapes against
+    its plain version, timed beside it and cuDNN (TF32 off); the bound at
+    the f32 peak."""
+    import torch
+    import torch.nn.functional as TF
+
+    rows, err = [], 0.0
+    for name, site in zip(B1_SITES, sites):
+        c8i, c8o, pad = site["x"][4], site["wp"][4], site["pad"]
+        x = torch.randn(site["x"], generator=gen, device="cuda")
+        wp = torch.randn(site["wp"], generator=gen,
+                         device="cuda") / np.sqrt(8 * c8i)
+        if site["fused"]:
+            scale = 0.5 + torch.rand(c8o, generator=gen, device="cuda")
+            shift = torch.randn(c8o, generator=gen, device="cuda")
+            alpha = torch.rand(c8o, generator=gen, device="cuda")
+            add = (torch.randn((x.shape[0], *(e + 1 for e in x.shape[1:4]),
+                                c8o), generator=gen, device="cuda")
+                   if site["addend"] else None)
+
+            def run():
+                return K.conv2_packed_as_bn_act(x, wp, scale, shift, alpha,
+                                                addend=add)
+
+            def plain():
+                return K.conv2_packed_as_bn_act_plain(x, wp, scale, shift,
+                                                      alpha, add)
+            library = None
+            extra = (0 if add is None else add.numel()) * 4 + 3 * 4 * c8o
+        else:
+            bias = (torch.randn(c8o, generator=gen, device="cuda")
+                    if site["bias"] else None)
+
+            def run():
+                return K.conv2_packed(x, wp, bias, pad=pad)
+
+            def plain():
+                return K.conv2_packed_plain(x, wp, bias, pad=pad)
+            xc = x.permute(0, 4, 1, 2, 3)
+            wc = wp.permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+
+            def library():
+                return TF.conv3d(xc, wc, bias, padding=pad)
+            extra = 0 if bias is None else 4 * c8o
+        got = run()
+        torch.cuda.synchronize()
+        kind = "conv2_packed_as_bn_act" if site["fused"] else "conv2_packed"
+        err = max(err, check(f"validation {kind} {name} b{x.shape[0]}", got,
+                             plain(), "f32"))
+        m = got.shape[0] * got.shape[1] * got.shape[2] * got.shape[3]
+        flops = 2.0 * m * (8 * c8i) * c8o
+        nbytes = (x.numel() + wp.numel() + got.numel()) * 4 + extra
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_OPS_PER_S["f32"] * 1e3
+        ms = time_ms(run, 3)
+        rows.append({"site": name, "x": list(x.shape), "c8o": c8o,
+                     "fused": site["fused"], "ms": ms,
+                     "plain_ms": time_ms(plain, 1),
+                     "library_ms": (None if library is None
+                                    else time_ms(library, 3)),
+                     "flops": flops, "bytes": nbytes,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "tflops": flops / ms / 1e9})
+        del x, wp, got
+        torch.cuda.empty_cache()
+    log(f"validation sites (f32 b{VAL_BATCH}): {json.dumps(rows)}")
+    return rows, err
+
+
+def validation_phase(K, P, gen, launch_counts, state, ckpt_dir):
+    """Phase 7c: `validate_dsc_asd(packed=True)` on VAL_SUBJECTS 192^3
+    subjects in f32 (7b's trained model, its classifier bias set for a
+    FG_SHARE foreground as in phase 4) with exact launch counts and the
+    native EDT built and used; the packed masks (kernels) against the fine
+    UNet3D's (cuDNN, TF32 off); DSC, ASD and IoU against the same metrics
+    over scipy's EDT; the device time of the forward and the host time of
+    the metrics per subject; then `sweep_checkpoints` over 7b's directory
+    on the first batch."""
+    import copy
+
+    import torch
+
+    from mri_epilepsy_diagnosis_torch import metrics as M
+    from mri_epilepsy_diagnosis_torch import native
+    from mri_epilepsy_diagnosis_torch.metrics import surface as MS
+    from mri_epilepsy_diagnosis_torch.train import seg as TS
+    from mri_epilepsy_diagnosis_torch.transforms import binarize_segmentation
+
+    vstate = copy.deepcopy(state)
+    subjects = seg_batches(gen, VAL_SUBJECTS // VAL_BATCH, VAL_BATCH, SIZE)
+    with torch.no_grad():
+        vstate.model.eval()
+        logits = vstate.model(torch.from_numpy(subjects[0][0][:1]).cuda())
+        margin = (logits[..., 1] - logits[..., 0]).flatten()[::101]
+        vstate.model.classifier.conv_layer.bias[1] -= torch.quantile(
+            margin.float(), 1 - FG_SHARE)
+        del logits, margin
+    x0 = torch.from_numpy(subjects[0][0]).cuda()
+    sites = record_sites(K, P, lambda: TS.mask_forward(vstate, True)(x0))
+    if (len(sites["conv2_packed"]) != len(B1_SITES)
+            or sites["bn_act_zero_pads"]):
+        raise AssertionError(f"unexpected validation sites {sites}")
+    rows, err = validation_kernel_phase(K, P, sites["conv2_packed"], gen)
+    del x0
+
+    if not native.native_available():
+        raise AssertionError("the native EDT library did not build")
+    calls = native.edt3d.native_calls
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    dsc, asd_gt, asd_pred, iou = TS.validate_dsc_asd(vstate, subjects,
+                                                     packed=True)
+    validate_s = time.perf_counter() - t0
+    counts = launch_counts()
+    _expect_counts(f"validate_dsc_asd, {VAL_SUBJECTS} subjects f32", counts,
+                   {k: len(subjects) * v for k, v in VAL_PER_BATCH.items()})
+    native_calls = native.edt3d.native_calls - calls
+    if native_calls != 2 * VAL_SUBJECTS:
+        raise AssertionError(f"native EDT calls {native_calls} != "
+                             f"{2 * VAL_SUBJECTS}")
+
+    fwd_packed = TS.mask_forward(vstate, packed=True)
+    fwd_fine = TS.mask_forward(vstate, packed=False)
+    agree, fg, fwd_ms, host_ms, metric_err, own_err = [], [], [], [], 0.0, 0.0
+    j = 0
+    for x, labels in subjects:
+        xd = torch.from_numpy(x).cuda()
+        fwd_packed(xd)                                  # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        mp = fwd_packed(xd)
+        end.record()
+        torch.cuda.synchronize()
+        fwd_ms.append(start.elapsed_time(end) / len(x))
+        mf = fwd_fine(xd)
+        agree.append((mp == mf).float().mean().item())
+        fg.append(mp.float().mean().item())
+        gts = binarize_segmentation(torch.from_numpy(labels).cuda())[
+            ..., 0].to(torch.uint8).cpu().numpy()
+        preds = mp.cpu().numpy()
+        for gt, pred in zip(gts, preds):
+            t0 = time.perf_counter()
+            sd = M.compute_surface_distances(gt, pred, (1, 1, 1))
+            got = (M.compute_dice_coefficient(gt, pred),
+                   *M.compute_average_surface_distance(sd),
+                   M.get_iou_score(pred, gt))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            own_err = max(own_err, float(np.max(np.abs(np.subtract(
+                got, (dsc[j], asd_gt[j], asd_pred[j], iou[j]))))))
+            MS.edt3d = _scipy_edt
+            try:
+                sd = M.compute_surface_distances(gt, pred, (1, 1, 1))
+                ref = (M.compute_dice_coefficient(gt, pred),
+                       *M.compute_average_surface_distance(sd),
+                       M.get_iou_score(pred, gt))
+            finally:
+                MS.edt3d = native.edt3d
+            metric_err = max(metric_err, float(np.max(np.abs(np.subtract(
+                got, ref)))))
+            j += 1
+        del xd, mp, mf
+    t0 = time.perf_counter()
+    sweep = TS.sweep_checkpoints(ckpt_dir, vstate, subjects[:1])
+    sweep_s = time.perf_counter() - t0
+    out = {"subjects": VAL_SUBJECTS, "batch": VAL_BATCH, "size": SIZE,
+           "dtype": "f32", "dsc": dsc, "asd_gt_to_pred": asd_gt,
+           "asd_pred_to_gt": asd_pred, "iou": iou,
+           "validate_s": validate_s, "launches": counts,
+           "native_edt_calls": native_calls,
+           "mask_agreement_packed_vs_fine": min(agree),
+           "foreground_share": fg,
+           "device_forward_ms_per_subject": float(np.mean(fwd_ms)),
+           "host_metrics_ms_per_subject": float(np.mean(host_ms)),
+           "host_metrics_ms": host_ms,
+           "metrics_native_vs_scipy_max_abs_err": metric_err,
+           "validate_vs_recomputed_max_abs_err": own_err,
+           "kernel_max_abs_err_f32": err,
+           "sweep": {os.path.basename(k): v for k, v in sweep.items()},
+           "sweep_s": sweep_s}
+    log(f"validation: {json.dumps(out)}")
+    if min(agree) < VAL_MASK_AGREEMENT:
+        raise AssertionError(f"packed vs fine masks agree at {agree}")
+    if not all(FG_GATE[0] <= f <= FG_GATE[1] for f in fg):
+        raise AssertionError(f"degenerate validation masks: {fg}")
+    if metric_err > METRIC_TOL:
+        raise AssertionError(f"metrics over the native EDT differ from "
+                             f"those over scipy's by {metric_err}")
+    if not np.isfinite(dsc + asd_gt + asd_pred + iou).all():
+        raise AssertionError("non-finite validation metrics")
+    if len(sweep) != 3 or not np.isfinite(list(sweep.values())).all():
+        raise AssertionError(f"sweep over {os.listdir(ckpt_dir)}: {sweep}")
+    return out, rows
+
+
 def kernel_entry(name, source, replaces, rows, errs, launches, per_batch,
                  **extra):
     t_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
@@ -1704,6 +2236,23 @@ def main() -> int:
     train_s = time.perf_counter() - t_train
     log(f"training phase: {train_s:.1f} s")
 
+    # ---- 7. training as users run it
+    import tempfile
+
+    torch.cuda.empty_cache()
+    t7 = time.perf_counter()
+    accumulation = accumulation_phase(K, UNet3D, gen, launch_counts)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        trained, resilient = resilient_phase(K, UNet3D, gen, launch_counts,
+                                             ckpt_dir)
+        torch.cuda.empty_cache()
+        validation, val_rows = validation_phase(K, P, gen, launch_counts,
+                                                trained, ckpt_dir)
+    del trained
+    phase7_s = time.perf_counter() - t7
+    log(f"phase 7: {phase7_s:.1f} s")
+
     # the kernels of the served path, one entry per kernel instantiation:
     # launches from the timed ensemble run, times summed over the sites
     # each serves in bf16.  B1 and its B2-epilogue launches are counted
@@ -1780,6 +2329,42 @@ def main() -> int:
                      max_abs_err_f32_cuda_core=train_errs["dx"]["cuda_core"]
                      ["f32"]),
     ]
+    # the f32 validation forward of phase 7c: B1 on the CUDA-core kernel,
+    # with B2 fused at the aligned->shifted sites
+    v = validation["launches"]
+    per_val = (f"sum over the sites of one batch-{VAL_BATCH} f32 "
+               f"validation forward at {SIZE}^3; launches from "
+               f"{VAL_SUBJECTS} subjects")
+    kernels += [
+        kernel_entry("conv2_packed.validate_f32", src + "conv2_packed.cu",
+                     tpu + "265", [r for r in val_rows if not r["fused"]],
+                     {"f32": validation["kernel_max_abs_err_f32"],
+                      "bf16": validation["kernel_max_abs_err_f32"]},
+                     _counted_b1(v)["conv2_packed"],
+                     len(B1_SITES) - len(B2_SITES), path="validation",
+                     shapes=per_val),
+        kernel_entry("conv2_packed_bn_act.validate_f32",
+                     src + "conv2_packed.cu", tpu + "197",
+                     [r for r in val_rows if r["fused"]],
+                     {"f32": validation["kernel_max_abs_err_f32"],
+                      "bf16": validation["kernel_max_abs_err_f32"]},
+                     _counted_b1(v)["conv2_packed_bn_act"], len(B2_SITES),
+                     fuses=tpu + "265 (B1) + " + tpu + "197 (B2)",
+                     path="validation", shapes=per_val),
+    ]
+    # every entry's launches on each path driven with the counts at 0
+    paths = {"serving_ensemble": c, "train_step": t,
+             "accumulated_step": accumulation["launches"],
+             "resilient_training": resilient["launches"],
+             "validation_f32": v}
+    counted_as = {"conv2_packed_tc.train_forward": "conv2_packed_tc",
+                  "conv2_packed.train_stem": "conv2_packed",
+                  "conv2_packed.validate_f32": "conv2_packed",
+                  "conv2_packed_bn_act.validate_f32": "conv2_packed_bn_act"}
+    for entry in kernels:
+        key = counted_as.get(entry["name"], entry["name"])
+        entry["launches_by_path"] = {p: _counted_b1(n)[key]
+                                     for p, n in paths.items()}
     dw_rows = train_rows["dw"]
     dw = {"route": training["dw_route"],
           "ms": sum(r["ms"] for r in dw_rows),
@@ -1820,6 +2405,9 @@ def main() -> int:
                    "train_dw_sites": dw_rows, "dw": dw,
                    "train_errs": train_errs, "parity_f32": parity,
                    "training": training, "training_phase_s": train_s,
+                   "accumulation": accumulation, "resilient": resilient,
+                   "validation": validation, "validation_sites": val_rows,
+                   "phase7_s": phase7_s,
                    "build_s": build_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

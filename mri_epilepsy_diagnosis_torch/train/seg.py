@@ -16,15 +16,19 @@ B1) and validates through the served packed forward (B1 with B2 fused);
 and conv operands, float32 master weights, AdamW state and BatchNorm
 statistics.
 
-Not here yet (ROADMAP A6): the surface-distance validation
-(`validate_dsc_asd`, `sweep_checkpoints`, with A7), gradient accumulation
-(`train/accum.py`) and the resilient loop (`train/resilience.py`: the
-`manager` argument); `sharding` and `dashboard` come with A13 and A14.
+`manager` (a `train.resilience.CheckpointManager`) switches the loop to
+its elastic mode; `validate_dsc_asd` and `sweep_checkpoints` score
+checkpoints by per-subject DSC, average surface distance and IoU.  The
+JAX package's `sharding` and `dashboard` arguments are accepted and raise
+`NotImplementedError` unless None (ROADMAP A11, A12).
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import enum
 import functools
+import glob
 import time
 from typing import Optional
 
@@ -33,13 +37,18 @@ import torch
 
 from ..core.device import resolve_device
 from ..data.pipeline import DevicePrefetcher
-from ..metrics.dice import get_dice_loss
+from ..metrics import (compute_average_surface_distance,
+                       compute_dice_coefficient, compute_surface_distances,
+                       get_dice_loss, get_iou_score)
 from ..models.unet import UNet3D
-from ..models.unet_packed import (packed_dice_loss, packed_unet_apply_v2,
+from ..models.unet_packed import (fold_bn_inference, packed_dice_loss,
+                                  packed_unet_apply_v2, packed_unet_mask_v2,
                                   packed_unet_train_apply)
 from ..transforms.labels import binarize_segmentation
-from .checkpoint import save_checkpoint
+from .checkpoint import (load_checkpoint, load_scheduler_state,
+                         save_checkpoint)
 from .optim import ReduceLROnPlateau, torch_adamw
+from .resilience import _PreemptionGuard
 from .state import TrainState, create_train_state
 
 
@@ -155,16 +164,30 @@ def _device_batches(loader, prefetch: int, device: torch.device):
         yield batch
 
 
+def _not_ported(**arguments) -> None:
+    """Raise for a JAX parameter that the port accepts, so that positional
+    calls bind as in JAX, but has not ported yet."""
+    roadmap = {"sharding": "A11", "dashboard": "A12"}
+    for name, value in arguments.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"`{name}` is not ported yet (ROADMAP {roadmap[name]}); "
+                "pass None")
+
+
 def run_epoch(epoch_idx: int, action: Action, loader, state: TrainState,
               scheduler=None, experiment=None, prefetch: int = 2,
-              packed=False, input_dtype: Optional[torch.dtype] = None):
+              sharding=None, packed=False,
+              input_dtype: Optional[torch.dtype] = None):
     """One pass; returns (state, np.array of batch losses).
 
     Batches are staged on the model's device `prefetch` batches ahead.
     `packed=True` trains through the packed layout; `packed="remat"` also
     recomputes each two-conv block in the backward.  `input_dtype=
     torch.bfloat16` trains in mixed precision (see the module docstring).
-    `scheduler` is stepped by the epoch loop, not here."""
+    `scheduler` is stepped by the epoch loop, not here; `sharding` must be
+    None."""
+    _not_ported(sharding=sharding)
     del epoch_idx, scheduler  # the signature of the JAX package's loop
     train_step = (functools.partial(packed_seg_train_step,
                                     remat=(packed == "remat"))
@@ -192,62 +215,215 @@ def train_segmentation(num_epochs: int, training_loader, validation_loader,
                        state: TrainState, scheduler, weights_stem: str,
                        save_epoch: int = 1, experiment=None,
                        verbose: bool = True, weights_dir: str = "weights",
-                       packed=False, input_dtype=None):
+                       sharding=None, dashboard=None, packed=False,
+                       manager=None, max_failures: int = 3,
+                       input_dtype=None):
     """The reference's training routine; returns (state, per-epoch mean
     train losses, per-epoch mean validation losses).  `packed` and
-    `input_dtype` as in `run_epoch`."""
+    `input_dtype` as in `run_epoch`.  `manager` (a
+    `train.resilience.CheckpointManager`) switches on elastic mode:
+    auto-resume from the newest checkpoint (the scheduler's state
+    included), atomic rolling per-epoch checkpoints (in place of the
+    `save_epoch` cadence), rollback on a non-finite train or validation
+    epoch (an error past `max_failures` in a row), and a checkpointed stop
+    at the epoch boundary on SIGTERM/SIGINT.  `sharding` and `dashboard`
+    must be None."""
     state, tr, va, _ = _train_loop(
         num_epochs, training_loader, validation_loader, state, scheduler,
-        weights_stem, save_epoch, experiment, verbose, weights_dir, packed,
-        input_dtype)
+        weights_stem, save_epoch, experiment, verbose, weights_dir, sharding,
+        dashboard, packed, manager, max_failures, input_dtype)
     return state, tr, va
 
 
 def _train_loop(num_epochs, training_loader, validation_loader, state,
                 scheduler, weights_stem, save_epoch, experiment, verbose,
-                weights_dir, packed, input_dtype=None):
-    """The epoch loop behind `train_segmentation`; returns (state,
-    train_losses, val_losses, last_completed_epoch)."""
+                weights_dir, sharding, dashboard, packed, manager,
+                max_failures, input_dtype=None):
+    """The one epoch loop behind `train_segmentation` and
+    `train_segmentation_resilient`; returns (state, train_losses,
+    val_losses, last_completed_epoch)."""
+    _not_ported(sharding=sharding, dashboard=dashboard)
     start_time = time.time()
     epoch_train_loss, epoch_val_loss = [], []
+    start_epoch, failures = 0, 0
     kw = dict(packed=packed, input_dtype=input_dtype)
-    # the reference's initial VALIDATE epoch
-    run_epoch(0, Action.VALIDATE, validation_loader, state, scheduler,
-              experiment, **kw)
-    for epoch_idx in range(1, num_epochs + 1):
-        state, tr = run_epoch(epoch_idx, Action.TRAIN, training_loader,
-                              state, scheduler, experiment, **kw)
-        state, va = run_epoch(epoch_idx, Action.VALIDATE, validation_loader,
-                              state, scheduler, experiment, **kw)
-        epoch_train_loss.append(float(np.mean(tr)))
-        epoch_val_loss.append(float(np.mean(va)))
-        if verbose:
-            print(f"Epoch {epoch_idx} of {num_epochs} took "
-                  f"{time.time() - start_time:.3f}s")
-            print(f"  training loss (in-iteration): \t{tr[-1]:.6f}")
-            print(f"  validation loss: \t\t\t{va[-1]:.6f}")
-        if isinstance(scheduler, ReduceLROnPlateau):
-            scheduler.step(epoch_val_loss[-1])
-        elif scheduler is not None:
-            scheduler.step()
-        if experiment:
-            experiment.log_epoch_end(epoch_idx)
-        if epoch_idx % save_epoch == 0:
+
+    def _restore_with_scheduler():
+        st, ep = manager.restore_latest(state)
+        if scheduler is not None and ep:
+            sd = manager.load_extra(ep).get("scheduler")
+            if sd:
+                load_scheduler_state(scheduler, sd)
+        return st, ep
+
+    def _save(st, epoch):
+        if manager is not None:
+            extra = ({} if scheduler is None
+                     else {"scheduler": scheduler.state_dict()})
+            manager.save(st, epoch, **extra)
+        elif epoch > 0 and epoch % save_epoch == 0:
             save_checkpoint(
-                f"{weights_dir}/{weights_stem}_epoch_{epoch_idx}.ckpt",
-                state)
-    return state, epoch_train_loss, epoch_val_loss, num_epochs
+                f"{weights_dir}/{weights_stem}_epoch_{epoch}.ckpt", st)
+
+    if manager is not None:
+        state, start_epoch = _restore_with_scheduler()
+        if verbose and start_epoch:
+            print(f"resumed from epoch {start_epoch}")
+
+    guard_cm = (_PreemptionGuard() if manager is not None
+                else contextlib.nullcontext())
+    with guard_cm as guard:
+        def stop():
+            return manager is not None and guard.stop_requested
+
+        if start_epoch == 0:  # the reference's initial VALIDATE epoch
+            state, _ = run_epoch(0, Action.VALIDATE, validation_loader, state,
+                                 scheduler, experiment, **kw)
+            _save(state, 0)
+
+        epoch_idx = start_epoch
+        while epoch_idx < num_epochs and not stop():
+            epoch_idx += 1
+            state, tr = run_epoch(epoch_idx, Action.TRAIN, training_loader,
+                                  state, scheduler, experiment, **kw)
+            state, va = run_epoch(epoch_idx, Action.VALIDATE,
+                                  validation_loader, state, scheduler,
+                                  experiment, **kw)
+            if manager is not None and not (np.all(np.isfinite(tr))
+                                            and np.all(np.isfinite(va))):
+                failures += 1
+                if failures > max_failures:
+                    raise RuntimeError(f"{failures} non-finite epochs; "
+                                       f"aborting at epoch {epoch_idx}")
+                if verbose:
+                    print(f"epoch {epoch_idx}: non-finite loss, rolling "
+                          f"back to the last checkpoint "
+                          f"({failures}/{max_failures})")
+                if manager.latest_epoch() is None:
+                    # never "roll back" to the just-poisoned in-memory state
+                    raise RuntimeError(
+                        f"epoch {epoch_idx} produced a non-finite loss and "
+                        "no checkpoint exists to roll back to (checkpoints "
+                        "pruned externally?)")
+                state, epoch_idx = _restore_with_scheduler()
+                continue
+            failures = 0
+            epoch_train_loss.append(float(np.mean(tr)))
+            epoch_val_loss.append(float(np.mean(va)))
+            if verbose:
+                print(f"Epoch {epoch_idx} of {num_epochs} took "
+                      f"{time.time() - start_time:.3f}s")
+                print(f"  training loss (in-iteration): \t{tr[-1]:.6f}")
+                print(f"  validation loss: \t\t\t{va[-1]:.6f}")
+            if isinstance(scheduler, ReduceLROnPlateau):
+                scheduler.step(epoch_val_loss[-1])
+            elif scheduler is not None:
+                scheduler.step()
+            if experiment:
+                experiment.log_epoch_end(epoch_idx)
+            _save(state, epoch_idx)
+        if manager is not None and stop() and verbose:
+            print(f"preemption requested: checkpointed at epoch "
+                  f"{epoch_idx}, exiting cleanly")
+    return state, epoch_train_loss, epoch_val_loss, epoch_idx
 
 
-def get_model_and_optimizer(num_encoding_blocks: int = 3,
+def sweep_checkpoints(weights_dir: str, state: TrainState, loader,
+                      pattern: str = "*.ckpt"):
+    """Evaluate every checkpoint in a directory, the port's and the JAX
+    package's alike (the reference's sweep in
+    `pretraining_3d_unet.ipynb` cell 17, printing DICE/IoU per epoch),
+    through `validate_dsc_asd` on a copy of `state`, which stays as it
+    was.  Returns {path: (mean_dsc, mean_iou)} sorted by path; a
+    checkpoint that fails to load or evaluate is reported and skipped, as
+    in the reference."""
+    work = copy.deepcopy(state)
+    results = {}
+    for path in sorted(glob.glob(f"{weights_dir}/{pattern}")):
+        try:
+            st = load_checkpoint(path, work)
+            dsc, _, _, iou = validate_dsc_asd(st, loader)
+            results[path] = (float(np.nanmean(dsc)), float(np.mean(iou)))
+            print(f"{path}: DICE {results[path][0]:.4f} "
+                  f"IoU {results[path][1]:.4f}")
+        except Exception as e:  # the reference's soft-fail sweep
+            print(f"{path}: skipped ({type(e).__name__}: {e})")
+    return results
+
+
+def mask_forward(state: TrainState, packed: bool = False):
+    """The segmenter's eval forward as `fn(inputs) -> uint8 masks (N, D, H,
+    W)` on the model's device, as `validate_dsc_asd` runs it.
+    `packed=True` folds the BatchNorms into the convs once
+    (`fold_bn_inference`) and runs the served packed forward:
+    `packed_unet_mask_v2` for 2 classes (B1 with B2 fused, the mask taken
+    in packed space), else the argmax of `packed_unet_apply_v2`; otherwise
+    the fine `UNet3D` in eval mode."""
+    model = state.model
+    if packed:
+        params = fold_bn_inference(model.state_dict())
+        nb = _num_encoding_blocks(model)
+        if params["classifier.conv_layer.weight"].shape[0] == 2:
+            def logits_or_mask(x):
+                return packed_unet_mask_v2(params, x, nb)
+        else:
+            def logits_or_mask(x):
+                return packed_unet_apply_v2(params, x, nb).argmax(-1)
+    else:
+        model.eval()
+
+        def logits_or_mask(x):
+            return model(x).argmax(-1)
+
+    @torch.no_grad()
+    def fn(inputs):
+        return logits_or_mask(inputs).to(torch.uint8)
+
+    return fn
+
+
+def validate_dsc_asd(state: TrainState, loader, packed: bool = False):
+    """Per-subject DSC, average surface distance and IoU over a loader of
+    (inputs, labels) batches (reference `segmentation/routine.py:217-237`).
+    The forward runs batched on the model's device (`mask_forward`:
+    `packed=True` is the served packed forward with BatchNorm folded, the
+    same masks as the fine one up to ties); the labels are binarized on
+    the device; the surface metrics run on the host (native EDT).
+    Returns lists (dsc, asd_mean, asd_std, iou), one entry per subject;
+    asd_mean and asd_std are, under the reference's names, the two
+    directed averages that `compute_average_surface_distance` returns
+    (ground truth to prediction, prediction to ground truth), in mm at
+    1 mm spacing."""
+    fwd = mask_forward(state, packed)
+    device = state.device
+    dsc, asd_mean, asd_std, iou = [], [], [], []
+    for batch in loader:
+        inputs = torch.as_tensor(batch[0]).to(device)
+        targets = binarize_segmentation(torch.as_tensor(batch[1]).to(device))
+        targets = targets[..., 0].to(torch.uint8).cpu().numpy()
+        preds = fwd(inputs).cpu().numpy()
+        for gt, pred in zip(targets, preds):
+            sd = compute_surface_distances(gt, pred, spacing_mm=(1, 1, 1))
+            m, s = compute_average_surface_distance(sd)
+            dsc.append(compute_dice_coefficient(gt, pred))
+            asd_mean.append(m)
+            asd_std.append(s)
+            iou.append(get_iou_score(pred, gt))
+    return dsc, asd_mean, asd_std, iou
+
+
+def get_model_and_optimizer(sample_input=None, num_encoding_blocks: int = 3,
                             out_channels_first_layer: int = 16,
-                            patience: int = 3, seed: int = 0, device=None):
+                            patience: int = 3, seed: int = 0, *,
+                            device=None):
     """Seeded model/optimizer/scheduler factory
-    (`segmentation/routine.py:338-361` semantics): the UNet3D is built on
-    the CPU from torch's generator seeded with `seed` (the global generator
-    is left as it was), then moved to `device`; AdamW defaults; plateau
-    scheduler (factor 0.1, patience 3, threshold 0.01).  Returns (model,
-    state, scheduler)."""
+    (`segmentation/routine.py:338-361` semantics), with the JAX package's
+    parameters in its order: the UNet3D is built on the CPU from torch's
+    generator seeded with `seed` (the global generator is left as it was),
+    then moved to `device`; AdamW defaults; plateau scheduler (factor 0.1,
+    patience 3, threshold 0.01).  `sample_input` only shapes the JAX
+    package's init and is ignored.  Returns (model, state, scheduler)."""
+    del sample_input
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = UNet3D(in_channels=1, out_classes=2,

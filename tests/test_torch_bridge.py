@@ -23,7 +23,10 @@ def jax_unet_variables(ocfl=8, nb=3, seed=0):
     """JAX-initialised UNet3D variables (numpy leaves) with random,
     non-trivial BN statistics, gammas and betas."""
     model = JaxUNet3D(out_channels_first_layer=ocfl, num_encoding_blocks=nb)
-    v = model.init(jax.random.key(seed), jnp.zeros((1, 8, 8, 8, 1)))
+    # one jitted init: eager init compiles every op anew in each process
+    # (too fast to enter the persistent compilation cache), which made
+    # these fixtures the port tests' heaviest CPU load
+    v = jax.jit(model.init)(jax.random.key(seed), jnp.zeros((1, 8, 8, 8, 1)))
     v = jax.tree_util.tree_map(np.asarray, v)
     rng = np.random.default_rng(seed)
 

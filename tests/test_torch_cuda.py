@@ -415,3 +415,107 @@ def test_packed_train_step_on_the_card(cuda_device):
     assert (K.conv2_packed.launches, K.conv2_packed.tc_launches,
             K.conv2_packed_dx.launches,
             K.conv2_packed_as_bn_act.launches) == (12, 11, 0, 5)
+
+
+@pytest.fixture
+def no_tf32():
+    """f32 convolutions and matmuls in full f32, as the CPU's are."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _seg_case(dev, size, batch, seed):
+    """A seeded UNet3D (out_channels_first_layer 8) and a batch of inputs
+    with FreeSurfer-style labels (a cortical blob in each volume)."""
+    from mri_epilepsy_diagnosis_torch.models import UNet3D
+
+    torch.manual_seed(seed)
+    model = UNet3D(out_channels_first_layer=8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(batch, size, size, size, 1, generator=g, device=dev)
+    ax = torch.arange(size, device=dev, dtype=torch.float32) - size / 2
+    r2 = ax[:, None, None] ** 2 + ax[None, :, None] ** 2 + ax[None, None] ** 2
+    inside = (r2 <= (size / 4) ** 2)[None, ..., None].expand_as(x)
+    labels = torch.where(inside, 1002, 41).to(torch.int16)
+    return model, x + inside, labels
+
+
+@pytest.mark.cuda
+def test_accum_full_micro_matches_flat_on_the_card(cuda_device, no_tf32):
+    """`packed_seg_train_step_accum` with micro = batch against the flat
+    packed step, f32 at 32^3 (the gate of `chip_smoke.py` phase 7a): loss
+    1e-5 relative, each gradient leaf 2e-2 x its max plus 1e-6 x the
+    largest gradient, running statistics 1e-5; then batch 4 in
+    micro-batches of 2 in bf16 launches B1 23 times per micro-batch."""
+    import copy
+
+    from mri_epilepsy_diagnosis_torch.train import (create_train_state,
+                                                    packed_seg_train_step,
+                                                    packed_seg_train_step_accum,
+                                                    torch_adamw)
+
+    model, x, labels = _seg_case(cuda_device, 32, 2, 12)
+    acc = create_train_state(copy.deepcopy(model), torch_adamw())
+    acc, loss = packed_seg_train_step_accum(acc, x, labels, micro=2)
+    flat = create_train_state(copy.deepcopy(model), torch_adamw())
+    flat, flat_loss = packed_seg_train_step(flat, x, labels)
+    assert abs(loss.item() - flat_loss.item()) <= 1e-5 * abs(flat_loss.item())
+    grads = dict(flat.model.named_parameters())
+    floor = 1e-6 * max(p.grad.abs().max().item() for p in grads.values())
+    for k, p in acc.model.named_parameters():
+        ref = grads[k].grad
+        err = (p.grad - ref).abs().max().item()
+        assert err <= 2e-2 * ref.abs().max().item() + floor, k
+    ref_buffers = dict(flat.model.named_buffers())
+    for k, b in acc.model.named_buffers():
+        if "running" in k:
+            err = (b - ref_buffers[k]).abs().max().item()
+            assert err <= 1e-5 * max(1.0, ref_buffers[k].abs().max().item())
+
+    model, x, labels = _seg_case(cuda_device, 32, 4, 13)
+    state = create_train_state(model, torch_adamw())
+    K.reset_launch_counts()
+    state, loss = packed_seg_train_step_accum(
+        state, x.to(torch.bfloat16), labels, micro=2)
+    torch.cuda.synchronize()
+    assert (K.conv2_packed.launches, K.conv2_packed.tc_launches,
+            K.conv2_packed_dx.launches,
+            K.conv2_packed_as_bn_act.launches) == (46, 44, 22, 0)
+    assert torch.isfinite(loss)
+
+
+@pytest.mark.cuda
+def test_validate_packed_masks_match_fine_on_the_card(cuda_device, no_tf32):
+    """`validate_dsc_asd`'s two forwards in f32 at 32^3 (the gate of
+    `chip_smoke.py` phase 7c): the packed masks (B1 with B2 fused, 12
+    launches per batch, 5 fused) agree with the fine UNet3D's (cuDNN) at
+    >= 0.999 of the voxels, with a non-trivial foreground; then the
+    per-subject metrics of the packed route are finite."""
+    from mri_epilepsy_diagnosis_torch.train import (TrainState, mask_forward,
+                                                    torch_adamw,
+                                                    validate_dsc_asd)
+
+    model, x, labels = _seg_case(cuda_device, 32, 2, 14)
+    state = TrainState(model, torch_adamw()(model.parameters()))
+    with torch.no_grad():
+        model.eval()
+        logits = model(x)
+        margin = (logits[..., 1] - logits[..., 0]).flatten()
+        model.classifier.conv_layer.bias[1] -= torch.quantile(margin, 0.7)
+    K.reset_launch_counts()
+    packed = mask_forward(state, packed=True)(x)
+    torch.cuda.synchronize()
+    assert (K.conv2_packed.launches, K.conv2_packed.tc_launches,
+            K.conv2_packed_as_bn_act.launches) == (12, 0, 5)
+    fine = mask_forward(state, packed=False)(x)
+    assert (packed == fine).float().mean().item() >= 0.999
+    assert 0.1 < packed.float().mean().item() < 0.5
+    metrics = validate_dsc_asd(state, [(x.cpu().numpy(),
+                                        labels.cpu().numpy())], packed=True)
+    assert all(len(m) == 2 for m in metrics)
+    assert all(torch.isfinite(torch.tensor(m)).all() for m in metrics)

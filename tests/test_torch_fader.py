@@ -97,8 +97,8 @@ def jax_model(name):
 def bridged(name, seed=0):
     jmodel, tmodel, shape = jax_model(name)
     x = np.random.default_rng(seed + 1).normal(size=shape).astype(np.float32)
-    variables = randomized(jmodel.init(jax.random.key(seed), jnp.asarray(x)),
-                           seed)
+    variables = randomized(jax.jit(jmodel.init)(jax.random.key(seed),
+                                                jnp.asarray(x)), seed)
     tmodel.load_state_dict(variables_to_state_dict(variables, device="cpu"),
                            strict=True)
     return jmodel, tmodel.eval(), variables, x

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of `mri_epilepsy_diagnosis_torch`
-and not `chip_smoke.py` imports JAX, flax or the JAX package.
+and not `chip_smoke.py` imports JAX, flax, optax, msgpack (the port reads
+flax checkpoints with its own decoder) or the JAX package.
 
 Checked statically with `ast`: a `sys.modules` check cannot work in a
 process whose start-up may already have imported jax."""
@@ -9,7 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mri_epilepsy_diagnosis_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "mri_epilepsy_diagnosis_tpu")
 SOURCES = sorted((ROOT / "mri_epilepsy_diagnosis_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -27,7 +29,10 @@ def test_port_sources_found():
     assert {"chip_smoke.py", "cuda_kernels.py", "serving.py",
             "unet_packed.py", "jax_bridge.py", "fader.py", "labels.py",
             "dice.py", "state.py", "optim.py", "checkpoint.py",
-            "seg.py"} <= names
+            "seg.py", "accum.py", "resilience.py", "flax_msgpack.py",
+            "surface.py", "nifti.py"} <= names
+    assert ROOT / "mri_epilepsy_diagnosis_torch" / "native" / "__init__.py" \
+        in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES,
