@@ -85,12 +85,41 @@ Phases (each raises on failure, so the script exits nonzero):
       packed masks against the fine cuDNN masks (>= 0.999), DSC / ASD /
       IoU over the native EDT (which must build) against scipy's EDT
       (1e-9), the device ms of the forward and the host ms of the metrics
-      per subject; then `sweep_checkpoints` over 7b's directory.
+      per subject; then `sweep_checkpoints` over 7b's directory;
+8. segmentation from NIfTI files:
+   a. 4 FreeSurfer-style subjects written with `save_nifti` (256^3 int16
+      `*_norm` and int32 `*_aparc+aseg`, one subject gzipped) with a
+      targets CSV into `chiprun_out/chip_smoke_cohort/` (removed at the
+      end of the phase); `MriSegmentation` must return exactly the 192^3
+      crops written; host ms per subject load;
+   b. Nyul landmarks over the subjects, then `preprocess_volume` of each
+      256^3 volume to 192^3 on the card against the CPU, and the
+      histogram standardization of a 320x320x192 volume (above
+      `torch.quantile`'s 2^24 elements);
+   c. each augmentation's core on a 192^3 volume, card against CPU; the
+      reference's chain (flip, affine, elastic, noise, motion, bias
+      field) timed on a batch of 2;
+   d. training from the files: whole volumes (`Subset`, `DataLoader`
+      with a collate that preprocesses on the card, one
+      `train_segmentation` epoch, `validate_dsc_asd`), then 64^3 patches
+      (`PatchQueue` with 2 workers, `batched(16)`) through the same
+      trainer; every B1 launch of a batch-16 patch step against its plain
+      version; 5 timed steps with exact launch counts (B1 23, 22 on
+      tensor cores, 11 dx), the device split of a step, and the device
+      idle share of a profiled epoch from files;
+   e. `sliding_window_predict` of one 192^3 volume, patch 64, overlap 4
+      (64 patches, one batch-64 call of the BN-folded packed UNet), bf16
+      and f32, crop and average, with exact launch counts per call (B1
+      12, 11 on tensor cores in bf16, 5 with B2 fused); each B1 site at
+      N = 64 against its plain version; f32 logits against the fine
+      UNet3D's (cuDNN) through the same window; bf16 masks against f32
+      masks; the mask written to NIfTI and read back.
 
 It prints one line per check, then `{"kernels": [...]}` (the kernels of
 the served path: B1 on tensor cores, B2 fused into B1 on either route,
-fused B3; and of the training path: B1's forward on tensor cores, the
-stem's forward on CUDA cores, B1 as input gradient; the standalone B2 and
+fused B3; of the training path: B1's forward on tensor cores, the
+stem's forward on CUDA cores, B1 as input gradient; of f32 validation;
+and of phase 8's sliding window and patch training; the standalone B2 and
 per-axis B3 kernels, off both paths, go to the JSON file with their
 numbers, as does dw, which is cuBLAS and no kernel of the port), the card's
 `nvidia-smi` name and power limit, and last
@@ -220,6 +249,38 @@ VAL_MASK_AGREEMENT = 0.999
 # DSC/ASD/IoU over the native EDT vs over scipy's: both exact transforms
 # in float64, so only the order of a few float64 operations differs
 METRIC_TOL = 1e-9
+# segmentation from files (phase 8): COHORT_SUBJECTS FreeSurfer-conformed
+# COHORT_SIZE^3 subjects on disk, cropped at COHORT_CROP to SIZE^3 as
+# MriSegmentation does by default
+COHORT_SUBJECTS = 4
+COHORT_SIZE = 256
+COHORT_CROP = (30, 30, 30)
+# 19.7 M voxels: above torch.quantile's 2^24 elements
+QUANTILE_LIMIT_SHAPE = (320, 320, 192)
+# preprocessing and augmentation on the card vs on the CPU, x max|ref|:
+# the same float32 operations, with the reductions (the z-normalization's
+# moments, the bias field's sum of terms, the elastic field's
+# interpolation) summed in another order
+PREP_TOL = 1e-4
+AUG_TOL = 1e-4
+# 64^3 patch training (`examples/train_segmentation.py --patches`)
+PATCH = 64
+PATCH_BATCH = 16
+PATCHES_PER_VOLUME = 6
+PATCH_QUEUE_LENGTH = 180
+PATCH_STEPS = 5
+# the profiled epochs from files pass over the subjects this many times:
+# 64 loads, 32 whole-volume steps, 384 patches in 24 steps (the queue
+# refills past PATCH_QUEUE_LENGTH twice), so that they show the loaders in
+# steady state and not only their start-up
+PROFILE_PASSES = 16
+# sliding-window inference (`pretraining_3d_unet.ipynb` cells 26/35): patch
+# 64, overlap 4, so 4 positions per axis of 192 and one batch-64 call
+SW_OVERLAP = 4
+SW_BATCH = 64
+SW_PATCHES = 64
+SW_LOGIT_TOL = 1e-4            # f32 sliding window vs the fine UNet3D's
+SW_TIMED_CALLS = 7             # per dtype and mode: median and spread
 # labels: FreeSurfer ids, cortical ids >= 1000 in a sphere that is also
 # brighter in the image, a LIST_FCD subcortical id (17) in a smaller one,
 # background ids outside LIST_FCD (2, 41) elsewhere
@@ -265,6 +326,10 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def on_card(t) -> bool:
+    return t.device.type == "cuda"
 
 
 def time_ms(fn, reps: int) -> float:
@@ -393,79 +458,115 @@ def check(name, got, ref, dtype_name, tols=TOL):
     return err
 
 
-def b1_kernel_phase(K, sites, gen):
-    """Each B1 site at batch 1 and 8, f32 and bf16, against its plain
-    version; timed at batch 8 in bf16.  Errors are kept per route (the
-    kernel the wrapper chose) and dtype."""
+def _kernel_kind(route, fused):
+    """The kernel instantiation a B1 launch takes: its route, `_bn_act`
+    with the B2 epilogue."""
+    return route + ("_bn_act" if fused else "")
+
+
+def forward_site_rows(K, sites, gen, label, checks, timed=None):
+    """Each B1 site of a recorded forward (B2 fused at the sites recorded
+    as fused) at each (batch, dtype) of `checks`, batch None meaning the
+    recorded one, against its plain version.  At the pair `timed` each
+    site is also timed beside its plain version, the CUDA-core kernel on
+    the same inputs (tensor-core plain-store sites), cuDNN's `F.conv3d`
+    (plain-store sites, TF32 off) and the bound at the peak of the dtype.
+    Returns the timed rows and the largest error by kernel kind
+    (`_kernel_kind`) and dtype."""
     import torch
     import torch.nn.functional as TF
 
     rows = []
-    errs = {r: {"f32": 0.0, "bf16": 0.0} for r in ("tc", "cuda_core")}
+    # None where no check of that kind and dtype ran
+    errs = {_kernel_kind(r, f): {"f32": None, "bf16": None}
+            for r in ("tc", "cuda_core") for f in (False, True)}
     for name, site in zip(B1_SITES, sites):
-        _, di, hi, wi, c8i = site["x"]
-        c8o, pad = site["wp"][4], site["pad"]
-        for batch in (1, BATCH):
-            for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-                x = torch.randn((batch, di, hi, wi, c8i), generator=gen,
-                                device="cuda").to(dt)
-                wp = (torch.randn(site["wp"], generator=gen, device="cuda")
-                      / np.sqrt(8 * c8i)).to(dt)
+        c8i, c8o, pad = site["x"][4], site["wp"][4], site["pad"]
+        fused = site.get("fused", False)
+        for batch, dn in checks:
+            dt = torch.float32 if dn == "f32" else torch.bfloat16
+            shape = (batch or site["x"][0], *site["x"][1:])
+            x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            wp = (torch.randn(site["wp"], generator=gen,
+                              device="cuda") / np.sqrt(8 * c8i)).to(dt)
+            if fused:
+                scale = 0.5 + torch.rand(c8o, generator=gen, device="cuda")
+                shift = torch.randn(c8o, generator=gen, device="cuda")
+                alpha = torch.rand(c8o, generator=gen, device="cuda")
+                add = (torch.randn((x.shape[0], *(e + 1 for e in shape[1:4]),
+                                    c8o), generator=gen,
+                                   device="cuda").to(dt)
+                       if site["addend"] else None)
+
+                def run():
+                    return K.conv2_packed_as_bn_act(x, wp, scale, shift,
+                                                    alpha, addend=add)
+
+                def plain():
+                    return K.conv2_packed_as_bn_act_plain(x, wp, scale, shift,
+                                                          alpha, add)
+                library = cuda_core = None
+                extra = ((0 if add is None else add.numel() * x.element_size())
+                         + 3 * 4 * c8o)
+            else:
                 bias = (torch.randn(c8o, generator=gen, device="cuda")
                         if site["bias"] else None)
-                route = K._conv2_route(dt, c8i, c8o)
-                got = K.conv2_packed(x, wp, bias, pad=pad)
-                torch.cuda.synchronize()
-                ref = K.conv2_packed_plain(x, wp, bias, pad=pad)
-                err = check(f"conv2_packed {name} b{batch} ({route})", got,
-                            ref, dn)
-                errs[route][dn] = max(errs[route][dn], err)
-                if batch == BATCH and dn == "bf16":
-                    rows.append(b1_time_row(K, TF, name, x, wp, bias, pad,
-                                            got))
-                del x, wp, got, ref
-                torch.cuda.empty_cache()
+
+                def run():
+                    return K.conv2_packed(x, wp, bias, pad=pad)
+
+                def plain():
+                    return K.conv2_packed_plain(x, wp, bias, pad=pad)
+
+                def cuda_core():
+                    return K._conv2_launch(x, wp, bias, pad, False)
+                xc = x.permute(0, 4, 1, 2, 3)
+                wc = wp.permute(4, 3, 0, 1, 2).contiguous(
+                    memory_format=torch.channels_last_3d)
+                bc = None if bias is None else bias.to(dt)
+
+                def library():
+                    return TF.conv3d(xc, wc, bc, padding=pad)
+                extra = 0 if bias is None else 4 * c8o
+            route = K._conv2_route(dt, c8i, c8o)
+            kind = _kernel_kind(route, fused)
+            got = run()
+            torch.cuda.synchronize()
+            op = "conv2_packed_as_bn_act" if fused else "conv2_packed"
+            err = check(f"{label} {op} {name} b{x.shape[0]} ({route})", got,
+                        plain(), dn)
+            errs[kind][dn] = max(errs[kind][dn] or 0.0, err)
+            if (batch, dn) == timed:
+                m = got.shape[0] * got.shape[1] * got.shape[2] * got.shape[3]
+                flops = 2.0 * m * (8 * c8i) * c8o
+                nbytes = ((x.numel() + wp.numel() + got.numel())
+                          * x.element_size() + extra)
+                bound_ms, bound_by = _bound(flops, nbytes, dn)
+                ms = time_ms(run, 10)
+                rows.append({
+                    "site": name, "x": list(x.shape), "c8o": c8o, "pad": pad,
+                    "fused": fused, "route": route, "max_abs_err": err,
+                    "ms": ms, "plain_ms": time_ms(plain, 1),
+                    # the CUDA-core kernel on the same inputs (uncounted
+                    # launches): what the tensor-core route replaced here
+                    "cuda_core_ms": (time_ms(cuda_core, 2)
+                                     if route == "tc" and cuda_core else
+                                     ms if route == "cuda_core" else None),
+                    # yardstick only: the same function as one cuDNN call
+                    # on the packed tensor (NCDHW view of the data)
+                    "library_ms": (None if library is None
+                                   else time_ms(library, 10)),
+                    "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bound_share": bound_ms / ms,
+                    "tflops": flops / ms / 1e9,
+                    "tile_waste": (K.conv2_tc_plan(*got.shape[:4], c8o,
+                                                   pad).waste
+                                   if route == "tc" and not fused else None)})
+                log(f"time {label} {kind} {name} b{x.shape[0]} {dn}: "
+                    f"{json.dumps(rows[-1])}")
+            del x, wp, got
+            torch.cuda.empty_cache()
     return rows, errs
-
-
-def b1_time_row(K, TF, name, x, wp, bias, pad, out):
-    import torch
-
-    n, di, hi, wi, c8i = x.shape
-    c8o = wp.shape[4]
-    m = out.shape[0] * out.shape[1] * out.shape[2] * out.shape[3]
-    flops = 2.0 * m * (8 * c8i) * c8o
-    nbytes = (x.numel() + wp.numel() + out.numel()) * x.element_size() + (
-        0 if bias is None else 4 * c8o)
-    reps = 10
-    route = K._conv2_route(x.dtype, c8i, c8o)
-    ms = time_ms(lambda: K.conv2_packed(x, wp, bias, pad=pad), reps)
-    # the CUDA-core kernel on the same inputs (uncounted launches): what
-    # the tensor-core route replaced at this site
-    cuda_core_ms = (time_ms(lambda: K._conv2_launch(x, wp, bias, pad, False),
-                            2) if route == "tc" else ms)
-    plain_ms = time_ms(lambda: K.conv2_packed_plain(x, wp, bias, pad=pad), 1)
-    # yardstick only: the same function as one cuDNN call on the packed
-    # tensor (NCDHW view of the channels-last data)
-    xc = x.permute(0, 4, 1, 2, 3)
-    wc = wp.permute(4, 3, 0, 1, 2).contiguous(
-        memory_format=torch.channels_last_3d)
-    library_ms = time_ms(lambda: TF.conv3d(xc, wc, bias.to(x.dtype) if bias
-                                           is not None else None,
-                                           padding=pad), reps)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_OPS_PER_S["bf16"] * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    row = {"site": name, "x": list(x.shape), "c8o": c8o, "pad": pad,
-           "route": route, "ms": ms, "cuda_core_ms": cuda_core_ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "bound_share": bound_ms / ms, "tflops": flops / ms / 1e9,
-           "tile_waste": (K.conv2_tc_plan(*out.shape[:4], c8o, pad).waste
-                          if route == "tc" else None)}
-    log(f"time conv2_packed {name} b{n} bf16: {json.dumps(row)}")
-    return row
 
 
 def b2_kernel_phase(K, P, sites, gen):
@@ -863,17 +964,20 @@ def calibrate_fader(enc, clf, x_few, latents_fn):
                                    -d.mean() / d.std()]))
 
 
-def profile_batch(fn, top: int = 12):
+def profile_batch(fn, top: int = 12, host_ops: bool = True):
     """torch.profiler over one served batch: device time by kernel name,
     the port's kernels (B1 on tensor cores split into its plain-store and
     B2-epilogue instantiations), everything else, and the device's idle share
     of the window (1 - device time / wall time; kernels run on one stream
     at a time here, so their times add).  A first, tiny profiled op
-    absorbs the profiler's own start-up."""
+    absorbs the profiler's own start-up.  `host_ops=False` traces the
+    device alone: recording every host op slows the host threads, which
+    set the pace of an epoch from files."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = ([ProfilerActivity.CPU] if host_ops else []) + [
+        ProfilerActivity.CUDA]
     with profile(activities=acts):
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
@@ -882,6 +986,7 @@ def profile_batch(fn, top: int = 12):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()            # the trace is read from here
     rows = []
     for e in prof.key_averages():
         # device-side events only (kernels, copies): an aten op's row
@@ -909,6 +1014,8 @@ def profile_batch(fn, top: int = 12):
     copy_ms = sum(r[1] for r in rows if r[0].startswith("Memcpy")
                   or r[0].startswith("Memset"))
     return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "host_ops_traced": host_ops,
+            "trace_read_s": time.perf_counter() - t0,
             "kernel_ms": device_ms - copy_ms, "copy_ms": copy_ms,
             "idle_share": (1 - device_ms / wall_ms) if device_ms else None,
             "conv2_packed_tc_ms": ours["conv2_packed_tc_kernel"],
@@ -995,68 +1102,61 @@ def _bound(flops, nbytes, peak):
     return max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def train_kernel_phase(K, P, sites, gen):
-    """Phase 6a, at each site of the train step: B1's forward at batch
-    TRAIN_BATCH and its input gradient (`conv2_packed_dx`) at batch 1 and
-    TRAIN_BATCH, in f32 and bf16, against the plain versions; dw against
-    an f32 einsum of the same operands (bf16 at TRAIN_BATCH, f32 at batch
-    1).  Timed at TRAIN_BATCH in bf16, each beside cuDNN's
-    `convolution_backward` of the same packed k=2 conv as yardstick."""
+def backward_site_rows(K, P, sites, gen, label, checks, timed, dw_at=()):
+    """The backward of each B1 site of a recorded train-step forward, at
+    each (batch, dtype) of `checks` (batch None: the recorded one): the
+    input gradient (`conv2_packed_dx`, at DX_SITES) against its plain
+    version, and at the pairs of `dw_at` dw against an f32 einsum
+    (`dw_check`).  At the pair `timed` both are timed beside cuDNN's
+    `convolution_backward` of the same packed k=2 conv as yardstick.
+    Returns rows {"dx", "dw"} and errors {"dx": by route and dtype, "dw":
+    by dtype}."""
     import torch
     import torch.nn.functional as TF
 
-    rows = {"forward": [], "dx": [], "dw": []}
-    errs = {k: {r: {"f32": 0.0, "bf16": 0.0} for r in ("tc", "cuda_core")}
-            for k in ("forward", "dx")}
-    errs["dw"] = {"f32": 0.0, "bf16": 0.0}
+    rows = {"dx": [], "dw": []}
+    # None where no check of that kind and dtype ran
+    errs = {"dx": {r: {"f32": None, "bf16": None}
+                   for r in ("tc", "cuda_core")},
+            "dw": {"f32": None, "bf16": None}}
     for name, site in zip(B1_SITES, sites):
-        _, di, hi, wi, c8i = site["x"]
-        c8o, pad = site["wp"][4], site["pad"]
-        for batch in (1, TRAIN_BATCH):
-            for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-                x = torch.randn((batch, di, hi, wi, c8i), generator=gen,
-                                device="cuda").to(dt)
-                wp = (torch.randn(site["wp"], generator=gen, device="cuda")
-                      / np.sqrt(8 * c8i)).to(dt)
-                bias = (torch.randn(c8o, generator=gen, device="cuda")
-                        if site["bias"] else None)
-                g = torch.randn((batch, *_out_cells(site), c8o),
-                                generator=gen, device="cuda").to(dt)
-                out = None
-                if batch == TRAIN_BATCH:
-                    route = K._conv2_route(dt, c8i, c8o)
-                    out = K.conv2_packed(x, wp, bias, pad=pad)
-                    torch.cuda.synchronize()
-                    ref = K.conv2_packed_plain(x, wp, bias, pad=pad)
-                    e = check(f"train forward conv2_packed {name} b{batch} "
-                              f"({route})", out, ref, dn)
-                    errs["forward"][route][dn] = max(
-                        errs["forward"][route][dn], e)
-                dx = None
-                if name in DX_SITES:
-                    route = K._conv2_route(dt, c8o, c8i)
-                    dx = K.conv2_packed_dx(g, wp, pad=pad)
-                    torch.cuda.synchronize()
-                    ref = K.conv2_packed_plain(g, K.flipped_weights(wp),
-                                               pad=1 - pad)
-                    e = check(f"conv2_packed_dx {name} b{batch} ({route})",
-                              dx, ref, dn)
-                    errs["dx"][route][dn] = max(errs["dx"][route][dn], e)
-                if (batch, dn) in ((1, "f32"), (TRAIN_BATCH, "bf16")):
-                    e, dw_row = dw_check(P, TF, name, x, g, pad)
-                    errs["dw"][dn] = max(errs["dw"][dn], e)
-                if batch == TRAIN_BATCH and dn == "bf16":
-                    rows["forward"].append(b1_time_row(K, TF, name, x, wp,
-                                                       bias, pad, out))
-                    rows["dw"].append(dw_row)
-                    yard = cudnn_backward(x, wp, g, pad)
-                    rows["dw"][-1]["library_ms"] = time_ms(
+        c8i, c8o, pad = site["x"][4], site["wp"][4], site["pad"]
+        for batch, dn in checks:
+            dt = torch.float32 if dn == "f32" else torch.bfloat16
+            n = batch or site["x"][0]
+            x = torch.randn((n, *site["x"][1:]), generator=gen,
+                            device="cuda").to(dt)
+            wp = (torch.randn(site["wp"], generator=gen, device="cuda")
+                  / np.sqrt(8 * c8i)).to(dt)
+            g = torch.randn((n, *_out_cells(site), c8o), generator=gen,
+                            device="cuda").to(dt)
+            dx = None
+            if name in DX_SITES:
+                route = K._conv2_route(dt, c8o, c8i)
+                dx = K.conv2_packed_dx(g, wp, pad=pad)
+                torch.cuda.synchronize()
+                ref = K.conv2_packed_plain(g, K.flipped_weights(wp),
+                                           pad=1 - pad)
+                dx_err = check(f"{label} conv2_packed_dx {name} b{n} "
+                               f"({route})", dx, ref, dn)
+                errs["dx"][route][dn] = max(errs["dx"][route][dn] or 0.0,
+                                            dx_err)
+                del ref
+            if (batch, dn) in dw_at:
+                dw_err, dw_row = dw_check(P, TF, name, x, g, pad)
+                errs["dw"][dn] = max(errs["dw"][dn] or 0.0, dw_err)
+            if (batch, dn) == timed:
+                yard = cudnn_backward(x, wp, g, pad)
+                if (batch, dn) in dw_at:
+                    dw_row["library_ms"] = time_ms(
                         lambda: yard((False, True, False)), 5)
-                    if dx is not None:
-                        rows["dx"].append(dx_time_row(K, name, g, wp, pad,
-                                                      dx, yard))
-                del x, wp, g, out, dx
-                torch.cuda.empty_cache()
+                    rows["dw"].append(dw_row)
+                if dx is not None:
+                    rows["dx"].append(dx_time_row(K, name, g, wp, pad, dx,
+                                                  yard))
+                    rows["dx"][-1]["max_abs_err"] = dx_err
+            del x, wp, g, dx
+            torch.cuda.empty_cache()
     return rows, errs
 
 
@@ -1150,32 +1250,41 @@ def seg_batches(gen, n_batches, batch, size):
 
     from mri_epilepsy_diagnosis_torch.transforms import znormalization
 
-    ax = torch.arange(size, device="cuda", dtype=torch.float32)
     vols = t1_like_volumes(gen, n_batches * batch, size)
     out = []
     for b in range(n_batches):
         xs, ls = [], []
         for v in vols[b * batch:(b + 1) * batch]:
-            v = torch.from_numpy(v).cuda().float()
-            lab = torch.full(v.shape, 2, dtype=torch.int16, device="cuda")
-            lab[:, :, size // 2:] = 41
-            for radius, kind in zip(LABEL_RADII, ("cortex", "fcd")):
-                c = size / 4 + torch.rand(3, generator=gen,
-                                          device="cuda") * (size / 2)
-                r2 = ((ax - c[0])[:, None, None] ** 2
-                      + (ax - c[1])[None, :, None] ** 2
-                      + (ax - c[2])[None, None, :] ** 2)
-                inside = r2 <= (radius * size / SIZE) ** 2
-                ids = (1000 + r2.long() % 35 if kind == "cortex"
-                       else torch.full_like(lab, 17))
-                lab = torch.where(inside, ids.to(torch.int16), lab)
-                if kind == "cortex":
-                    v = v + 300 * inside
+            v, lab = freesurfer_labels(gen, torch.from_numpy(v).cuda().float())
             xs.append(znormalization(v))
             ls.append(lab)
         out.append((torch.stack(xs)[..., None].cpu().numpy(),
                     torch.stack(ls)[..., None].cpu().numpy()))
     return out
+
+
+def freesurfer_labels(gen, v):
+    """FreeSurfer-style int16 labels for the float T1w-like cube `v` on the
+    card (see `seg_batches`), and `v` with the cortical sphere 300
+    brighter."""
+    import torch
+
+    size = v.shape[0]
+    ax = torch.arange(size, device="cuda", dtype=torch.float32)
+    lab = torch.full(v.shape, 2, dtype=torch.int16, device="cuda")
+    lab[:, :, size // 2:] = 41
+    for radius, kind in zip(LABEL_RADII, ("cortex", "fcd")):
+        c = size / 4 + torch.rand(3, generator=gen, device="cuda") * (size / 2)
+        r2 = ((ax - c[0])[:, None, None] ** 2
+              + (ax - c[1])[None, :, None] ** 2
+              + (ax - c[2])[None, None, :] ** 2)
+        inside = r2 <= (radius * size / SIZE) ** 2
+        ids = (1000 + r2.long() % 35 if kind == "cortex"
+               else torch.full_like(lab, 17))
+        lab = torch.where(inside, ids.to(torch.int16), lab)
+        if kind == "cortex":
+            v = v + 300 * inside
+    return v, lab
 
 
 def parity_phase(TS, UNet3D, gen):
@@ -1696,79 +1805,6 @@ def _scipy_edt(mask, spacing=(1.0, 1.0, 1.0)):
     return ndimage.distance_transform_edt(~mask, sampling=spacing)
 
 
-def validation_kernel_phase(K, P, sites, gen):
-    """Each B1 site of the f32 validation forward (CUDA-core kernel, B2
-    fused at the five aligned->shifted sites) at its own shapes against
-    its plain version, timed beside it and cuDNN (TF32 off); the bound at
-    the f32 peak."""
-    import torch
-    import torch.nn.functional as TF
-
-    rows, err = [], 0.0
-    for name, site in zip(B1_SITES, sites):
-        c8i, c8o, pad = site["x"][4], site["wp"][4], site["pad"]
-        x = torch.randn(site["x"], generator=gen, device="cuda")
-        wp = torch.randn(site["wp"], generator=gen,
-                         device="cuda") / np.sqrt(8 * c8i)
-        if site["fused"]:
-            scale = 0.5 + torch.rand(c8o, generator=gen, device="cuda")
-            shift = torch.randn(c8o, generator=gen, device="cuda")
-            alpha = torch.rand(c8o, generator=gen, device="cuda")
-            add = (torch.randn((x.shape[0], *(e + 1 for e in x.shape[1:4]),
-                                c8o), generator=gen, device="cuda")
-                   if site["addend"] else None)
-
-            def run():
-                return K.conv2_packed_as_bn_act(x, wp, scale, shift, alpha,
-                                                addend=add)
-
-            def plain():
-                return K.conv2_packed_as_bn_act_plain(x, wp, scale, shift,
-                                                      alpha, add)
-            library = None
-            extra = (0 if add is None else add.numel()) * 4 + 3 * 4 * c8o
-        else:
-            bias = (torch.randn(c8o, generator=gen, device="cuda")
-                    if site["bias"] else None)
-
-            def run():
-                return K.conv2_packed(x, wp, bias, pad=pad)
-
-            def plain():
-                return K.conv2_packed_plain(x, wp, bias, pad=pad)
-            xc = x.permute(0, 4, 1, 2, 3)
-            wc = wp.permute(4, 3, 0, 1, 2).contiguous(
-                memory_format=torch.channels_last_3d)
-
-            def library():
-                return TF.conv3d(xc, wc, bias, padding=pad)
-            extra = 0 if bias is None else 4 * c8o
-        got = run()
-        torch.cuda.synchronize()
-        kind = "conv2_packed_as_bn_act" if site["fused"] else "conv2_packed"
-        err = max(err, check(f"validation {kind} {name} b{x.shape[0]}", got,
-                             plain(), "f32"))
-        m = got.shape[0] * got.shape[1] * got.shape[2] * got.shape[3]
-        flops = 2.0 * m * (8 * c8i) * c8o
-        nbytes = (x.numel() + wp.numel() + got.numel()) * 4 + extra
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_OPS_PER_S["f32"] * 1e3
-        ms = time_ms(run, 3)
-        rows.append({"site": name, "x": list(x.shape), "c8o": c8o,
-                     "fused": site["fused"], "ms": ms,
-                     "plain_ms": time_ms(plain, 1),
-                     "library_ms": (None if library is None
-                                    else time_ms(library, 3)),
-                     "flops": flops, "bytes": nbytes,
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                     "tflops": flops / ms / 1e9})
-        del x, wp, got
-        torch.cuda.empty_cache()
-    log(f"validation sites (f32 b{VAL_BATCH}): {json.dumps(rows)}")
-    return rows, err
-
-
 def validation_phase(K, P, gen, launch_counts, state, ckpt_dir):
     """Phase 7c: `validate_dsc_asd(packed=True)` on VAL_SUBJECTS 192^3
     subjects in f32 (7b's trained model, its classifier bias set for a
@@ -1802,7 +1838,9 @@ def validation_phase(K, P, gen, launch_counts, state, ckpt_dir):
     if (len(sites["conv2_packed"]) != len(B1_SITES)
             or sites["bn_act_zero_pads"]):
         raise AssertionError(f"unexpected validation sites {sites}")
-    rows, err = validation_kernel_phase(K, P, sites["conv2_packed"], gen)
+    rows, errs = forward_site_rows(K, sites["conv2_packed"], gen,
+                                   "validation", [(None, "f32")],
+                                   (None, "f32"))
     del x0
 
     if not native.native_available():
@@ -1877,7 +1915,9 @@ def validation_phase(K, P, gen, launch_counts, state, ckpt_dir):
            "host_metrics_ms": host_ms,
            "metrics_native_vs_scipy_max_abs_err": metric_err,
            "validate_vs_recomputed_max_abs_err": own_err,
-           "kernel_max_abs_err_f32": err,
+           "kernel_max_abs_err_f32": max(e["f32"] for e in errs.values()
+                                         if e["f32"] is not None),
+           "kernel_max_abs_err": errs,
            "sweep": {os.path.basename(k): v for k, v in sweep.items()},
            "sweep_s": sweep_s}
     log(f"validation: {json.dumps(out)}")
@@ -1892,6 +1932,511 @@ def validation_phase(K, P, gen, launch_counts, state, ckpt_dir):
         raise AssertionError("non-finite validation metrics")
     if len(sweep) != 3 or not np.isfinite(list(sweep.values())).all():
         raise AssertionError(f"sweep over {os.listdir(ckpt_dir)}: {sweep}")
+    return out, rows
+
+
+def cohort_phase(gen, root):
+    """Phase 8a: COHORT_SUBJECTS FreeSurfer-style subjects written as NIfTI
+    files into `root` (a COHORT_SIZE^3 int16 `*_norm` T1w-like volume and
+    an int32 `*_aparc+aseg` label volume each; the last subject gzipped,
+    the rest plain `.nii`) with a targets CSV; `MriSegmentation` must
+    return exactly the crops that were written.  Returns the dataset, the
+    loaded items, the written T1w volumes and the numbers."""
+    import csv
+
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.utils import MriSegmentation, save_nifti
+
+    os.makedirs(root, exist_ok=True)
+    volumes, labels, write_ms, rows = [], [], [], []
+    for i, v in enumerate(t1_like_volumes(gen, COHORT_SUBJECTS,
+                                          COHORT_SIZE)):
+        v, lab = freesurfer_labels(gen, torch.from_numpy(v).cuda().float())
+        img = v.to(torch.int16).cpu().numpy()
+        lab = lab.to(torch.int32).cpu().numpy()
+        ext = ".nii.gz" if i == COHORT_SUBJECTS - 1 else ".nii"
+        patient = f"sub{i:02d}"
+        t0 = time.perf_counter()
+        save_nifti(os.path.join(root, f"{patient}_norm{ext}"), img)
+        save_nifti(os.path.join(root, f"{patient}_aparc+aseg{ext}"), lab)
+        write_ms.append((time.perf_counter() - t0) * 1e3)
+        volumes.append(img)
+        labels.append(lab)
+        rows.append(["hcp", patient, i % 2, ("siemens", "ge")[i % 2], 1, ""])
+    targets = os.path.join(root, "targets.csv")
+    with open(targets, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["sample", "patient", "fcd", "scan", "detection",
+                    "comments"])
+        w.writerows(rows)
+    ds = MriSegmentation("all", image_path=root, targets_path=targets,
+                         coord_min=COHORT_CROP, img_shape=(SIZE,) * 3)
+    if len(ds) != COHORT_SUBJECTS:
+        raise AssertionError(f"{len(ds)} subjects found of {COHORT_SUBJECTS}")
+    crop = tuple(slice(c, c + SIZE) for c in COHORT_CROP)
+    items, load_ms = [], []
+    for i in range(len(ds)):
+        t0 = time.perf_counter()
+        img, seg = ds[i]
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+        want = (volumes[i][crop][None].astype(np.float32),
+                MriSegmentation.binarize_cortex(
+                    labels[i][crop][None].astype(np.float32)))
+        if not (np.array_equal(img, want[0]) and np.array_equal(seg, want[1])):
+            raise AssertionError(f"subject {i}: the loaded crop differs from "
+                                 "the one written")
+        items.append((img, seg))
+    out = {"subjects": COHORT_SUBJECTS, "size": COHORT_SIZE,
+           "crop": [list(COHORT_CROP), SIZE],
+           "files": sorted(os.listdir(root)),
+           "bytes_on_disk": sum(os.path.getsize(os.path.join(root, f))
+                                for f in os.listdir(root)),
+           "write_ms_per_subject": write_ms,
+           "load_ms_per_subject": load_ms,
+           "load_ms_nii": float(np.mean(load_ms[:-1])),
+           "load_ms_nii_gz": load_ms[-1],
+           # binarize_cortex leaves the id 1000 as it is: count non-zeros
+           "foreground_share": float(np.mean([(s > 0).mean()
+                                              for _, s in items]))}
+    log(f"cohort: {json.dumps(out)}")
+    return ds, items, volumes, out
+
+
+def preprocessing_phase(items, volumes):
+    """Phase 8b: Nyul landmarks trained over the subjects' crops (host
+    numpy), then `preprocess_volume(landmarks, (SIZE,)*3)` of each written
+    COHORT_SIZE^3 volume on the card against the same function on the
+    CPU, and `histogram_standardization` of one QUANTILE_LIMIT_SHAPE
+    volume (above `torch.quantile`'s 2^24 elements) likewise.  Returns
+    the landmarks, the preprocessed volumes on the card and the numbers."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.transforms import (
+        crop_or_pad, histogram_standardization, preprocess_volume,
+        train_histogram_landmarks)
+
+    t0 = time.perf_counter()
+    landmarks = train_histogram_landmarks([img[0] for img, _ in items])
+    landmarks_ms = (time.perf_counter() - t0) * 1e3
+    out_vols, card_ms, errs = [], [], []
+    for raw in volumes:
+        xd = torch.from_numpy(raw).cuda()
+        card_ms.append(time_ms(lambda: preprocess_volume(
+            xd, landmarks, (SIZE,) * 3), 3))
+        got = preprocess_volume(xd, landmarks, (SIZE,) * 3)
+        ref = preprocess_volume(torch.from_numpy(raw), landmarks,
+                                (SIZE,) * 3)
+        if got.shape != (SIZE,) * 3 or not on_card(got):
+            raise AssertionError(f"preprocess_volume gave {got.shape} on "
+                                 f"{got.device}")
+        errs.append(check("preprocess_volume", got.cpu(), ref, "f32",
+                          {"f32": PREP_TOL}))
+        out_vols.append(got)
+        del xd
+    big = crop_or_pad(torch.from_numpy(volumes[0]).cuda().float(),
+                      QUANTILE_LIMIT_SHAPE)
+    if big.numel() <= 2 ** 24:
+        raise AssertionError(f"{big.numel()} voxels do not pass 2^24")
+    big_ms = time_ms(lambda: histogram_standardization(big, landmarks), 3)
+    got = histogram_standardization(big, landmarks)
+    big_err = check(f"histogram_standardization {list(big.shape)}",
+                    got.cpu(), histogram_standardization(big.cpu(), landmarks),
+                    "f32", {"f32": PREP_TOL})
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite standardized volume")
+    del big, got
+    out = {"landmarks": landmarks.tolist(), "landmarks_host_ms": landmarks_ms,
+           "input_size": COHORT_SIZE, "output_size": SIZE,
+           "card_ms_per_volume": card_ms,
+           "max_abs_err_vs_cpu": errs,
+           "big_volume": {"shape": list(QUANTILE_LIMIT_SHAPE),
+                          "voxels": int(np.prod(QUANTILE_LIMIT_SHAPE)),
+                          "card_ms": big_ms, "max_abs_err_vs_cpu": big_err}}
+    log(f"preprocessing: {json.dumps(out)}")
+    return landmarks, out_vols, out
+
+
+def augmentation_phase(vols):
+    """Phase 8c: each transform's deterministic core on a SIZE^3 volume
+    with fixed parameters, on the card against the CPU (AUG_TOL x
+    max|ref|); then the reference's chain (`baseline_3d_unet.ipynb` cell
+    8: flip, affine, elastic, noise, motion, bias field) with parameters
+    drawn from a host generator on a batch of 2 volumes, ms per volume per
+    transform (host clock around synchronized work)."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.transforms import augment as A
+    from mri_epilepsy_diagnosis_torch.transforms import spatial as S
+
+    v = vols[0]
+    g = torch.Generator().manual_seed(SEED)
+    field = torch.randn(v.shape, generator=g)
+    coeffs = A._uniform(g, (len(A._poly_terms(3)),), -0.5, 0.5)
+    cp = A._uniform(g, (3, 7, 7, 7), -7.5, 7.5)
+    affine = A._affine_from_params(v.shape, [0.95, 1.05, 1.0],
+                                   [5.0, -7.0, 3.0], [2.0, -1.0, 0.5])
+    motion = [A._affine_from_params(v.shape, [1.0] * 3, ang, tr)
+              for ang, tr in (([4.0, -2.0, 6.0], [3.0, 0.0, -2.0]),
+                              ([-5.0, 3.0, 1.0], [-1.5, 2.5, 4.0]))]
+    cores = {"flip": lambda x: S.flip(x, (0,)),
+             "affine": lambda x: S.affine_resample(x, affine),
+             "elastic": lambda x: A._elastic_from_control_points(x, cp),
+             "noise": lambda x: A._add_noise(x, 0.0, 0.1, field.to(x.device)),
+             "motion": lambda x: A._motion(x, motion),
+             "bias_field": lambda x: A._apply_bias_field(x, coeffs, 3)}
+    vc = v.cpu()
+    errs = {}
+    for name, fn in cores.items():
+        got = fn(v)
+        if not on_card(got):
+            raise AssertionError(f"{name} left the card")
+        errs[name] = check(f"augment {name}", got.cpu(), fn(vc), "f32",
+                           {"f32": AUG_TOL})
+    chain = [("flip", A.random_flip), ("affine", A.random_affine),
+             ("elastic", A.random_elastic_deformation),
+             ("noise", A.random_noise), ("motion", A.random_motion),
+             ("bias_field", A.random_bias_field)]
+    gen = torch.Generator().manual_seed(SEED)
+    batch = vols[:2]
+
+    def per_volume_ms(fn):
+        fn(gen, batch[0])                               # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [fn(gen, x) for x in batch]
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(o).all() for o in outs):
+            raise AssertionError("non-finite augmented volume")
+        return (time.perf_counter() - t0) / len(batch) * 1e3
+
+    ms = {name: per_volume_ms(fn) for name, fn in chain}
+    ms["chain"] = per_volume_ms(A.Compose([fn for _, fn in chain]))
+    out = {"size": SIZE, "max_abs_err_vs_cpu": errs,
+           "ms_per_volume": ms, "batch": len(batch)}
+    log(f"augmentation: {json.dumps(out)}")
+    return out
+
+
+def _new_train_state(UNet3D, gen):
+    from mri_epilepsy_diagnosis_torch import train as Tr
+
+    state = Tr.create_train_state(
+        UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
+               out_channels_first_layer=OCFL, device="cuda"),
+        Tr.torch_adamw())
+    random_state_dict(state.model, gen)
+    sched = Tr.ReduceLROnPlateau(state.optimizer, mode="min", factor=0.1,
+                                 patience=3, threshold=0.01)
+    return state, sched
+
+
+def files_training_phase(K, P, UNet3D, gen, launch_counts, ds, landmarks,
+                         ckpt_dir):
+    """Phase 8d: training from the files of 8a.
+    Whole volumes: a `Subset` split, `DataLoader`s of batches of 2 whose
+    collate preprocesses on the card (the batch goes through
+    `DevicePrefetcher` as it is), one `train_segmentation` epoch (packed,
+    bf16) with exact launch counts, `validate_dsc_asd` over the
+    validation loader, and one profiled epoch that passes over the
+    subjects PROFILE_PASSES times.
+    Patches: `PatchQueue` (the subjects preprocessed on the card at load,
+    PATCHES_PER_VOLUME patches of PATCH^3, queue PATCH_QUEUE_LENGTH, 2
+    workers) with `batched(PATCH_BATCH)` through the same trainer; every
+    B1 launch of a batch-PATCH_BATCH step checked against its plain
+    version; PATCH_STEPS timed steps with exact launch counts, the device
+    split of one step, and one profiled epoch from files with the same
+    repeats."""
+    import copy
+
+    import torch
+
+    from mri_epilepsy_diagnosis_torch import train as Tr
+    from mri_epilepsy_diagnosis_torch.data import (DataLoader, PatchQueue,
+                                                   Subset, batched,
+                                                   default_collate)
+    from mri_epilepsy_diagnosis_torch.train import seg as TS
+    from mri_epilepsy_diagnosis_torch.transforms import preprocess_volume
+
+    def card_collate(items):
+        """Channels-last batch, each volume preprocessed on the card."""
+        x, y = default_collate(items)
+        xd = torch.from_numpy(x).cuda()
+        x = torch.stack([preprocess_volume(v[..., 0], landmarks)
+                         for v in xd])[..., None]
+        return x, y
+
+    def standardized(item):
+        """A subject preprocessed on the card at load (the patch queue
+        samples its patches on the host)."""
+        img, seg = item
+        x = preprocess_volume(torch.from_numpy(img[0]).cuda(), landmarks)
+        return x.cpu().numpy()[None], seg
+
+    bf16 = dict(packed=True, input_dtype=torch.bfloat16)
+    n = len(ds)
+    train_set = Subset(ds, range(n // 2))
+    val_set = Subset(ds, range(n // 2, n))
+    train_loader = DataLoader(train_set, batch_size=2, shuffle=True,
+                              seed=SEED, collate_fn=card_collate)
+    val_loader = DataLoader(val_set, batch_size=2, collate_fn=card_collate)
+
+    state, sched = _new_train_state(UNet3D, gen)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, tr, va = Tr.train_segmentation(
+        1, train_loader, val_loader, state, sched, "chip_smoke_files",
+        weights_dir=ckpt_dir, verbose=False, **bf16)
+    whole_s = time.perf_counter() - t0
+    whole_counts = launch_counts()
+    _expect_counts("whole volumes from files, 1 epoch", whole_counts, {
+        k: len(train_loader) * v + 2 * len(val_loader) * UNET_PER_BATCH[k]
+        for k, v in TRAIN_PER_STEP.items()})
+    K.reset_launch_counts()
+    dsc, asd_gt, asd_pred, iou = Tr.validate_dsc_asd(state, val_loader,
+                                                     packed=True)
+    _expect_counts("validate_dsc_asd from files (f32)", launch_counts(),
+                   {k: len(val_loader) * v for k, v in VAL_PER_BATCH.items()})
+    # an epoch in steady state: every subject PROFILE_PASSES times over, so
+    # that the prefetcher's thread loads ahead of the steps as it would
+    # over a cohort of that many subjects
+    cohort = Subset(ds, np.tile(np.arange(n), PROFILE_PASSES))
+    long_loader = DataLoader(cohort, batch_size=2, shuffle=True, seed=SEED,
+                             collate_fn=card_collate)
+    whole_prof = profile_batch(lambda: TS.run_epoch(
+        2, Tr.Action.TRAIN, long_loader, state, **bf16), host_ops=False)
+
+    queue = PatchQueue(ds, max_length=PATCH_QUEUE_LENGTH,
+                       samples_per_volume=PATCHES_PER_VOLUME,
+                       patch_size=PATCH, transform=standardized, seed=SEED,
+                       num_workers=2)
+    patch_loader = batched(queue, PATCH_BATCH)
+    val1 = DataLoader(val_set, batch_size=1, collate_fn=card_collate)
+    pstate, psched = _new_train_state(UNet3D, gen)
+    n_steps = -(-len(queue) // PATCH_BATCH)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    pstate, ptr, pva = Tr.train_segmentation(
+        1, patch_loader, val1, pstate, psched, "chip_smoke_patches",
+        weights_dir=ckpt_dir, verbose=False, **bf16)
+    patch_epoch_s = time.perf_counter() - t0
+    patch_counts = launch_counts()
+    _expect_counts(f"{PATCH}^3 patches from files, 1 epoch", patch_counts, {
+        k: n_steps * v + 2 * len(val1) * UNET_PER_BATCH[k]
+        for k, v in TRAIN_PER_STEP.items()})
+
+    batches = list(patch_loader)
+    if len(batches[0][0]) != PATCH_BATCH:
+        raise AssertionError(f"patch batches {[len(b[0]) for b in batches]}")
+    xb = torch.from_numpy(batches[0][0]).cuda().to(torch.bfloat16)
+    lb = torch.from_numpy(batches[0][1]).cuda()
+    del batches
+    rec = copy.deepcopy(pstate.model)
+    sites = record_train_sites(K, P, lambda: TS.packed_seg_loss(
+        rec, xb, lb)[0].backward())
+    del rec
+    name_train_sites(sites)         # its dx and dw calls match the forward
+    fwd_rows, fwd_err = forward_site_rows(K, sites["forward"], gen,
+                                          "patch train forward",
+                                          [(None, "bf16")], (None, "bf16"))
+    bwd_rows, bwd_err = backward_site_rows(K, P, sites["forward"], gen,
+                                           "patch train", [(None, "bf16")],
+                                           (None, "bf16"))
+
+    pstate, loss = Tr.packed_seg_train_step(pstate, xb, lb)     # warm-up
+    warm_loss = float(loss)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(PATCH_STEPS):
+        pstate, loss = Tr.packed_seg_train_step(pstate, xb, lb)
+        losses.append(float(loss))
+    step_s = (time.perf_counter() - t0) / PATCH_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_counts = launch_counts()
+    _expect_counts(f"{PATCH_STEPS} patch train steps, batch {PATCH_BATCH}",
+                   step_counts, {k: PATCH_STEPS * v
+                                 for k, v in TRAIN_PER_STEP.items()})
+    box = {}
+
+    def profiled_step():
+        _, box["read"] = step_split(K, P, lambda: Tr.packed_seg_train_step(
+            pstate, xb, lb))
+
+    step_prof = profile_batch(profiled_step)
+    split = box["read"]()
+    split["other_kernels_ms"] = (step_prof["kernel_ms"]
+                                 - split["b1_forward_ms"]
+                                 - split["b1_dx_ms"] - split["dw_ms"])
+    # the same steady state for the queue, which fills past max_length
+    # several times over the repeated subjects
+    long_queue = PatchQueue(cohort, max_length=PATCH_QUEUE_LENGTH,
+                            samples_per_volume=PATCHES_PER_VOLUME,
+                            patch_size=PATCH, transform=standardized,
+                            seed=SEED, num_workers=2)
+    patch_prof = profile_batch(lambda: TS.run_epoch(
+        2, Tr.Action.TRAIN, batched(long_queue, PATCH_BATCH), pstate, **bf16),
+        host_ops=False)
+    out = {"whole": {"subjects_train": len(train_set),
+                     "subjects_val": len(val_set), "batch": 2,
+                     "epoch_s": whole_s, "train_losses": tr,
+                     "val_losses": va, "launches": whole_counts,
+                     "dsc": dsc, "asd_gt_to_pred": asd_gt,
+                     "asd_pred_to_gt": asd_pred, "iou": iou,
+                     "profile_epoch": whole_prof,
+                     "profile_epoch_loads": len(cohort),
+                     "profile_epoch_steps": len(long_loader)},
+           "patches": {"patch": PATCH, "batch": PATCH_BATCH,
+                       "per_volume": PATCHES_PER_VOLUME,
+                       "queue_length": PATCH_QUEUE_LENGTH, "workers": 2,
+                       "steps_per_epoch": n_steps, "epoch_s": patch_epoch_s,
+                       "train_losses": ptr, "val_losses": pva,
+                       "launches_epoch": patch_counts,
+                       "ms_per_step": step_s * 1e3,
+                       "patches_per_s": PATCH_BATCH / step_s,
+                       "peak_memory_gb": peak_gb, "warmup_loss": warm_loss,
+                       "timed_losses": losses,
+                       "launches_timed_steps": step_counts,
+                       "b1_launches_per_step":
+                           step_counts["conv2_packed"] // PATCH_STEPS,
+                       "step_split": split, "profile_step": step_prof,
+                       "profile_epoch": patch_prof,
+                       "profile_epoch_loads": len(cohort),
+                       "profile_epoch_steps": -(-len(long_queue)
+                                                // PATCH_BATCH),
+                       "forward_max_abs_err": fwd_err,
+                       "dx_max_abs_err": bwd_err["dx"]}}
+    log(f"training from files: {json.dumps(out)}")
+    if not np.isfinite(tr + va + ptr + pva + losses).all():
+        raise AssertionError("non-finite losses from files")
+    if not np.isfinite(dsc + asd_gt + asd_pred + iou).all():
+        raise AssertionError("non-finite validation metrics from files")
+    return pstate, out, fwd_rows, bwd_rows["dx"]
+
+
+def sliding_window_phase(K, P, UNet3D, state, vol, gen, launch_counts,
+                         root):
+    """Phase 8e: `sliding_window_predict` of one preprocessed SIZE^3
+    volume, patch PATCH, overlap SW_OVERLAP (SW_PATCHES patches, one
+    batch-SW_BATCH call of the BN-folded `packed_unet_apply_v2` of 8d's
+    patch-trained model, its classifier bias set for a FG_SHARE
+    foreground), in bf16 and f32, in the crop and average modes, with
+    exact launch counts; each B1 site at N = SW_BATCH against its plain
+    version; f32 logits against the fine UNet3D (cuDNN, TF32 off) through
+    the same sliding window; bf16 masks against f32 masks; the mask
+    written with `save_nifti` and read back."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.infer import (extract_patches,
+                                                    grid_locations,
+                                                    sliding_window_predict)
+    from mri_epilepsy_diagnosis_torch.models.unet_packed import (
+        fold_bn_inference, packed_unet_apply_v2, packed_unet_mask_v2)
+    from mri_epilepsy_diagnosis_torch.utils import load_nifti, save_nifti
+
+    x = vol[..., None]
+    locs = grid_locations(x.shape[:3], PATCH, SW_OVERLAP)
+    if len(locs) != SW_PATCHES:
+        raise AssertionError(f"{len(locs)} patches != {SW_PATCHES}")
+    sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+
+    def window(params, inputs, mode, apply_fn=packed_unet_apply_v2):
+        with torch.inference_mode():
+            return sliding_window_predict(apply_fn, params, inputs, PATCH,
+                                          SW_OVERLAP, SW_BATCH, mode)
+
+    logits = window(fold_bn_inference(sd), x, "crop")
+    margin = (logits[..., 1] - logits[..., 0]).flatten()[::101]
+    sd["classifier.conv_layer.bias"][1] -= torch.quantile(margin.float(),
+                                                          1 - FG_SHARE)
+    params = fold_bn_inference(sd)
+    del logits, margin
+    with torch.inference_mode():
+        patches = extract_patches(x, locs, PATCH)
+        sites = record_sites(K, P, lambda: packed_unet_apply_v2(
+            params, patches.to(torch.bfloat16)))["conv2_packed"]
+    if (len(sites) != len(B1_SITES) or sites[0]["x"][0] != SW_BATCH
+            or sum(s["fused"] for s in sites) != len(B2_SITES)):
+        raise AssertionError(f"unexpected sliding-window sites {sites}")
+    del patches
+    rows, errs = forward_site_rows(K, sites, gen, "sliding window",
+                                   [(None, "bf16"), (None, "f32")],
+                                   (None, "bf16"))
+
+    runs = {}
+    for dn, dt, want in (("f32", torch.float32, VAL_PER_BATCH),
+                         ("bf16", torch.bfloat16, UNET_PER_BATCH)):
+        xi = x.to(dt)
+        for mode in ("crop", "average"):
+            window(params, xi, mode)                    # warm-up
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            out = window(params, xi, mode)
+            counts = launch_counts()
+            _expect_counts(f"sliding window {dn} {mode}", counts, want)
+            # host clock around each synchronized call: what a caller waits
+            samples = []
+            for _ in range(SW_TIMED_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                window(params, xi, mode)
+                torch.cuda.synchronize()
+                samples.append((time.perf_counter() - t0) * 1e3)
+            runs[(dn, mode)] = (out, samples, counts)
+    model = UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
+                   out_channels_first_layer=OCFL, device="cuda").eval()
+    model.load_state_dict(sd)
+    logit_err, agree, fg = {}, {}, {}
+    for mode in ("crop", "average"):
+        fine = window(None, x, mode, lambda p, t: model(t))
+        got = runs[("f32", mode)][0]
+        err = (got - fine).abs().max().item()
+        scale = fine.abs().max().item()
+        logit_err[mode] = err
+        log(f"sliding window f32 {mode} vs fine UNet3D (cuDNN): max_abs_err "
+            f"{err:.3e} (max|logit| {scale:.3e}, tol {SW_LOGIT_TOL} x "
+            f"max|logit|)")
+        if err > SW_LOGIT_TOL * scale:
+            raise AssertionError(f"sliding window {mode}: f32 logits differ "
+                                 f"from the fine UNet3D's by {err}")
+        m32 = got.argmax(-1)
+        m16 = runs[("bf16", mode)][0].argmax(-1)
+        agree[mode] = (m16 == m32).float().mean().item()
+        fg[mode] = m16.float().mean().item()
+        del fine
+    with torch.inference_mode():
+        whole = packed_unet_mask_v2(params, x[None].to(torch.bfloat16))[0]
+    mask = runs[("bf16", "crop")][0].argmax(-1).to(torch.uint8)
+    whole_agree = (whole == mask).float().mean().item()
+    path = os.path.join(root, "sub00_mask.nii.gz")
+    save_nifti(path, mask.cpu().numpy())
+    back = load_nifti(path).data
+    roundtrip = bool(back.dtype == np.uint8
+                     and np.array_equal(back, mask.cpu().numpy()))
+    profile = profile_batch(lambda: window(params, x.to(torch.bfloat16),
+                                           "crop"))
+    out = {"size": SIZE, "patch": PATCH, "overlap": SW_OVERLAP,
+           "patches": len(locs), "batch": SW_BATCH,
+           "ms_per_volume": {f"{dn}_{mode}": float(np.median(r[1]))
+                             for (dn, mode), r in runs.items()},
+           "ms_samples": {f"{dn}_{mode}": r[1]
+                          for (dn, mode), r in runs.items()},
+           "launches": {f"{dn}_{mode}": r[2]
+                        for (dn, mode), r in runs.items()},
+           "f32_logits_vs_fine_max_abs_err": logit_err,
+           "mask_agreement_bf16_vs_f32": agree, "foreground_share": fg,
+           "agreement_with_whole_volume_packed_mask": whole_agree,
+           "mask_nifti_roundtrip": roundtrip,
+           "kernel_max_abs_err": errs,
+           "profile": profile}
+    log(f"sliding window: {json.dumps(out)}")
+    if min(agree.values()) < MASK_AGREEMENT_BF16:
+        raise AssertionError(f"bf16 vs f32 sliding-window masks {agree}")
+    if not all(FG_GATE[0] <= f <= FG_GATE[1] for f in fg.values()):
+        raise AssertionError(f"degenerate sliding-window masks: {fg}")
+    if not roundtrip:
+        raise AssertionError("the mask did not come back from its NIfTI file")
     return out, rows
 
 
@@ -1984,7 +2529,12 @@ def main() -> int:
             raise AssertionError(f"unexpected fader stacks {b3_stacks}, "
                                  f"{ae_stacks} or AE output {recon.shape}")
         del ae, recon
-        b1_rows, b1_errs = b1_kernel_phase(K, b1_sites, gen)
+        # every B1 site at batch 1 and BATCH without its epilogue (the
+        # fused sites are held with it by fused_kernel_phase)
+        b1_rows, b1_errs = forward_site_rows(
+            K, [{**s, "fused": False} for s in b1_sites], gen, "serving",
+            [(b, dn) for b in (1, BATCH) for dn in ("f32", "bf16")],
+            (BATCH, "bf16"))
         fused_rows, fused_errs = fused_kernel_phase(K, P, b1_sites, gen)
         b2_rows, b2_errs = b2_kernel_phase(K, P, b2_sites, gen)
         sep_rows, sep_errs = sep_kernel_phase(K, B3_STACKS, b3_stacks, gen,
@@ -2226,8 +2776,16 @@ def main() -> int:
     dx_names, dw_names = name_train_sites(train_sites)
     del rec_model, xr, yr
     torch.cuda.empty_cache()
-    train_rows, train_errs = train_kernel_phase(K, P, train_sites["forward"],
-                                                gen)
+    # every forward site at TRAIN_BATCH, every dx at batch 1 and
+    # TRAIN_BATCH, in f32 and bf16; dw in f32 at batch 1 and in bf16 at
+    # TRAIN_BATCH; timed at TRAIN_BATCH in bf16
+    train_rows, train_errs = backward_site_rows(
+        K, P, train_sites["forward"], gen, "train",
+        [(b, dn) for b in (1, TRAIN_BATCH) for dn in ("f32", "bf16")],
+        (TRAIN_BATCH, "bf16"), dw_at=((1, "f32"), (TRAIN_BATCH, "bf16")))
+    train_rows["forward"], train_errs["forward"] = forward_site_rows(
+        K, train_sites["forward"], gen, "train forward",
+        [(TRAIN_BATCH, "f32"), (TRAIN_BATCH, "bf16")], (TRAIN_BATCH, "bf16"))
     # 6b. f32 parity of the packed step (kernels) with the fine one (cuDNN)
     parity = parity_phase(TS, UNet3D, gen)
     torch.cuda.empty_cache()
@@ -2252,6 +2810,44 @@ def main() -> int:
     del trained
     phase7_s = time.perf_counter() - t7
     log(f"phase 7: {phase7_s:.1f} s")
+
+    # ---- 8. segmentation from files
+    import shutil
+
+    torch.cuda.empty_cache()
+    t8 = time.perf_counter()
+    cohort_dir = os.path.join("chiprun_out", "chip_smoke_cohort")
+    try:
+        phase8_parts_s = {}
+
+        def lap(part):
+            phase8_parts_s[part] = time.perf_counter() - t8 - sum(
+                phase8_parts_s.values())
+
+        ds, items, raw, cohort = cohort_phase(gen, cohort_dir)
+        lap("8a")
+        landmarks, prepped, preprocessing = preprocessing_phase(items, raw)
+        del items, raw
+        lap("8b")
+        augmentation = augmentation_phase(prepped)
+        torch.cuda.empty_cache()
+        lap("8c")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as d:
+            patch_state, from_files, patch_fwd_rows, patch_dx_rows = (
+                files_training_phase(K, P, UNet3D, gen, launch_counts, ds,
+                                     landmarks, d))
+        torch.cuda.empty_cache()
+        lap("8d")
+        sliding, sw_rows = sliding_window_phase(
+            K, P, UNet3D, patch_state, prepped[0], gen, launch_counts,
+            cohort_dir)
+        lap("8e")
+    finally:
+        # 4 subjects of 96 MB each: too large to bring back
+        shutil.rmtree(cohort_dir, ignore_errors=True)
+    del patch_state, prepped
+    phase8_s = time.perf_counter() - t8
+    log(f"phase 8: {phase8_s:.1f} s ({json.dumps(phase8_parts_s)})")
 
     # the kernels of the served path, one entry per kernel instantiation:
     # launches from the timed ensemble run, times summed over the sites
@@ -2332,39 +2928,117 @@ def main() -> int:
     # the f32 validation forward of phase 7c: B1 on the CUDA-core kernel,
     # with B2 fused at the aligned->shifted sites
     v = validation["launches"]
+    val_errs = validation["kernel_max_abs_err"]
     per_val = (f"sum over the sites of one batch-{VAL_BATCH} f32 "
                f"validation forward at {SIZE}^3; launches from "
                f"{VAL_SUBJECTS} subjects")
     kernels += [
         kernel_entry("conv2_packed.validate_f32", src + "conv2_packed.cu",
                      tpu + "265", [r for r in val_rows if not r["fused"]],
-                     {"f32": validation["kernel_max_abs_err_f32"],
-                      "bf16": validation["kernel_max_abs_err_f32"]},
+                     {"f32": val_errs["cuda_core"]["f32"],
+                      "bf16": val_errs["cuda_core"]["f32"]},
                      _counted_b1(v)["conv2_packed"],
                      len(B1_SITES) - len(B2_SITES), path="validation",
                      shapes=per_val),
         kernel_entry("conv2_packed_bn_act.validate_f32",
                      src + "conv2_packed.cu", tpu + "197",
                      [r for r in val_rows if r["fused"]],
-                     {"f32": validation["kernel_max_abs_err_f32"],
-                      "bf16": validation["kernel_max_abs_err_f32"]},
+                     {"f32": val_errs["cuda_core_bn_act"]["f32"],
+                      "bf16": val_errs["cuda_core_bn_act"]["f32"]},
                      _counted_b1(v)["conv2_packed_bn_act"], len(B2_SITES),
                      fuses=tpu + "265 (B1) + " + tpu + "197 (B2)",
                      path="validation", shapes=per_val),
+    ]
+    # phase 8: one bf16 sliding-window call (batch 64 of 64^3 patches) and
+    # the timed batch-16 64^3 patch train steps
+    sw = sliding["launches"]["bf16_crop"]
+    per_sw = (f"sum over the sites of one batch-{SW_BATCH} bf16 sliding-"
+              f"window call on {PATCH}^3 patches of a {SIZE}^3 volume; "
+              "launches from that call")
+    sw_sel = {"tc": [r for r in sw_rows if r["route"] == "tc"
+                     and not r["fused"]],
+              "tc_bn_act": [r for r in sw_rows if r["route"] == "tc"
+                            and r["fused"]],
+              "bn_act": [r for r in sw_rows if r["route"] == "cuda_core"
+                         and r["fused"]]}
+    # the f32 call takes the CUDA-core kernel at every site: its errors
+    # stand beside the tensor-core entries of the same sites
+    sw_errs = sliding["kernel_max_abs_err"]
+    fuses = tpu + "265 (B1) + " + tpu + "197 (B2)"
+    kernels += [
+        kernel_entry("conv2_packed_tc.sliding_window",
+                     src + "conv2_packed_tc.cu", tpu + "265", sw_sel["tc"],
+                     {"f32": None, "bf16": sw_errs["tc"]["bf16"]},
+                     _counted_b1(sw)["conv2_packed_tc"],
+                     len(sw_sel["tc"]), path="sliding_window", shapes=per_sw,
+                     max_abs_err_f32_cuda_core=sw_errs["cuda_core"]["f32"]),
+        kernel_entry("conv2_packed_tc_bn_act.sliding_window",
+                     src + "conv2_packed_tc.cu", tpu + "197",
+                     sw_sel["tc_bn_act"],
+                     {"f32": None, "bf16": sw_errs["tc_bn_act"]["bf16"]},
+                     _counted_b1(sw)["conv2_packed_tc_bn_act"],
+                     len(sw_sel["tc_bn_act"]), fuses=fuses,
+                     path="sliding_window", shapes=per_sw,
+                     max_abs_err_f32_cuda_core=sw_errs["cuda_core_bn_act"]
+                     ["f32"]),
+        kernel_entry("conv2_packed_bn_act.sliding_window",
+                     src + "conv2_packed.cu", tpu + "197", sw_sel["bn_act"],
+                     sw_errs["cuda_core_bn_act"],
+                     _counted_b1(sw)["conv2_packed_bn_act"],
+                     len(sw_sel["bn_act"]), fuses=fuses,
+                     path="sliding_window", shapes=per_sw),
+    ]
+    pt = from_files["patches"]["launches_timed_steps"]
+    per_patch = (f"sum over the sites of one batch-{PATCH_BATCH} bf16 train "
+                 f"step on {PATCH}^3 patches; launches from {PATCH_STEPS} "
+                 "steps")
+    pf_tc = [r for r in patch_fwd_rows if r["route"] == "tc"]
+    pf_cc = [r for r in patch_fwd_rows if r["route"] == "cuda_core"]
+    pf_errs = from_files["patches"]["forward_max_abs_err"]
+    pdx_errs = from_files["patches"]["dx_max_abs_err"]
+    kernels += [
+        kernel_entry("conv2_packed_tc.patch_train_forward",
+                     src + "conv2_packed_tc.cu", tpu + "265", pf_tc,
+                     pf_errs["tc"], _counted_b1(pt)["conv2_packed_tc"],
+                     len(pf_tc), path="patch_training", shapes=per_patch),
+        kernel_entry("conv2_packed.patch_train_stem", src + "conv2_packed.cu",
+                     tpu + "265", pf_cc, pf_errs["cuda_core"],
+                     _counted_b1(pt)["conv2_packed"], len(pf_cc),
+                     path="patch_training", shapes=per_patch),
+        kernel_entry("conv2_packed_tc.patch_dx", src + "conv2_packed_tc.cu",
+                     tpu + "265", patch_dx_rows, pdx_errs["tc"],
+                     pt["conv2_packed_dx_tc"], len(patch_dx_rows),
+                     path="patch_training", shapes=per_patch,
+                     gradient_of="mri_epilepsy_diagnosis_tpu/ops/packed.py:"
+                     "230 (_conv3_packed_bwd), :479 (_conv3_packed_as_bwd)"),
     ]
     # every entry's launches on each path driven with the counts at 0
     paths = {"serving_ensemble": c, "train_step": t,
              "accumulated_step": accumulation["launches"],
              "resilient_training": resilient["launches"],
-             "validation_f32": v}
+             "validation_f32": v,
+             "whole_volumes_from_files": from_files["whole"]["launches"],
+             "patch_epoch_from_files":
+                 from_files["patches"]["launches_epoch"],
+             "patch_train_steps": pt, "sliding_window_bf16": sw}
     counted_as = {"conv2_packed_tc.train_forward": "conv2_packed_tc",
                   "conv2_packed.train_stem": "conv2_packed",
                   "conv2_packed.validate_f32": "conv2_packed",
-                  "conv2_packed_bn_act.validate_f32": "conv2_packed_bn_act"}
+                  "conv2_packed_bn_act.validate_f32": "conv2_packed_bn_act",
+                  "conv2_packed_tc.sliding_window": "conv2_packed_tc",
+                  "conv2_packed_tc_bn_act.sliding_window":
+                      "conv2_packed_tc_bn_act",
+                  "conv2_packed_bn_act.sliding_window": "conv2_packed_bn_act",
+                  "conv2_packed_tc.patch_train_forward": "conv2_packed_tc",
+                  "conv2_packed.patch_train_stem": "conv2_packed",
+                  "conv2_packed_tc.patch_dx": "conv2_packed_tc.dx"}
     for entry in kernels:
         key = counted_as.get(entry["name"], entry["name"])
         entry["launches_by_path"] = {p: _counted_b1(n)[key]
                                      for p, n in paths.items()}
+        if entry["launches"] <= 0:
+            raise AssertionError(f"{entry['name']} was not launched on its "
+                                 "path")
     dw_rows = train_rows["dw"]
     dw = {"route": training["dw_route"],
           "ms": sum(r["ms"] for r in dw_rows),
@@ -2408,6 +3082,12 @@ def main() -> int:
                    "accumulation": accumulation, "resilient": resilient,
                    "validation": validation, "validation_sites": val_rows,
                    "phase7_s": phase7_s,
+                   "cohort": cohort, "preprocessing": preprocessing,
+                   "augmentation": augmentation, "from_files": from_files,
+                   "patch_train_forward_sites": patch_fwd_rows,
+                   "patch_train_dx_sites": patch_dx_rows,
+                   "sliding_window": sliding, "sliding_window_sites": sw_rows,
+                   "phase8_s": phase8_s, "phase8_parts_s": phase8_parts_s,
                    "build_s": build_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

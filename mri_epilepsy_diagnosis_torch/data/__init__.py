@@ -1,3 +1,6 @@
-from .pipeline import DevicePrefetcher
+from .collate import fader_collate
+from .pipeline import (DataLoader, DevicePrefetcher, PatchQueue, Subset,
+                       batched, default_collate)
 
-__all__ = ["DevicePrefetcher"]
+__all__ = ["DataLoader", "DevicePrefetcher", "PatchQueue", "Subset",
+           "batched", "default_collate", "fader_collate"]

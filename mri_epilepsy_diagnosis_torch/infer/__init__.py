@@ -1,3 +1,6 @@
 from .serving import segment_volumes
+from .sliding_window import (GridAggregator, GridSampler, extract_patches,
+                             grid_locations, sliding_window_predict)
 
-__all__ = ["segment_volumes"]
+__all__ = ["GridAggregator", "GridSampler", "extract_patches",
+           "grid_locations", "segment_volumes", "sliding_window_predict"]

@@ -1,9 +1,10 @@
 """Channels-last functional ops of the fine UNet3D and the fader family
 (counterpart of the JAX package's `ops/functional.py`: `prelu`,
 `batch_norm` with the train-mode statistics of `ops/layers.py::BatchNorm`,
-`maxpool3d`, `resize_linear`, `resize_nearest`, and the fader's
-`relu`/`l_relu` activations).  Every function takes and returns
-`(N, D, H, W, C)` tensors."""
+`maxpool3d`, `resize_linear`, `resize_nearest`, the fader's
+`relu`/`l_relu` activations, and the shape utilities `pad_to` and
+`crop_or_pad`).  Every function takes and returns `(N, D, H, W, C)`
+tensors."""
 from __future__ import annotations
 
 import functools
@@ -141,3 +142,33 @@ def resize_nearest(x: torch.Tensor,
                                   device=x.device)
             x = torch.index_select(x, ax, idx)
     return x
+
+
+def pad_to(x: torch.Tensor, target_spatial: Sequence[int],
+           value: float = 0.0) -> torch.Tensor:
+    """Pad the spatial axes of `(N, *spatial, C)` up to `target_spatial`
+    with `value`, symmetrically; an odd voxel goes to the far side."""
+    pads = []
+    for ax, tgt in zip(range(1, x.ndim - 1), target_spatial):
+        extra = max(0, int(tgt) - x.shape[ax])
+        pads.append((extra // 2, extra - extra // 2))
+    if not any(lo or hi for lo, hi in pads):
+        return x
+    # F.pad lists the last axis first: channels (unpadded), then spatial
+    flat = [0, 0]
+    for lo, hi in reversed(pads):
+        flat += [lo, hi]
+    return TF.pad(x, flat, value=value)
+
+
+def crop_or_pad(x: torch.Tensor, target_spatial: Sequence[int],
+                value: float = 0.0) -> torch.Tensor:
+    """torchio CropOrPad on `(N, *spatial, C)`: centre crop, then `pad_to`.
+    Both are floor-centred, so an odd voxel is cropped from or padded on
+    the far side."""
+    slices = [slice(None)]
+    for ax, tgt in zip(range(1, x.ndim - 1), target_spatial):
+        cur, tgt = x.shape[ax], int(tgt)
+        start = (cur - tgt) // 2 if cur > tgt else 0
+        slices.append(slice(start, start + min(cur, tgt)))
+    return pad_to(x[tuple(slices)], target_spatial, value=value)

@@ -1,4 +1,20 @@
-from .intensity import znormalization
+from .intensity import (znormalization, rescale_intensity, minmax_norm,
+                        histogram_standardization, train_histogram_landmarks,
+                        DEFAULT_CUTOFF, STANDARD_RANGE)
+from .spatial import affine_resample, crop_or_pad, flip, warp_dense
 from .labels import LIST_FCD, binarize_segmentation
+from .augment import (random_flip, random_noise, random_bias_field,
+                      random_affine, random_elastic_deformation, random_motion,
+                      Compose, OneOf)
+from .preprocessing import preprocess_volume
 
-__all__ = ["LIST_FCD", "binarize_segmentation", "znormalization"]
+__all__ = [
+    "znormalization", "rescale_intensity", "minmax_norm",
+    "histogram_standardization", "train_histogram_landmarks",
+    "DEFAULT_CUTOFF", "STANDARD_RANGE",
+    "affine_resample", "crop_or_pad", "flip", "warp_dense",
+    "LIST_FCD", "binarize_segmentation",
+    "random_flip", "random_noise", "random_bias_field", "random_affine",
+    "random_elastic_deformation", "random_motion", "Compose", "OneOf",
+    "preprocess_volume",
+]

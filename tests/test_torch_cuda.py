@@ -519,3 +519,119 @@ def test_validate_packed_masks_match_fine_on_the_card(cuda_device, no_tf32):
                                         labels.cpu().numpy())], packed=True)
     assert all(len(m) == 2 for m in metrics)
     assert all(torch.isfinite(torch.tensor(m)).all() for m in metrics)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("angle", [0.0, 0.35])
+def test_affine_resample_on_the_card_matches_cpu(cuda_device, angle):
+    """`trilinear_sample` through `affine_resample` (a rotation, a scale
+    and a shift with reads outside the volume) on the card against the
+    CPU, whatever TF32 is set to: 1e-5 x max|ref|."""
+    import math
+
+    from mri_epilepsy_diagnosis_torch.transforms import spatial as TS
+
+    g = torch.Generator().manual_seed(20)
+    vol = torch.randn(40, 36, 44, generator=g)
+    c, s = math.cos(angle), math.sin(angle)
+    a = torch.eye(4, dtype=torch.float64)
+    a[:3, :3] = 1.08 * torch.tensor([[c, -s, 0], [s, c, 0], [0, 0, 1]],
+                                    dtype=torch.float64)
+    a[:3, 3] = torch.tensor([2.5, -1.25, 3.0], dtype=torch.float64)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = TS.affine_resample(vol.to(cuda_device), a, fill_value=-1.0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    ref = TS.affine_resample(vol, a, fill_value=-1.0)
+    assert got.device.type == "cuda"
+    assert (got.cpu() - ref).abs().max() <= 1e-5 * ref.abs().max()
+    coords = torch.rand(3, 1000, generator=g) * 50 - 5
+    got = TS.trilinear_sample(vol.to(cuda_device), coords.to(cuda_device))
+    ref = TS.trilinear_sample(vol, coords)
+    assert (got.cpu() - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_histogram_standardization_beyond_quantile_limit_on_the_card(
+        cuda_device):
+    """A 320 x 320 x 192 volume (19.7 M voxels, above `torch.quantile`'s
+    2^24) standardizes on the card as on the CPU: 1e-5 x max|ref|."""
+    import numpy as np
+
+    from mri_epilepsy_diagnosis_torch.transforms import (
+        histogram_standardization)
+
+    g = torch.Generator().manual_seed(21)
+    vol = torch.rand(320, 320, 192, generator=g) * 800
+    lm = np.linspace(0, 100, 13)
+    got = histogram_standardization(vol.to(cuda_device), lm)
+    ref = histogram_standardization(vol, lm)
+    assert got.shape == vol.shape and got.device.type == "cuda"
+    assert (got.cpu() - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_random_noise_with_a_host_generator_on_the_card(cuda_device):
+    """A CPU generator draws the scalar on the host and seeds a generator
+    on the card for the field: the same seed, the same noisy volume."""
+    from mri_epilepsy_diagnosis_torch.transforms import random_noise
+
+    vol = torch.zeros(16, 16, 16, device=cuda_device)
+    a = random_noise(torch.Generator().manual_seed(3), vol)
+    b = random_noise(torch.Generator().manual_seed(3), vol)
+    assert a.device.type == "cuda" and torch.equal(a, b)
+    assert 0 < a.std().item() <= 0.25 * 1.2
+
+
+@pytest.mark.cuda
+def test_sliding_window_on_the_card_matches_cpu(cuda_device, no_tf32):
+    """`sliding_window_predict` over the packed UNet3D (B1 with B2 fused)
+    on a 64^3 volume, patch 32, overlap 4, f32: the card against the CPU
+    (plain versions), 1e-4 x max|ref|, in both modes; 12 B1 launches per
+    model call, 5 with B2 fused."""
+    from mri_epilepsy_diagnosis_torch.infer import sliding_window_predict
+    from mri_epilepsy_diagnosis_torch.models import UNet3D
+    from mri_epilepsy_diagnosis_torch.models.unet_packed import (
+        fold_bn_inference, packed_unet_apply_v2)
+
+    torch.manual_seed(22)
+    model = UNet3D(out_channels_first_layer=8, device="cpu")
+    params_cpu = fold_bn_inference(model.state_dict())
+    params = {k: v.to(cuda_device) for k, v in params_cpu.items()}
+    vol = torch.randn(64, 64, 64, 1, generator=torch.Generator().manual_seed(
+        23))
+    for mode in ("average", "crop"):
+        K.reset_launch_counts()
+        with torch.no_grad():
+            got = sliding_window_predict(packed_unet_apply_v2, params,
+                                         vol.to(cuda_device), 32, 4,
+                                         batch_size=8, mode=mode)
+            torch.cuda.synchronize()
+            calls = -(-27 // 8)
+            assert (K.conv2_packed.launches,
+                    K.conv2_packed_as_bn_act.launches) == (12 * calls,
+                                                           5 * calls)
+            ref = sliding_window_predict(packed_unet_apply_v2, params_cpu,
+                                         vol, 32, 4, batch_size=8,
+                                         mode=mode)
+        assert got.shape == ref.shape == (64, 64, 64, 2)
+        assert (got.cpu() - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_prefetcher_passes_card_tensors_through(cuda_device):
+    """A batch already on the card (as `fader_collate` returns it) is not
+    pinned or copied; its host parts are uploaded."""
+    import numpy as np
+
+    from mri_epilepsy_diagnosis_torch.data import DevicePrefetcher
+
+    x = torch.randn(2, 8, 8, 8, 1, device=cuda_device)
+    y = np.array([0, 1], np.int32)
+    pf = DevicePrefetcher(iter([(x, y)]), device=cuda_device)
+    sx, sy = pf.get()
+    assert sx is x
+    assert sy.device.type == "cuda" and sy.tolist() == [0, 1]
+    assert pf.get() is None

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no module of `mri_epilepsy_diagnosis_torch`
 and not `chip_smoke.py` imports JAX, flax, optax, msgpack (the port reads
-flax checkpoints with its own decoder) or the JAX package.
+flax checkpoints with its own decoder), pandas, sklearn or nibabel (the
+card's machine has none of them: the port reads CSVs with `csv` and NIfTI
+with its own codec) or the JAX package.
 
 Checked statically with `ast`: a `sys.modules` check cannot work in a
 process whose start-up may already have imported jax."""
@@ -10,8 +12,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
-             "mri_epilepsy_diagnosis_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas",
+             "sklearn", "nibabel", "mri_epilepsy_diagnosis_tpu")
 SOURCES = sorted((ROOT / "mri_epilepsy_diagnosis_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -30,7 +32,9 @@ def test_port_sources_found():
             "unet_packed.py", "jax_bridge.py", "fader.py", "labels.py",
             "dice.py", "state.py", "optim.py", "checkpoint.py",
             "seg.py", "accum.py", "resilience.py", "flax_msgpack.py",
-            "surface.py", "nifti.py"} <= names
+            "surface.py", "nifti.py", "spatial.py", "intensity.py",
+            "preprocessing.py", "augment.py", "data.py", "pipeline.py",
+            "collate.py", "sliding_window.py"} <= names
     assert ROOT / "mri_epilepsy_diagnosis_torch" / "native" / "__init__.py" \
         in SOURCES
 
@@ -46,7 +50,10 @@ def test_no_jax_imports(path):
 def test_check_catches_a_jax_import(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import numpy\nfrom jax import numpy as jnp\n"
-                     "def f():\n    import mri_epilepsy_diagnosis_tpu.ops\n")
+                     "def f():\n    import mri_epilepsy_diagnosis_tpu.ops\n"
+                     "    import pandas as pd\n"
+                     "    from sklearn.preprocessing import LabelEncoder\n")
     assert [m for m in imported_modules(probe)
             if m.split(".")[0] in FORBIDDEN] == [
-        "jax", "mri_epilepsy_diagnosis_tpu.ops"]
+        "jax", "mri_epilepsy_diagnosis_tpu.ops", "pandas",
+        "sklearn.preprocessing"]
