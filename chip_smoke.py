@@ -113,15 +113,43 @@ Phases (each raises on failure, so the script exits nonzero):
       12, 11 on tensor cores in bf16, 5 with B2 fused); each B1 site at
       N = 64 against its plain version; f32 logits against the fine
       UNet3D's (cuDNN) through the same window; bf16 masks against f32
-      masks; the mask written to NIfTI and read back.
+      masks; the mask written to NIfTI and read back;
+9. fader and classification training:
+   a. every B3 call of one `enc_clf_step` and one `disc_step` of the
+      reference fader (192^3, depth 3, batch 35, bf16): each distinct
+      `conv_axis_dx`, `conv_axis_dw`, `conv_axis` (the backward's
+      recompute) and fused `separable_conv3d` site in f32 at batch 2 and
+      in bf16 at batch 35 against its plain version (dx 2^-7, dw and db
+      2e-4, the stacks as in phase 3, x max|ref|), timed beside cuDNN's
+      `conv3d_input` / `conv3d_weight` / `conv3d`;
+   b. the alternation of `examples/train_fader.py` (3 `disc_step`s and one
+      `enc_clf_step` a batch, Adam 7e-4 / 7e-4 / 5e-4, lambda ramp, class
+      weight [1, 2]): exact launch counts per batch (fused 17, `conv_axis`
+      14, dw 21, dx 20), ms per batch, vol/s, peak memory, finite losses,
+      float32 master weights, one profiled batch (host syncs and copies
+      counted; its idle share also with the device alone traced); then
+      `train_fader` over
+      two batches and a validation batch;
+   c. f32 parity at 48^3, depth 2: one `enc_clf_step` and one `disc_step`
+      with the kernels against the same steps with per-axis cuDNN convs
+      (loss 1e-5, gradients 2e-2 x max, running statistics 1e-5);
+   d. `ae_step` at 192^3 with `examples/train_ae.py`'s settings (depth 6,
+      c_base 16, batch 3, bf16), its B3 sites checked and timed as in
+      9a (its stacks in f32 at batch 1), fused or per-axis as the plan
+      routes them; ms per step, peak memory;
+   e. bf16 `_class_step`s of DilatedCNN (180^3) and VoxResNet (192^3) at
+      batch 10, and one `class_train_step_accum` (micro 2): ms per step,
+      vol/s, peak memory (cuDNN convs: no kernel of the port launches).
 
 It prints one line per check, then `{"kernels": [...]}` (the kernels of
 the served path: B1 on tensor cores, B2 fused into B1 on either route,
 fused B3; of the training path: B1's forward on tensor cores, the
 stem's forward on CUDA cores, B1 as input gradient; of f32 validation;
-and of phase 8's sliding window and patch training; the standalone B2 and
-per-axis B3 kernels, off both paths, go to the JSON file with their
-numbers, as does dw, which is cuBLAS and no kernel of the port), the card's
+of phase 8's sliding window and patch training; of phase 9's fader
+training: fused B3, B3's dx and dw and the `conv_axis` recomputes; the
+standalone
+B2, off every path, goes to the JSON file with its numbers, as does dw
+of the packed UNet, which is cuBLAS and no kernel of the port), the card's
 `nvidia-smi` name and power limit, and last
 `{"ok": true, "device": {...}}`.  Per-site numbers also go to
 `chiprun_out/chip_smoke.json`.  Exits nonzero without printing a result
@@ -190,7 +218,8 @@ UNET_PER_BATCH = {"conv2_packed": len(B1_SITES),
                   "conv2_packed_as_bn_act": len(B2_SITES),
                   "conv2_packed_as_bn_act_tc": len(B2_SITES) - 1,
                   "bn_act_zero_pads": 0, "conv_axis": 0,
-                  "separable_conv3d": 0}
+                  "separable_conv3d": 0, "conv_axis_dx": 0,
+                  "conv_axis_dw": 0}
 ENSEMBLE_PER_BATCH = {**UNET_PER_BATCH, "separable_conv3d": len(B3_STACKS)}
 
 # training (phase 6): a packed train step launches B1 for each of the 12
@@ -208,7 +237,8 @@ TRAIN_PER_STEP = {"conv2_packed": len(B1_SITES) + len(DX_SITES),
                   "conv2_packed_dx_tc": len(DX_SITES),
                   "conv2_packed_as_bn_act": 0, "conv2_packed_as_bn_act_tc": 0,
                   "bn_act_zero_pads": 0, "conv_axis": 0,
-                  "separable_conv3d": 0}
+                  "separable_conv3d": 0, "conv_axis_dx": 0,
+                  "conv_axis_dw": 0}
 # dw sums K = N x cells ~ 1.8M products per entry in f32 in an order that
 # neither side controls; sequential f32 accumulation errs by about
 # sqrt(K) 2^-24 ~ 1e-4 of a typical entry, a few times less of the
@@ -314,6 +344,70 @@ PROBS_TOL_BF16 = 0.1
 PROBS_TOL_F32 = 1e-4           # float32 kernels vs plain versions on the CPU
 PROBS_SPREAD_GATE = 0.1        # max - min of P(FCD) over the 16 volumes
 N_CPU_PROBS = 4                # volumes classified on the CPU
+
+
+# phase 9: fader and classification training.  The fader alternation of
+# `examples/train_fader.py` (train_ENC_CLF.ipynb cells 17-18): 192^3, depth
+# 3, 18 domains, batch 35, bf16, Adam 7e-4 / 7e-4 / 5e-4 with weight decay
+# 1e-4, lambda from 1e-4 to 1e-1 over 300 steps, class weight [1, 2],
+# 3 discriminator steps a batch
+FADER_N_DOMAINS = 18
+FADER_DEPTH = 3
+FADER_BATCH = 35
+FADER_DISC_LOOP = 3
+FADER_LR = (7e-4, 7e-4, 5e-4)             # encoder, classifier, disc
+FADER_WD = 1e-4
+FADER_LAMBDA = (1e-4, (1e-1 - 1e-4) / 300, 300)   # initial, step, max_step
+FADER_CLASS_WEIGHT = [1.0, 2.0]
+FADER_TIMED_BATCHES = 3
+# launches per step.  Each stack with trainable weights: one fused
+# forward, 2 recomputes of its intermediates (`conv_axis`), 3 dw, and dx
+# at each axis whose input needs a cotangent: e0 (the image takes none)
+# 2, the other encoder blocks and the classifier 3 each, the frozen
+# discriminator 3 (dx only, no recompute, no dw).  In disc_step the
+# encoder runs under no_grad and the discriminator's stack still takes 2
+# dx: the weight gradients of its H and D stages need the cotangents of y2
+# and y1.  At depth 3: enc_clf_step 5 fused, 8 conv_axis, 12 dw, 14 dx;
+# disc_step 4, 2, 3, 2.
+
+
+def alternation_per_batch(depth):
+    """Launches per alternation batch (FADER_DISC_LOOP disc_steps, one
+    enc_clf_step) of a fader of `depth` encoder blocks, every counter."""
+    trained = depth + 1                     # encoder blocks and classifier
+    enc_clf = {"separable_conv3d": depth + 2, "conv_axis": 2 * trained,
+               "conv_axis_dw": 3 * trained,
+               "conv_axis_dx": 3 * trained - 1 + 3}
+    disc = {"separable_conv3d": depth + 1, "conv_axis": 2,
+            "conv_axis_dw": 3, "conv_axis_dx": 2}
+    return {**{k: 0 for k in UNET_PER_BATCH}, **{
+        k: v + FADER_DISC_LOOP * disc[k] for k, v in enc_clf.items()}}
+
+
+# 9c: f32 parity of the kernel steps with per-axis cuDNN convs at 48^3,
+# depth 2, the heads scaled as `examples/train_fader.py` scales them
+FADER_PARITY_SIZE = 48
+FADER_PARITY_BATCH = 4
+# 9d: `examples/train_ae.py` (train_AE.ipynb cell 8): depth 6, c_base 16,
+# stride-1 k=3 DownBlocks and scale-2 UpBlocks, batch 3
+AE_KWARGS = dict(c_in=1, is_skip=False, deapth=6, c_base=16, inc_size=2,
+                 reduce_size=False,
+                 down_block_kwargs=dict(conv_k=3, conv_pad=1, conv_s=1,
+                                        maxpool_k=2, maxpool_s=2,
+                                        batch_norm=True, act="relu"),
+                 up_block_kwargs=dict(up="upsample", scale=2,
+                                      scale_mode="nearest", conv_k=3,
+                                      conv_pad=1, conv_s=1, batch_norm=True,
+                                      act="relu"))
+AE_BATCH = 3
+AE_N_DOMAINS = 3
+AE_STEPS = 3
+# 9e: the classification baselines (README "Performance" rows): DilatedCNN
+# at 180^3 (`baseline_sample_classification.ipynb`), VoxResNet at 192^3,
+# batch 10
+CLASS_BATCH = 10
+DILATED_SIZE = 180
+CLASS_STEPS = 3
 
 
 def log(*args):
@@ -699,32 +793,6 @@ def fused_time_row(K, P, name, x, wp, scale, shift, alpha, add, out):
     return row
 
 
-def record_stack_sites(K, Fd, fn):
-    """Arguments of every B3 call the forward `fn()` makes: the fader
-    models (module `Fd`) call the kernels module's `separable_conv3d` once
-    per stack."""
-    import types
-
-    sites = []
-    stack = K.separable_conv3d
-
-    def rec(x, wx, wy, wz, *, stride=(1, 1, 1), pad=(0, 0, 0),
-            biases=(None, None, None)):
-        sites.append({"x": tuple(x.shape),
-                      "w": [tuple(w.shape) for w in (wx, wy, wz)],
-                      "stride": tuple(stride), "pad": tuple(pad),
-                      "bias": [b is not None for b in biases]})
-        return stack(x, wx, wy, wz, stride=stride, pad=pad, biases=biases)
-
-    # the fader reaches the kernels through its module's `K`
-    Fd.K = types.SimpleNamespace(separable_conv3d=rec)
-    try:
-        fn()
-    finally:
-        Fd.K = K
-    return sites
-
-
 def axis_sites(stacks):
     """The one-axis convs of the stacks, with the shapes each receives."""
     sites = []
@@ -740,43 +808,50 @@ def axis_sites(stacks):
     return sites
 
 
-def sep_kernel_phase(K, names, stacks, gen, batches):
-    """Each separable stack through the fused kernel at each batch size,
-    f32 and bf16, against its plain version; timed at the last batch size
-    in bf16."""
+def sep_kernel_phase(K, named, gen, checks, timed, fused_only=True):
+    """Each (name, separable stack, calls per step) of `named` through
+    `separable_conv3d` at each (batch, dtype) of `checks`, batch None
+    meaning the recorded one, against its plain version; timed at the pair
+    `timed` where it takes the fused kernel (the row repeated by its
+    calls).  `fused_only`: every stack must take the fused kernel; else a
+    stack may take the per-axis route, whose `conv_axis` launches
+    `b3_bwd_rows` holds."""
     import torch
 
     rows, errs = [], {"f32": 0.0, "bf16": 0.0}
-    for name, st in zip(names, stacks):
+    for name, st, calls in named:
         spatial, ci = st["x"][1:4], st["x"][4]
         ks = [w[0] for w in st["w"]]
         chans = (ci, *(w[2] for w in st["w"]))
-        for batch in batches:
-            for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-                x = torch.randn((batch, *spatial, ci), generator=gen,
-                                device="cuda").to(dt)
-                ws = [(torch.randn(w, generator=gen, device="cuda")
-                       / np.sqrt(w[0] * w[1])).to(dt) for w in st["w"]]
-                bs = tuple(torch.randn(w[2], generator=gen, device="cuda")
-                           if b else None for w, b in zip(st["w"],
-                                                          st["bias"]))
-                kw = dict(stride=st["stride"], pad=st["pad"], biases=bs)
-                plan = K.separable_plan(batch, spatial, chans, ks,
-                                        st["stride"], st["pad"], dt)
-                route = K._separable_route(dt, plan)
-                if route != "fused":
-                    raise AssertionError(f"{name} takes route {route}")
-                got = K.separable_conv3d(x, *ws, **kw)
-                torch.cuda.synchronize()
-                ref = K.separable_conv3d_plain(x, *ws, **kw)
-                err = check(f"separable_conv3d {name} b{batch} (tile "
-                            f"{plan.tile}, tensor cores {plan.mma})", got,
-                            ref, dn, SEP_TOL)
-                errs[dn] = max(errs[dn], err)
-                if batch == batches[-1] and dn == "bf16":
-                    rows.append(sep_time_row(K, name, x, ws, kw, plan, got))
-                del x, ws, got, ref
-                torch.cuda.empty_cache()
+        for batch, dn in checks:
+            dt = torch.float32 if dn == "f32" else torch.bfloat16
+            n = batch or st["x"][0]
+            x = torch.randn((n, *spatial, ci), generator=gen,
+                            device="cuda").to(dt)
+            ws = [(torch.randn(w, generator=gen, device="cuda")
+                   / np.sqrt(w[0] * w[1])).to(dt) for w in st["w"]]
+            bs = tuple(torch.randn(w[2], generator=gen, device="cuda")
+                       if b else None for w, b in zip(st["w"], st["bias"]))
+            kw = dict(stride=st["stride"], pad=st["pad"], biases=bs)
+            plan = K.separable_plan(n, spatial, chans, ks, st["stride"],
+                                    st["pad"], dt)
+            route = K._separable_route(dt, plan)
+            if fused_only and route != "fused":
+                raise AssertionError(f"{name} takes route {route}")
+            got = K.separable_conv3d(x, *ws, **kw)
+            torch.cuda.synchronize()
+            ref = K.separable_conv3d_plain(x, *ws, **kw)
+            how = f"route {route}" + ("" if plan is None else (
+                f", tile {plan.tile}, tensor cores {plan.mma}"))
+            err = check(f"separable_conv3d {name} {list(x.shape)} ({how})",
+                        got, ref, dn, SEP_TOL)
+            errs[dn] = max(errs[dn], err)
+            if (batch, dn) == timed and route == "fused":
+                row = sep_time_row(K, name, x, ws, kw, plan, got)
+                row.update(calls_per_step=calls, max_abs_err=err)
+                rows += [row] * calls
+            del x, ws, got, ref
+            torch.cuda.empty_cache()
     return rows, errs
 
 
@@ -1003,7 +1078,9 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True):
     ours = {k: sum(r[1] for r in rows if k in r[0])
             for k in ("conv2_packed_tc_kernel", "conv2_packed_kernel",
                       "bn_act_zero_pads_kernel", "conv_axis_kernel",
-                      "separable_conv3d_kernel")}
+                      "separable_conv3d_kernel", "conv_axis_dx_kernel",
+                      "conv_axis_dw_partial_kernel",
+                      "conv_axis_dw_finish_kernel")}
     # the epilogue instantiations carry `true>` in their template arguments
     fused_tc = sum(r[1] for r in rows if "conv2_packed_tc_kernel" in r[0]
                    and "true>" in r[0])
@@ -1013,10 +1090,17 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True):
     # depends on the host's memory (pageable destinations)
     copy_ms = sum(r[1] for r in rows if r[0].startswith("Memcpy")
                   or r[0].startswith("Memset"))
+    # the host's waits on the card (a blocking copy synchronizes its
+    # stream; the window's own closing synchronize is one) and the copies
+    # from the host, by call
+    syncs = {e.key: e.count for e in prof.key_averages()
+             if "Synchronize" in e.key}
+    h2d = sum(r[2] for r in rows if r[0].startswith("Memcpy HtoD"))
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "host_ops_traced": host_ops,
             "trace_read_s": time.perf_counter() - t0,
             "kernel_ms": device_ms - copy_ms, "copy_ms": copy_ms,
+            "host_syncs": syncs, "h2d_copies": h2d,
             "idle_share": (1 - device_ms / wall_ms) if device_ms else None,
             "conv2_packed_tc_ms": ours["conv2_packed_tc_kernel"],
             "conv2_packed_tc_bn_act_ms": fused_tc,
@@ -1025,6 +1109,9 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True):
             "bn_act_zero_pads_ms": ours["bn_act_zero_pads_kernel"],
             "conv_axis_ms": ours["conv_axis_kernel"],
             "separable_conv3d_ms": ours["separable_conv3d_kernel"],
+            "conv_axis_dx_ms": ours["conv_axis_dx_kernel"],
+            "conv_axis_dw_ms": ours["conv_axis_dw_partial_kernel"]
+            + ours["conv_axis_dw_finish_kernel"],
             "other_kernels_ms": device_ms - copy_ms - sum(ours.values()),
             "top": [{"name": k[:90], "ms": ms, "calls": n}
                     for k, ms, n in rows[:top]]}
@@ -1526,7 +1613,9 @@ def _counted_b1(c):
             "conv2_packed_bn_act": c["conv2_packed_as_bn_act"]
             - c["conv2_packed_as_bn_act_tc"],
             "conv2_packed_tc.dx": c["conv2_packed_dx_tc"],
-            "separable_conv3d": c["separable_conv3d"]}
+            "separable_conv3d": c["separable_conv3d"],
+            "conv_axis": c["conv_axis"], "conv_axis_dx": c["conv_axis_dx"],
+            "conv_axis_dw": c["conv_axis_dw"]}
 
 
 def _expect_counts(label, counts, want):
@@ -2440,6 +2529,615 @@ def sliding_window_phase(K, P, UNet3D, state, vol, gen, launch_counts,
     return out, rows
 
 
+def record_b3(K, fn):
+    """Arguments of every `separable_conv3d` (kind "stack"), `conv_axis`,
+    `conv_axis_dw` and `conv_axis_dx` call that fn() makes, in call order.
+    The fader's stacks reach the kernels through `SeparableConv3dFn`, whose
+    forward and backward call them by the kernels module's own names, so
+    the recorders take their place there.  The `conv_axis` calls are the
+    backward's recomputes and, for stacks that take the per-axis route,
+    the forward's."""
+    sites = {"stack": [], "axis": [], "dw": [], "dx": []}
+    stack_, axis_, dw_, dx_ = (K.separable_conv3d, K.conv_axis,
+                               K.conv_axis_dw, K.conv_axis_dx)
+
+    def rec_stack(x, wx, wy, wz, *, stride=(1, 1, 1), pad=(0, 0, 0),
+                  biases=(None, None, None)):
+        sites["stack"].append({
+            "x": tuple(x.shape), "w": [tuple(w.shape) for w in (wx, wy, wz)],
+            "stride": tuple(stride), "pad": tuple(pad),
+            "bias": [b is not None for b in biases]})
+        return stack_(x, wx, wy, wz, stride=stride, pad=pad, biases=biases)
+
+    def rec_axis(x, w, bias=None, *, axis, stride=1, pad=0):
+        sites["axis"].append({"x": tuple(x.shape), "w": tuple(w.shape),
+                              "axis": axis, "stride": stride, "pad": pad,
+                              "bias": bias is not None})
+        return axis_(x, w, bias, axis=axis, stride=stride, pad=pad)
+
+    def rec_dw(x, g, *, k, axis, stride=1, pad=0, bias=True):
+        sites["dw"].append({"x": tuple(x.shape), "g": tuple(g.shape), "k": k,
+                            "axis": axis, "stride": stride, "pad": pad,
+                            "bias": bias})
+        return dw_(x, g, k=k, axis=axis, stride=stride, pad=pad, bias=bias)
+
+    def rec_dx(g, w, *, length, axis, stride=1, pad=0):
+        sites["dx"].append({"g": tuple(g.shape), "w": tuple(w.shape),
+                            "length": length, "axis": axis, "stride": stride,
+                            "pad": pad})
+        return dx_(g, w, length=length, axis=axis, stride=stride, pad=pad)
+
+    # the wrappers count their launches through these module-level names:
+    # while they are the recorders, the recorders hold the counts, which
+    # the recorded step's launches do not reach
+    recs = (rec_stack, rec_axis, rec_dw, rec_dx)
+    for rec in recs:
+        rec.launches = 0
+    (K.separable_conv3d, K.conv_axis, K.conv_axis_dw,
+     K.conv_axis_dx) = recs
+    try:
+        fn()
+    finally:
+        (K.separable_conv3d, K.conv_axis, K.conv_axis_dw,
+         K.conv_axis_dx) = stack_, axis_, dw_, dx_
+    return sites
+
+
+def named_stacks(label, calls):
+    """(name, stack, calls) of the distinct stacks of a recorded call
+    list."""
+    return [(f"{label}.{i}", st, n)
+            for i, (st, n) in enumerate(_unique_sites(calls))]
+
+
+def _unique_sites(calls):
+    """(site, calls) pairs of the distinct sites of a recorded call list,
+    in first-call order."""
+    out = {}
+    for s in calls:
+        key = json.dumps(s, sort_keys=True)
+        out.setdefault(key, [s, 0])[1] += 1
+    return list(out.values())
+
+
+def _axis_conv_weight(w, axis):
+    """(k, Ci, Co) one-axis weight -> torch's (Co, Ci, kD, kH, kW) and the
+    stride / padding lists of `axis` (1..3), for cuDNN's yardsticks."""
+    k, ci, co = w.shape
+    shape = [co, ci, 1, 1, 1]
+    shape[1 + axis] = k
+    return w.permute(2, 1, 0).reshape(shape)
+
+
+def _axis_valid_taps(length, lo, k, stride, pad):
+    """(j, t) pairs whose input index lies inside [0, length): the work
+    that these inputs need."""
+    return sum(1 for j in range(lo) for t in range(k)
+               if 0 <= j * stride + t - pad < length)
+
+
+def b3_bwd_rows(K, label, sites, gen, checks, timed):
+    """Each distinct B3 backward site (dx, dw, and the one-axis conv
+    launches) at each (batch, dtype) of `checks` against its plain
+    version; at `timed` (batch None: the recorded one) timed beside cuDNN's
+    `conv3d_input` / `conv3d_weight` / `conv3d` of the same one-axis conv.
+    Returns rows by kind (each repeated by its calls per step) and the
+    largest error by kind and dtype."""
+    import torch
+    import torch.nn.functional as TF
+    from torch.nn import grad as tgrad
+
+    rows = {"dx": [], "dw": [], "axis": []}
+    errs = {k: {"f32": None, "bf16": None} for k in rows}
+
+    def note(kind, dn, err):
+        errs[kind][dn] = max(errs[kind][dn] or 0.0, err)
+
+    for kind in ("dx", "dw", "axis"):
+        for site, calls in _unique_sites(sites[kind]):
+            axis, s, p = site["axis"], site["stride"], site["pad"]
+            for batch, dn in checks:
+                dt = torch.float32 if dn == "f32" else torch.bfloat16
+                if kind == "dx":
+                    gshape = (batch or site["g"][0], *site["g"][1:])
+                    k, ci, co = site["w"]
+                    g = torch.randn(gshape, generator=gen,
+                                    device="cuda").to(dt)
+                    w = (torch.randn(site["w"], generator=gen, device="cuda")
+                         / np.sqrt(k * co)).to(dt)
+                    kw = dict(length=site["length"], axis=axis, stride=s,
+                              pad=p)
+                    got = K.conv_axis_dx(g, w, **kw)
+                    torch.cuda.synchronize()
+                    ref = K.conv_axis_dx_plain(g, w, **kw)
+                    err = check(f"{label} conv_axis_dx {gshape} axis {axis}",
+                                got, ref, dn)
+                elif kind == "dw":
+                    xshape = (batch or site["x"][0], *site["x"][1:])
+                    gshape = (xshape[0], *site["g"][1:])
+                    x = torch.randn(xshape, generator=gen,
+                                    device="cuda").to(dt)
+                    g = torch.randn(gshape, generator=gen,
+                                    device="cuda").to(dt)
+                    kw = dict(k=site["k"], axis=axis, stride=s, pad=p,
+                              bias=site["bias"])
+                    got = K.conv_axis_dw(x, g, **kw)
+                    torch.cuda.synchronize()
+                    ref = K.conv_axis_dw_plain(x, g, **kw)
+                    err = check(f"{label} conv_axis_dw {xshape} axis {axis}",
+                                got[0], ref[0], dn, {dn: DW_TOL})
+                    if site["bias"]:
+                        err = max(err, check(f"{label} conv_axis_dw db",
+                                             got[1], ref[1], dn,
+                                             {dn: DW_TOL}))
+                else:
+                    xshape = (batch or site["x"][0], *site["x"][1:])
+                    k, ci, co = site["w"]
+                    x = torch.randn(xshape, generator=gen,
+                                    device="cuda").to(dt)
+                    w = (torch.randn(site["w"], generator=gen, device="cuda")
+                         / np.sqrt(k * ci)).to(dt)
+                    bias = (torch.randn(co, generator=gen, device="cuda")
+                            if site["bias"] else None)
+                    kw = dict(axis=axis, stride=s, pad=p)
+                    got = K.conv_axis(x, w, bias, **kw)
+                    torch.cuda.synchronize()
+                    ref = K.conv_axis_plain(x, w, bias, **kw)
+                    err = check(f"{label} conv_axis {xshape} axis {axis}",
+                                got, ref, dn)
+                note(kind, dn, err)
+                del ref
+                if (batch, dn) == timed:
+                    if kind == "axis":
+                        row = b3_time_row(K, TF, f"{label}.{axis}", x, w,
+                                          bias, kw, got)
+                    elif kind == "dx":
+                        row = dx_axis_time_row(K, tgrad, label, g, w, kw,
+                                               got)
+                    else:
+                        row = dw_axis_time_row(K, tgrad, label, x, g, kw)
+                    row.update(calls_per_step=calls, max_abs_err=err)
+                    rows[kind] += [row] * calls
+                del got
+                torch.cuda.empty_cache()
+    return rows, errs
+
+
+def dx_axis_time_row(K, tgrad, label, g, w, kw, dx):
+    """Times of one `conv_axis_dx` site: kernel, plain version, cuDNN's
+    `conv3d_input` of the one-axis conv; its bound from the bytes and the
+    operations these inputs need."""
+    axis, s, p, length = kw["axis"], kw["stride"], kw["pad"], kw["length"]
+    k, ci, co = w.shape
+    rows_ab = g.numel() // (g.shape[axis] * co)
+    flops = 2.0 * rows_ab * _axis_valid_taps(length, g.shape[axis], k, s,
+                                             p) * ci * co
+    nbytes = (g.numel() + dx.numel()) * g.element_size() + 4 * w.numel()
+    bound_ms, bound_by = _bound(flops, nbytes, "bf16")
+    stride, pad = [1, 1, 1], [0, 0, 0]
+    stride[axis - 1], pad[axis - 1] = s, p
+    wc = _axis_conv_weight(w, axis)
+    gc = g.permute(0, 4, 1, 2, 3)
+    in_size = list(gc.shape)
+    in_size[1], in_size[1 + axis] = ci, length
+    ms = time_ms(lambda: K.conv_axis_dx(g, w, **kw), 10)
+    row = {"site": label, "g": list(g.shape), "axis": axis, "k": k,
+           "stride": s, "pad": p, "ci": ci, "co": co, "ms": ms,
+           "plain_ms": time_ms(lambda: K.conv_axis_dx_plain(g, w, **kw), 1),
+           "library_ms": time_ms(lambda: tgrad.conv3d_input(
+               in_size, wc, gc, stride=stride, padding=pad), 5),
+           "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+           "bound_by": bound_by, "gb_per_s": nbytes / ms / 1e6,
+           "f32_core_ms": flops / PEAK_OPS_PER_S["f32"] * 1e3}
+    log(f"time conv_axis_dx {label} {list(g.shape)} axis {axis}: "
+        f"{json.dumps(row)}")
+    return row
+
+
+def dw_axis_time_row(K, tgrad, label, x, g, kw):
+    """Times of one `conv_axis_dw` site (dw and db, float32), as
+    `dx_axis_time_row`; cuDNN's `conv3d_weight` as the yardstick (dw
+    only)."""
+    axis, s, p, k = kw["axis"], kw["stride"], kw["pad"], kw["k"]
+    ci, co = x.shape[4], g.shape[4]
+    rows_ab = g.numel() // (g.shape[axis] * co)
+    flops = 2.0 * rows_ab * _axis_valid_taps(x.shape[axis], g.shape[axis], k,
+                                             s, p) * ci * co
+    nbytes = (x.numel() + g.numel()) * x.element_size() + 4 * (k * ci + 1) * co
+    bound_ms, bound_by = _bound(flops, nbytes, "bf16")
+    stride, pad = [1, 1, 1], [0, 0, 0]
+    stride[axis - 1], pad[axis - 1] = s, p
+    wshape = [co, ci, 1, 1, 1]
+    wshape[1 + axis] = k
+    xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+    ms = time_ms(lambda: K.conv_axis_dw(x, g, **kw), 10)
+    row = {"site": label, "x": list(x.shape), "g": list(g.shape),
+           "axis": axis, "k": k, "stride": s, "pad": p, "ci": ci, "co": co,
+           "chunks": K.conv_axis_dw_plan(rows_ab * g.shape[axis], k, ci,
+                                         co).chunks, "ms": ms,
+           "plain_ms": time_ms(lambda: K.conv_axis_dw_plain(x, g, **kw), 1),
+           "library_ms": time_ms(lambda: tgrad.conv3d_weight(
+               xc, wshape, gc, stride=stride, padding=pad), 5),
+           "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+           "bound_by": bound_by, "gb_per_s": nbytes / ms / 1e6,
+           "f32_core_ms": flops / PEAK_OPS_PER_S["f32"] * 1e3}
+    log(f"time conv_axis_dw {label} {list(x.shape)} axis {axis}: "
+        f"{json.dumps(row)}")
+    return row
+
+
+def fader_models(Fd, gen, depth):
+    """The reference's encoder, Classificator and Discriminator
+    (train_ENC_CLF.ipynb cells 17-18) at `depth` (3 takes a 192^3 input),
+    the heads scaled to a shallower latent as `examples/train_fader.py`
+    does, with the JAX package's init drawn from `gen`."""
+    ae_kwargs = dict(FADER_AE_KWARGS, deapth=depth)
+    head = dict(FADER_HEAD_KWARGS)
+    if depth != 3:
+        c = ae_kwargs["c_base"] * 2 ** (depth - 1)
+        head.update(c_in=c, c_out=2 * c, l_in=2 * c, l_out=c)
+    enc = Fd.make_encoder(ae_kwargs, device="cuda")
+    clf = Fd.Classificator(n_class=2, device="cuda", **head)
+    disc = Fd.Discriminator(n_domains=FADER_N_DOMAINS, device="cuda", **head)
+    for m, act in ((enc, "l_relu"), (clf, "relu"), (disc, "relu")):
+        reference_init(m, gen, act)
+    return enc, clf, disc
+
+
+def fader_state(Tr, enc, clf, disc, opt=None):
+    """FaderState of `examples/train_fader.py`: Adam 7e-4 / 7e-4 / 5e-4 with
+    weight decay 1e-4 (or `opt(model)` for every network)."""
+    def st(model, lr):
+        return Tr.TrainState(model, opt(model) if opt else Tr.torch_adam(
+            lr, weight_decay=FADER_WD)(model.parameters()))
+    return Tr.FaderState(encoder=st(enc, FADER_LR[0]),
+                         clf=st(clf, FADER_LR[1]),
+                         disc=st(disc, FADER_LR[2]))
+
+
+def fader_batch(gen, batch, size):
+    """`batch` z-normalized T1w-like `size`^3 volumes on the card (float32,
+    (batch, S, S, S, 1)), labels of both classes and domains of 18."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.transforms import znormalization
+
+    x = torch.stack([znormalization(torch.from_numpy(v).cuda())
+                     for v in t1_like_volumes(gen, batch, size)])[..., None]
+    y = torch.arange(batch, device="cuda") % 2
+    dom = torch.randint(0, FADER_N_DOMAINS, (batch,), generator=gen,
+                        device="cuda")
+    return x, y, dom
+
+
+def fader_alternation(Tr, fstate, x, y, dom, lam, rng):
+    """One alternation batch as `train_fader` runs it in its first epochs:
+    FADER_DISC_LOOP discriminator steps, one encoder + classifier step."""
+    for _ in range(FADER_DISC_LOOP):
+        fstate, loss_disc, _ = Tr.disc_step(fstate, x, dom, rng,
+                                            FADER_N_DOMAINS)
+    fstate, loss, loss_adv, _ = Tr.enc_clf_step(
+        fstate, x, y, dom, lam, rng, FADER_N_DOMAINS, FADER_CLASS_WEIGHT)
+    return fstate, (loss, loss_adv, loss_disc)
+
+
+def _b3_counts(c):
+    return {k: c[k] for k in ("separable_conv3d", "conv_axis", "conv_axis_dw",
+                              "conv_axis_dx")}
+
+
+def fader_phase(K, Fd, gen, launch_counts):
+    """Phase 9a-9b: the B3 sites of the alternation (recorded from one
+    enc_clf_step and one disc_step at 192^3, batch 35, bf16): the backward
+    kernels and the fused forward stacks against their plain versions, at
+    the recorded batch in bf16 and at batch 2 in f32, and timed; then the
+    alternation itself: exact
+    launch counts per batch, ms per batch, vol/s, peak memory, the split
+    and idle share of one profiled batch, and `train_fader` over a loader
+    of two batches."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch import train as Tr
+
+    enc, clf, disc = fader_models(Fd, gen, FADER_DEPTH)
+    fstate = fader_state(Tr, enc, clf, disc)
+    x, y, dom = fader_batch(gen, FADER_BATCH, SIZE)
+    xb = x.to(torch.bfloat16)
+    rng = torch.Generator().manual_seed(SEED)
+    lam = FADER_LAMBDA[0]
+    sites = record_b3(K, lambda: Tr.enc_clf_step(
+        fstate, xb, y, dom, lam, rng, FADER_N_DOMAINS, FADER_CLASS_WEIGHT))
+    disc_sites = record_b3(K, lambda: Tr.disc_step(
+        fstate, xb, dom, rng, FADER_N_DOMAINS))
+    for kind in sites:
+        sites[kind] += disc_sites[kind] * FADER_DISC_LOOP
+    per_batch = alternation_per_batch(FADER_DEPTH)
+    recorded = {k: len(v) for k, v in sites.items()}
+    want = {"stack": per_batch["separable_conv3d"],
+            "axis": per_batch["conv_axis"], "dw": per_batch["conv_axis_dw"],
+            "dx": per_batch["conv_axis_dx"]}
+    if recorded != want:
+        raise AssertionError(f"B3 calls per alternation batch "
+                             f"{recorded} != {want}")
+    checks, timed_at = [(2, "f32"), (None, "bf16")], (None, "bf16")
+    rows, errs = b3_bwd_rows(K, "fader", sites, gen, checks, timed_at)
+    rows["stack"], errs["stack"] = sep_kernel_phase(
+        K, named_stacks("fader", sites["stack"]), gen, checks, timed_at)
+
+    # the alternation, device-resident batch: 1 warm-up, then timed
+    fstate, losses = fader_alternation(Tr, fstate, xb, y, dom, lam, rng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    timed = []
+    for i in range(FADER_TIMED_BATCHES):
+        fstate, losses = fader_alternation(
+            Tr, fstate, xb, y, dom, lam + (i + 1) * FADER_LAMBDA[1], rng)
+        timed.append([float(v) for v in losses])
+    torch.cuda.synchronize()
+    batch_s = (time.perf_counter() - t0) / FADER_TIMED_BATCHES
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = launch_counts()
+    _expect_counts(f"{FADER_TIMED_BATCHES} alternation batches", counts, {
+        k: FADER_TIMED_BATCHES * v for k, v in per_batch.items()})
+    f32_master = all(p.dtype == torch.float32 for m in (enc, clf, disc)
+                     for p in m.parameters())
+    finite = all(np.isfinite(v) for t in timed for v in t)
+    # where the time of one batch goes
+    split = {}
+    for name, fn in (("disc_step", lambda: Tr.disc_step(
+            fstate, xb, dom, rng, FADER_N_DOMAINS)),
+            ("enc_clf_step", lambda: Tr.enc_clf_step(
+                fstate, xb, y, dom, lam, rng, FADER_N_DOMAINS,
+                FADER_CLASS_WEIGHT))):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        split[f"{name}_ms"] = (time.perf_counter() - t1) / 2 * 1e3
+    prof = profile_batch(lambda: fader_alternation(Tr, fstate, xb, y, dom,
+                                                   lam, rng))
+    # the idle share again with the device alone traced: tracing every
+    # host op slows the host, which launches this batch's ~130 kernels
+    prof_device = profile_batch(lambda: fader_alternation(
+        Tr, fstate, xb, y, dom, lam, rng), host_ops=False)
+    # the entry point: train_fader over a host loader of two batches
+    # (histories, lambda ramp, disc_loop) and one validation batch
+    host = (x.cpu().numpy(), y.cpu().numpy(), dom.cpu().numpy())
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    fstate, hist = Tr.train_fader(
+        fstate, [host, host], [host], epochs=1,
+        lambda_initial=FADER_LAMBDA[0], lambda_step=FADER_LAMBDA[1],
+        max_step=FADER_LAMBDA[2], n_domains=FADER_N_DOMAINS,
+        disc_loop=FADER_DISC_LOOP, class_weight=FADER_CLASS_WEIGHT,
+        verbose=False, input_dtype=torch.bfloat16)
+    epoch_s = time.perf_counter() - t0
+    _expect_counts("train_fader, 1 epoch of 2 batches + 1 validation batch",
+                   launch_counts(), {
+                       k: 2 * v + (FADER_DEPTH + 2 if k == "separable_conv3d"
+                                   else 0) for k, v in per_batch.items()})
+    finite = finite and all(np.isfinite(hist["train_loss"]))
+    out = {"size": SIZE, "batch": FADER_BATCH, "depth": FADER_DEPTH,
+           "n_domains": FADER_N_DOMAINS, "disc_loop": FADER_DISC_LOOP,
+           "dtype": "bf16", "timed_losses": timed,
+           "ms_per_alternation_batch": batch_s * 1e3,
+           "vol_per_s": FADER_BATCH / batch_s, "peak_memory_gb": peak_gb,
+           **split, "launches_per_batch": per_batch,
+           "launches_timed_batches": counts, "profile": prof,
+           "profile_device_only": prof_device,
+           "train_fader_epoch_s": epoch_s, "history": hist,
+           "f32_master_weights": f32_master, "finite": finite,
+           "b3_bwd_recorded": recorded}
+    log(f"fader alternation: {json.dumps(out)}")
+    if not (f32_master and finite):
+        raise AssertionError(f"fader alternation: f32 master weights "
+                             f"{f32_master}, finite losses {finite}")
+    return out, rows, errs
+
+
+def _deltas(model, before):
+    """p_before - p_after of every parameter: the gradient under SGD at
+    lr 1."""
+    return {k: before[k] - p.detach() for k, p in model.named_parameters()}
+
+
+def fader_parity_phase(K, Fd, gen):
+    """Phase 9c: one enc_clf_step and one disc_step in f32 at
+    FADER_PARITY_SIZE^3, depth 2, with the kernels, against the same steps
+    on a reference fader whose separable stacks are per-axis cuDNN convs
+    (autograd), TF32 off; SGD at lr 1, so that each update is the
+    gradient; the same Dropout masks on both (one seed)."""
+    import copy
+
+    import torch
+    import torch.nn.functional as TF
+
+    from mri_epilepsy_diagnosis_torch import train as Tr
+
+    def cudnn_stack(convs, x):
+        v = x.permute(0, 4, 1, 2, 3)
+        for conv in convs:
+            v = TF.conv3d(v, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                          stride=conv.stride, padding=conv.padding)
+        return v.permute(0, 2, 3, 4, 1)
+
+    models = fader_models(Fd, gen, 2)
+    x, y, dom = fader_batch(gen, FADER_PARITY_BATCH, FADER_PARITY_SIZE)
+    def sgd(m):
+        return torch.optim.SGD(m.parameters(), lr=1.0)
+
+    results = {}
+    for step in ("enc_clf_step", "disc_step"):
+        runs = {}
+        for path in ("kernels", "cudnn"):
+            ms = [copy.deepcopy(m) for m in models]
+            fs = fader_state(Tr, *ms, opt=sgd)
+            before = [{k: p.detach().clone() for k, p in m.named_parameters()}
+                      for m in ms]
+            rng = torch.Generator().manual_seed(SEED)
+            stack = Fd._separable_conv
+            if path == "cudnn":
+                Fd._separable_conv = cudnn_stack
+            try:
+                if step == "enc_clf_step":
+                    out = Tr.enc_clf_step(fs, x, y, dom, 0.3, rng,
+                                          FADER_N_DOMAINS,
+                                          FADER_CLASS_WEIGHT)
+                else:
+                    out = Tr.disc_step(fs, x, dom, rng, FADER_N_DOMAINS)
+            finally:
+                Fd._separable_conv = stack
+            runs[path] = (float(out[1]), ms, [_deltas(m, b)
+                                              for m, b in zip(ms, before)])
+        (loss, ms, deltas), (rloss, rms, rdeltas) = (runs["kernels"],
+                                                     runs["cudnn"])
+        floor = PARITY_GRAD_FLOOR * max(float(v.abs().max()) for d in rdeltas
+                                        for v in d.values())
+        worst, stats_err = 0.0, 0.0
+        for d, rd, m, rm in zip(deltas, rdeltas, ms, rms):
+            for k, r in rd.items():
+                worst = max(worst, float((d[k] - r).abs().max()) / (
+                    PARITY_GRAD_RTOL * float(r.abs().max()) + floor))
+            rb = dict(rm.named_buffers())
+            for k, b in m.named_buffers():
+                if "running" in k:
+                    stats_err = max(stats_err, float((b - rb[k]).abs().max())
+                                    / max(1.0, float(rb[k].abs().max())))
+        res = {"loss": loss, "ref_loss": rloss,
+               "loss_rel_err": abs(loss - rloss) / abs(rloss),
+               "grad_worst_err_over_tol": worst,
+               "running_stats_err": stats_err}
+        log(f"f32 parity {step} (kernels vs per-axis cuDNN, "
+            f"{FADER_PARITY_SIZE}^3 b{FADER_PARITY_BATCH}): "
+            f"{json.dumps(res)}")
+        if (worst > 1 or res["loss_rel_err"] > PARITY_LOSS_RTOL
+                or stats_err > PARITY_STATS_TOL):
+            raise AssertionError(f"f32 fader parity {step}: {res}")
+        results[step] = res
+    return results
+
+
+def ae_phase(K, Fd, gen, launch_counts):
+    """Phase 9d: `ae_step` at 192^3 with `examples/train_ae.py`'s settings
+    (depth 6, c_base 16, batch 3, the 2^3/s2 discriminator on the 3^3 x 512
+    latent, Adam 1e-4), bf16: its B3 backward sites recorded, then 1
+    warm-up and AE_STEPS timed steps: ms per step, peak memory, launches
+    per step (the same each step)."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch import train as Tr
+
+    ae = Fd.AE(device="cuda", **AE_KWARGS)
+    latent_c = AE_KWARGS["c_base"] * 2 ** (AE_KWARGS["deapth"] - 1)
+    disc = Fd.Discriminator(
+        c_in=latent_c, c_out=2 * latent_c, conv_k=2, conv_s=2, conv_pad=0,
+        l_in=2 * latent_c, l_out=latent_c, batch_norm=False, act="l_relu",
+        p_drop=0.0, n_domains=AE_N_DOMAINS, device="cuda")
+    for m, act in ((ae, "relu"), (disc, "l_relu")):
+        reference_init(m, gen, act)
+
+    def st(model):
+        return Tr.TrainState(model, Tr.torch_adam(1e-4)(model.parameters()))
+
+    fs = Tr.FaderState(encoder=st(ae.enc), clf=None, disc=st(disc),
+                       decoder=st(ae.dec))
+    x, _, dom = fader_batch(gen, AE_BATCH, SIZE)
+    xb, dom = x.to(torch.bfloat16), dom % AE_N_DOMAINS
+    sites = record_b3(K, lambda: Tr.ae_step(fs, xb, dom, 0.0,
+                                                     None))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, per_step = [], []
+    t0 = time.perf_counter()
+    for i in range(AE_STEPS):
+        K.reset_launch_counts()
+        fs, loss = Tr.ae_step(fs, xb, dom, 1e-4 / 500000 * i, None)
+        losses.append(float(loss))
+        per_step.append(launch_counts())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / AE_STEPS
+    out = {"size": SIZE, "batch": AE_BATCH, "depth": AE_KWARGS["deapth"],
+           "c_base": AE_KWARGS["c_base"], "dtype": "bf16", "losses": losses,
+           "ms_per_step": step_s * 1e3, "vol_per_s": AE_BATCH / step_s,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": per_step[0],
+           "b3_bwd_recorded": {k: len(v) for k, v in sites.items()}}
+    log(f"ae_step: {json.dumps(out)}")
+    if (not all(np.isfinite(losses)) or any(c != per_step[0]
+                                            for c in per_step)
+            or min(_b3_counts(per_step[0]).values()) <= 0):
+        raise AssertionError(f"ae_step: {out}")
+    return out, sites
+
+
+def classification_phase(K, gen, launch_counts):
+    """Phase 9e: the classification baselines in bf16 through
+    `_class_step`: DilatedCNN at 180^3 and VoxResNet (defaults: 32
+    filters, stride 2, 3 stages) at 192^3, batch 10; one warm-up and
+    CLASS_STEPS timed steps each; then one `class_train_step_accum`
+    (micro 2) on DilatedCNN.  Their convs are cuDNN's: no kernel of the
+    port launches (counts gated at 0)."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch import train as Tr
+    from mri_epilepsy_diagnosis_torch.models import cnn
+    from mri_epilepsy_diagnosis_torch.train.classification import _class_step
+
+    out = {}
+    zero = {k: 0 for k in launch_counts()}
+    for name, size, factory in (
+            ("dilated_cnn", DILATED_SIZE, lambda: cnn.DilatedCNN(
+                input_shape=(DILATED_SIZE,) * 3, device="cuda")),
+            ("voxresnet", SIZE, lambda: cnn.VoxResNet(
+                input_shape=(SIZE,) * 3, device="cuda"))):
+        state, _ = Tr.create_model_opt(factory(), None, lr=1e-5,
+                                       device="cuda")
+        x = torch.randn((CLASS_BATCH, size, size, size, 1), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        y = torch.arange(CLASS_BATCH, device="cuda") % 2
+        _class_step(state, x, y, None, True)           # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(CLASS_STEPS):
+            state, loss, probs = _class_step(state, x, y, None, True)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / CLASS_STEPS
+        _expect_counts(f"{name} steps", launch_counts(), zero)
+        res = {"size": size, "batch": CLASS_BATCH, "dtype": "bf16",
+               "losses": losses, "ms_per_step": step_s * 1e3,
+               "vol_per_s": CLASS_BATCH / step_s,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "f32_master_weights": all(
+                   p.dtype == torch.float32
+                   for p in state.model.parameters())}
+        if name == "dilated_cnn":
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, aloss, aprobs = Tr.class_train_step_accum(
+                state, x, y, None, micro=2)
+            torch.cuda.synchronize()
+            res["accum_micro2"] = {
+                "loss": float(aloss), "ms": (time.perf_counter() - t0) * 1e3,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "probs_sum_to_one": bool(torch.allclose(
+                    aprobs.sum(-1), torch.ones_like(aprobs[:, 0])))}
+            losses.append(float(aloss))
+        log(f"classification {name}: {json.dumps(res)}")
+        if not (all(np.isfinite(losses)) and res["f32_master_weights"]):
+            raise AssertionError(f"classification {name}: {res}")
+        out[name] = res
+        del state, x
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_entry(name, source, replaces, rows, errs, launches, per_batch,
                  **extra):
     t_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
@@ -2514,13 +3212,14 @@ def main() -> int:
     b2_sites = [{"x": (1, *(e + 1 for e in s["x"][1:4]), s["wp"][4])}
                 for s in b1_sites if s["fused"]]
     with torch.inference_mode():
-        b3_stacks = record_stack_sites(K, Fd, lambda: clf(enc(probe)[0]))
+        b3_stacks = record_b3(K, lambda: clf(enc(probe)[0]))["stack"]
         ae = AE(**FADER_AE_KWARGS, up_block_kwargs=FADER_UP_BLOCK_KWARGS,
                 device="cuda").eval()
         reference_init(ae, gen, "l_relu")
         recon = []
-        ae_stacks = [st for st in record_stack_sites(
-            K, Fd, lambda: recon.append(ae(probe))) if st["stride"] == (1, 1, 1)]
+        ae_stacks = [st for st in record_b3(
+            K, lambda: recon.append(ae(probe)))["stack"]
+            if st["stride"] == (1, 1, 1)]
         recon = recon[0]
         if (len(b3_stacks) != len(B3_STACKS)
                 or len(ae_stacks) != len(AE_B3_STACKS)
@@ -2537,10 +3236,13 @@ def main() -> int:
             (BATCH, "bf16"))
         fused_rows, fused_errs = fused_kernel_phase(K, P, b1_sites, gen)
         b2_rows, b2_errs = b2_kernel_phase(K, P, b2_sites, gen)
-        sep_rows, sep_errs = sep_kernel_phase(K, B3_STACKS, b3_stacks, gen,
-                                              (1, BATCH))
-        ae_sep_rows, ae_sep_errs = sep_kernel_phase(K, AE_B3_STACKS,
-                                                    ae_stacks, gen, (1,))
+        sep_rows, sep_errs = sep_kernel_phase(
+            K, [(n, st, 1) for n, st in zip(B3_STACKS, b3_stacks)], gen,
+            [(b, dn) for b in (1, BATCH) for dn in ("f32", "bf16")],
+            (BATCH, "bf16"))
+        ae_sep_rows, ae_sep_errs = sep_kernel_phase(
+            K, [(n, st, 1) for n, st in zip(AE_B3_STACKS, ae_stacks)], gen,
+            [(1, "f32"), (1, "bf16")], (1, "bf16"))
         b3_rows, b3_errs = b3_kernel_phase(K, B3_SITES, axis_sites(b3_stacks),
                                            gen, (1, BATCH))
         ae_rows, ae_errs = b3_kernel_phase(K, AE_B3_SITES,
@@ -2591,7 +3293,9 @@ def main() -> int:
                     K.conv2_packed_as_bn_act.tc_launches,
                 "bn_act_zero_pads": K.bn_act_zero_pads.launches,
                 "conv_axis": K.conv_axis.launches,
-                "separable_conv3d": K.separable_conv3d.launches}
+                "separable_conv3d": K.separable_conv3d.launches,
+                "conv_axis_dx": K.conv_axis_dx.launches,
+                "conv_axis_dw": K.conv_axis_dw.launches}
 
     def counted(fn, per_batch):
         """Run fn with every launch count at 0 before it; each count after
@@ -2849,6 +3553,28 @@ def main() -> int:
     phase8_s = time.perf_counter() - t8
     log(f"phase 8: {phase8_s:.1f} s ({json.dumps(phase8_parts_s)})")
 
+    # ---- 9. fader and classification training
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    fader, fader_rows, fader_errs = fader_phase(K, Fd, gen, launch_counts)
+    torch.cuda.empty_cache()
+    fader_parity = fader_parity_phase(K, Fd, gen)
+    torch.cuda.empty_cache()
+    ae_train, ae_sites = ae_phase(K, Fd, gen, launch_counts)
+    torch.cuda.empty_cache()
+    ae_bwd_rows, ae_bwd_errs = b3_bwd_rows(K, "ae", ae_sites, gen,
+                                           [(None, "bf16")], (None, "bf16"))
+    torch.cuda.empty_cache()
+    # the AE's stacks (fused, or per-axis where too wide: those launches
+    # are ae_bwd_rows' "axis" sites)
+    ae_bwd_rows["stack"], ae_bwd_errs["stack"] = sep_kernel_phase(
+        K, named_stacks("ae", ae_sites["stack"]), gen,
+        [(1, "f32"), (None, "bf16")], (None, "bf16"), fused_only=False)
+    torch.cuda.empty_cache()
+    classification = classification_phase(K, gen, launch_counts)
+    phase9_s = time.perf_counter() - t9
+    log(f"phase 9: {phase9_s:.1f} s")
+
     # the kernels of the served path, one entry per kernel instantiation:
     # launches from the timed ensemble run, times summed over the sites
     # each serves in bf16.  B1 and its B2-epilogue launches are counted
@@ -3012,8 +3738,55 @@ def main() -> int:
                      gradient_of="mri_epilepsy_diagnosis_tpu/ops/packed.py:"
                      "230 (_conv3_packed_bwd), :479 (_conv3_packed_as_bwd)"),
     ]
+    # phase 9: the B3 backward of the fader alternation, summed over the
+    # calls of one batch (3 disc_step + 1 enc_clf_step, batch 35, bf16)
+    fb = fader["launches_timed_batches"]
+    per_alt = (f"sum over the calls of one fader alternation batch "
+               f"({FADER_DISC_LOOP} disc_step + 1 enc_clf_step) at batch "
+               f"{FADER_BATCH}, bf16, {SIZE}^3; launches from "
+               f"{FADER_TIMED_BATCHES} batches")
+    grad_of = (tpu + "70 (conv_axis_last, through :131 conv_one_axis and "
+               ":148 separable_conv3d; the JAX package takes this gradient "
+               "through XLA convolutions)")
+    kernels += [
+        kernel_entry("separable_conv3d.fader_training",
+                     src + "separable_conv3d.cu", tpu + "70",
+                     fader_rows["stack"], fader_errs["stack"],
+                     fb["separable_conv3d"],
+                     fader["launches_per_batch"]["separable_conv3d"],
+                     path="fader_training", shapes=per_alt,
+                     fuses="three " + tpu + "70 calls of " + tpu
+                     + "148 separable_conv3d",
+                     per_axis_ms=sum(r["per_axis_ms"]
+                                     for r in fader_rows["stack"]),
+                     cudnn_3calls_ms=sum(r["cudnn_3calls_ms"]
+                                         for r in fader_rows["stack"]),
+                     max_abs_err_ae_bf16=ae_bwd_errs["stack"]["bf16"],
+                     max_abs_err_ae_f32=ae_bwd_errs["stack"]["f32"]),
+        kernel_entry("conv_axis_dx", src + "conv_axis_bwd.cu", tpu + "70",
+                     fader_rows["dx"], fader_errs["dx"], fb["conv_axis_dx"],
+                     fader["launches_per_batch"]["conv_axis_dx"],
+                     path="fader_training", shapes=per_alt,
+                     gradient_of=grad_of,
+                     max_abs_err_ae_bf16=ae_bwd_errs["dx"]["bf16"]),
+        kernel_entry("conv_axis_dw", src + "conv_axis_bwd.cu", tpu + "70",
+                     fader_rows["dw"], fader_errs["dw"], fb["conv_axis_dw"],
+                     fader["launches_per_batch"]["conv_axis_dw"],
+                     path="fader_training", shapes=per_alt,
+                     gradient_of=grad_of,
+                     max_abs_err_ae_bf16=ae_bwd_errs["dw"]["bf16"]),
+        kernel_entry("conv_axis", src + "conv_axis.cu", tpu + "70",
+                     fader_rows["axis"], fader_errs["axis"], fb["conv_axis"],
+                     fader["launches_per_batch"]["conv_axis"],
+                     path="fader_training", shapes=per_alt,
+                     role="recomputes the stacks' intermediates in the "
+                     "backward; the per-axis route of wide AE stacks",
+                     max_abs_err_ae_bf16=ae_bwd_errs["axis"]["bf16"]),
+    ]
     # every entry's launches on each path driven with the counts at 0
     paths = {"serving_ensemble": c, "train_step": t,
+             "fader_alternation": fb,
+             "ae_step": ae_train["launches_per_step"],
              "accumulated_step": accumulation["launches"],
              "resilient_training": resilient["launches"],
              "validation_f32": v,
@@ -3031,7 +3804,8 @@ def main() -> int:
                   "conv2_packed_bn_act.sliding_window": "conv2_packed_bn_act",
                   "conv2_packed_tc.patch_train_forward": "conv2_packed_tc",
                   "conv2_packed.patch_train_stem": "conv2_packed",
-                  "conv2_packed_tc.patch_dx": "conv2_packed_tc.dx"}
+                  "conv2_packed_tc.patch_dx": "conv2_packed_tc.dx",
+                  "separable_conv3d.fader_training": "separable_conv3d"}
     for entry in kernels:
         key = counted_as.get(entry["name"], entry["name"])
         entry["launches_by_path"] = {p: _counted_b1(n)[key]
@@ -3060,8 +3834,6 @@ def main() -> int:
         kernel_entry("bn_act_zero_pads", src + "bn_act_zero_pads.cu",
                      tpu + "197", b2_rows, b2_errs, c["bn_act_zero_pads"],
                      0),
-        kernel_entry("conv_axis", src + "conv_axis.cu", tpu + "70", b3_rows,
-                     b3_errs, c["conv_axis"], 0),
     ]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3088,6 +3860,12 @@ def main() -> int:
                    "patch_train_dx_sites": patch_dx_rows,
                    "sliding_window": sliding, "sliding_window_sites": sw_rows,
                    "phase8_s": phase8_s, "phase8_parts_s": phase8_parts_s,
+                   "fader": fader, "fader_bwd_sites": fader_rows,
+                   "fader_parity_f32": fader_parity, "ae_train": ae_train,
+                   "ae_bwd_sites": ae_bwd_rows,
+                   "b3_per_axis_serving_sites": {"rows": b3_rows,
+                                                 "errs": b3_errs},
+                   "classification": classification, "phase9_s": phase9_s,
                    "build_s": build_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

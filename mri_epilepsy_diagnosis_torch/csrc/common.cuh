@@ -62,4 +62,24 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
+// acc[c] += xv * wr[c] for c < COT: one input value into COT float32
+// sums, the weights read 4-wide where COT allows (wr 16-byte aligned)
+template <int COT>
+__device__ __forceinline__ void fma_row(float (&acc)[COT], float xv,
+                                        const float* wr) {
+  if constexpr (COT % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < COT; c += 4) {
+      const float4 wv = *reinterpret_cast<const float4*>(wr + c);
+      acc[c] = fmaf(xv, wv.x, acc[c]);
+      acc[c + 1] = fmaf(xv, wv.y, acc[c + 1]);
+      acc[c + 2] = fmaf(xv, wv.z, acc[c + 2]);
+      acc[c + 3] = fmaf(xv, wv.w, acc[c + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < COT; ++c) acc[c] = fmaf(xv, wr[c], acc[c]);
+  }
+}
+
 }  // namespace mri

@@ -30,9 +30,9 @@
 // stores are one contiguous run and its loads of x along D or H are
 // neighbouring rows of Ci channels.  Each thread reads
 // its k input rows once (4-wide when Ci % 4 == 0) and keeps COT float32
-// sums in registers; w lives in shared memory (at most 6 x 64 x 64 x 4 =
-// 96 KB, dynamic above 48 KB) and is read as a warp-wide broadcast,
-// 4-wide when COT % 4 == 0.  The taps re-read each input element about
+// sums in registers; w lives in shared memory (dynamic above 48 KB; read
+// from global memory where it exceeds one block's 227 KB) and is read as
+// a warp-wide broadcast, 4-wide when COT % 4 == 0.  The taps re-read each input element about
 // k / stride times; the re-reads hit L1/L2, not HBM.
 //
 // Offsets are 64-bit.  Requires contiguous tensors and 16-byte-aligned
@@ -42,35 +42,25 @@
 namespace mri {
 
 constexpr int kAxisThreads = 256;
+// weights above one block's shared memory are read from global memory
+// (through L1/L2) instead: the fader AE's widest stages (k x Ci x Co up to
+// 3 x 512 x 512) and the discriminator's 2 x 512 x 1024
+constexpr size_t kAxisMaxSmem = 232448;
 
-template <int COT>
-__device__ __forceinline__ void fma_row(float (&acc)[COT], float xv,
-                                        const float* wr) {
-  if constexpr (COT % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < COT; c += 4) {
-      const float4 wv = *reinterpret_cast<const float4*>(wr + c);
-      acc[c] = fmaf(xv, wv.x, acc[c]);
-      acc[c + 1] = fmaf(xv, wv.y, acc[c + 1]);
-      acc[c + 2] = fmaf(xv, wv.z, acc[c + 2]);
-      acc[c + 3] = fmaf(xv, wv.w, acc[c + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < COT; ++c) acc[c] = fmaf(xv, wr[c], acc[c]);
-  }
-}
-
-template <typename T, int COT, bool VEC>
+template <typename T, int COT, bool VEC, bool WSMEM>
 __global__ void __launch_bounds__(kAxisThreads)
 conv_axis_kernel(const T* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ bias, T* __restrict__ out,
                  long long total, int L, int Lo, long long B, int Ci, int Co,
                  int k, int stride, int pad) {
-  extern __shared__ __align__(16) float ws[];
-  const int nw = k * Ci * Co;
-  for (int i = threadIdx.x; i < nw; i += blockDim.x) ws[i] = w[i];
-  __syncthreads();
+  extern __shared__ __align__(16) float smem_w[];
+  const float* ws = w;
+  if constexpr (WSMEM) {
+    const int nw = k * Ci * Co;
+    for (int i = threadIdx.x; i < nw; i += blockDim.x) smem_w[i] = w[i];
+    __syncthreads();
+    ws = smem_w;
+  }
 
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= total) return;
@@ -127,8 +117,11 @@ static int launch(const void* x, const void* w, const void* bias, void* out,
                   int k, int stride, int pad, cudaStream_t stream) {
   const long long total = A * Lo * B * (Co / COT);
   if (total == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)k * Ci * Co * sizeof(float);
-  auto kern = conv_axis_kernel<T, COT, VEC>;
+  const size_t wbytes = (size_t)k * Ci * Co * sizeof(float);
+  const bool wsmem = wbytes <= kAxisMaxSmem;
+  const size_t smem = wsmem ? wbytes : 0;
+  auto kern = wsmem ? conv_axis_kernel<T, COT, VEC, true>
+                    : conv_axis_kernel<T, COT, VEC, false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

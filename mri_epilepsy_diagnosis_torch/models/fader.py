@@ -1,13 +1,16 @@
-"""Fader-network family, eval forward: separable-conv autoencoder, encoder,
-decoder, domain discriminator and FCD classifier (counterpart of the JAX
-package's `models/fader.py`).
+"""Fader-network family: separable-conv autoencoder, encoder, decoder,
+domain discriminator and FCD classifier, in eval and train mode
+(counterpart of the JAX package's `models/fader.py`).
 
 Every conv of a block is separable, (k,1,1) then (1,k,1) then (1,1,k), and
 each stack of three is one call of `ops/cuda_kernels.py::separable_conv3d`
 (kernel B3, the three axes fused into one launch) with the torch weights
-(O, I, k, 1, 1) viewed as (k, I, O) and the biases fused.  Only the dense convs that the JAX package leaves to XLA (the
-`reduce_size` 4^3/s4 stem, `Decoder.vox`, the `transpose_conv` up mode)
-run as `torch.nn.functional` convs.
+(O, I, k, 1, 1) viewed as (k, I, O) and the biases fused, through
+`SeparableConv3dFn`, whose backward runs B3's gradient kernels
+(`conv_axis_dx`, `conv_axis_dw`) where autograd records.  Only the
+dense convs that the JAX package leaves to XLA (the `reduce_size` 4^3/s4
+stem, `Decoder.vox`, the `transpose_conv` up mode) run as
+`torch.nn.functional` convs.
 
 The kwargs schemas are the reference's (`down_block_kwargs`,
 `up_block_kwargs`, `ae_kwargs`, `discriminator_kwargs`,
@@ -18,9 +21,12 @@ cell 17), and submodules carry the names of the reference checkpoints
 so the bridged JAX variables and those checkpoints load with
 `load_state_dict(strict=True)`.
 
-Activations are channels-last `(N, D, H, W, C)`.  Eval mode only: a forward
-in train mode raises (BatchNorm runs on its running statistics and Dropout
-is the identity).
+Activations are channels-last `(N, D, H, W, C)`.  In eval mode BatchNorm
+runs on its running statistics and Dropout is the identity; in train mode
+BatchNorm normalizes with the batch's statistics and moves the running
+ones with torch's momentum (`ops/functional.py::module_batch_norm`), and
+the heads' Dropout draws its mask from the `generator` passed to their
+forward (torch's global generator if None).
 """
 from __future__ import annotations
 
@@ -34,12 +40,6 @@ from torch import nn
 from ..core.device import resolve_device
 from ..ops import cuda_kernels as K
 from ..ops import functional as F
-
-
-def _eval_only(module: nn.Module):
-    if module.training:
-        raise RuntimeError(f"{type(module).__name__} runs in eval mode only; "
-                           "call .eval() first")
 
 
 def _separable_convs(c_in: int, c_out: int, k: int, s: int, p: int,
@@ -61,20 +61,16 @@ def _separable_conv(convs: Sequence[nn.Conv3d],
     """One B3 call for the stack, conv `i` along spatial axis i + 1, each
     with the (O, I, k, 1, 1)-style weight viewed as (k, I, O) in the
     activations' dtype (JAX casts conv weights to x.dtype) and its bias
-    fused."""
+    fused, through `SeparableConv3dFn` (the fused forward; B3's backward
+    where autograd records)."""
     ws = []
     for conv in convs:
         w = conv.weight.to(x.dtype)
         ws.append(w.reshape(w.shape[0], w.shape[1], -1).permute(2, 1, 0))
-    return K.separable_conv3d(
-        x, *ws, stride=tuple(c.stride[a] for a, c in enumerate(convs)),
-        pad=tuple(c.padding[a] for a, c in enumerate(convs)),
-        biases=tuple(c.bias for c in convs))
-
-
-def _batch_norm(bn: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, bn.eps)
+    stride = tuple(c.stride[a] for a, c in enumerate(convs))
+    pad = tuple(c.padding[a] for a, c in enumerate(convs))
+    biases = tuple(c.bias for c in convs)
+    return K.SeparableConv3dFn.apply(x, *ws, *biases, stride, pad)
 
 
 def _dense_conv(conv: nn.Module, x: torch.Tensor, *,
@@ -114,7 +110,6 @@ class DownBlock(nn.Module):
 
     def pre_norm(self, x: torch.Tensor):
         """The separable convs and the max pool: (pooled, pre-pool shape)."""
-        _eval_only(self)
         b = self.block
         x = _separable_conv((b["1_convx"], b["2_convy"], b["3_convz"]), x)
         shape_before_pool = tuple(x.shape[1:4])
@@ -124,7 +119,7 @@ class DownBlock(nn.Module):
     def forward(self, x: torch.Tensor):
         x, shape_before_pool = self.pre_norm(x)
         if "5_batch_norm" in self.block:
-            x = _batch_norm(self.block["5_batch_norm"], x)
+            x = F.module_batch_norm(self.block["5_batch_norm"], x)
         return F.activation(self.act)(x), shape_before_pool
 
 
@@ -158,7 +153,6 @@ class UpBlock(nn.Module):
         self.block = nn.ModuleDict(OrderedDict(layers))
 
     def forward(self, x: torch.Tensor, shape_before_pool=None):
-        _eval_only(self)
         b = self.block
         if self.up == "transpose_conv":
             x = _dense_conv(b["1_upsample"], x, transpose=True)
@@ -174,7 +168,7 @@ class UpBlock(nn.Module):
             x = F.resize_nearest(x, shape_before_pool)
         x = _separable_conv((b["2_convx"], b["3_convy"], b["4_convz"]), x)
         if "5_batch_norm" in b:
-            x = _batch_norm(b["5_batch_norm"], x)
+            x = F.module_batch_norm(b["5_batch_norm"], x)
         return F.activation(self.act)(x)
 
 
@@ -301,14 +295,16 @@ def _conv_head_features(head: nn.ModuleDict,
     return _linear(head["5_l1"], _flatten_torch_order(x))
 
 
-def _conv_head(head: nn.ModuleDict, x: torch.Tensor, act: str):
+def _conv_head(head: nn.ModuleDict, x: torch.Tensor, act: str,
+               p_drop: float, training: bool,
+               generator: Optional[torch.Generator]):
     """Shared Discriminator/Classificator body.  Returns (logits, hidden),
     hidden = the post-dropout embedding of the reference's t-SNE analysis
     (`train_ENC_CLF.ipynb` cells 26/28); dropout is the identity in eval."""
     x = _conv_head_features(head, x)
     if "6_batch_norm" in head:
-        x = _batch_norm(head["6_batch_norm"], x)
-    hidden = F.activation(act)(x)
+        x = F.module_batch_norm(head["6_batch_norm"], x)
+    hidden = F.dropout(F.activation(act)(x), p_drop, training, generator)
     return _linear(head["9_l_f"], hidden), hidden
 
 
@@ -323,7 +319,7 @@ class _ConvHead(nn.Module):
                  p_drop: float = 0.5, device=None):
         super().__init__()
         device = resolve_device(device)
-        self.act = act  # p_drop: dropout is the identity in eval
+        self.act, self.p_drop = act, p_drop
         self.add_module(self.prefix, _head_layers(
             c_in, c_out, conv_k, conv_s, conv_pad, l_in, l_out, n_final,
             batch_norm, device))
@@ -334,12 +330,14 @@ class _ConvHead(nn.Module):
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """The first Linear's output, before BN and the activation."""
-        _eval_only(self)
         return _conv_head_features(self.head, x)
 
-    def forward(self, x: torch.Tensor, return_hidden: bool = False):
-        _eval_only(self)
-        logits, hidden = _conv_head(self.head, x, self.act)
+    def forward(self, x: torch.Tensor, return_hidden: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Logits (and the hidden embedding); in train mode the dropout
+        mask comes from `generator`."""
+        logits, hidden = _conv_head(self.head, x, self.act, self.p_drop,
+                                    self.training, generator)
         return (logits, hidden) if return_hidden else logits
 
 

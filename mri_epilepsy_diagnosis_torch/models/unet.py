@@ -45,23 +45,7 @@ class ConvBlock(nn.Module):
                       bias, padding=self.padding)
         y = y.permute(0, 2, 3, 4, 1)
         if self.norm_layer is not None:
-            nl = self.norm_layer
-            if self.training:
-                count = y[..., 0].numel()
-                if count == 1:
-                    raise ValueError("Expected more than 1 value per channel "
-                                     "when training (nn.BatchNorm3d)")
-                mean, var = F.batch_moments(y)
-                with torch.no_grad():
-                    new = F.update_running_stats(
-                        nl.running_mean, nl.running_var, mean, var, count,
-                        nl.momentum)
-                    nl.running_mean.copy_(new[0])
-                    nl.running_var.copy_(new[1])
-                    nl.num_batches_tracked.add_(1)
-            else:
-                mean, var = nl.running_mean, nl.running_var
-            y = F.batch_norm(y, mean, var, nl.weight, nl.bias, nl.eps)
+            y = F.module_batch_norm(self.norm_layer, y)
         if self.activation_layer is not None:
             y = F.prelu(y, self.activation_layer.weight)
         return y

@@ -9,6 +9,8 @@ launch counters and build.
 | `bn_act_zero_pads`  | `csrc/bn_act_zero_pads.cu`| `ops/pallas_kernels.py::bn_act_zero_pads` |
 | `conv_axis`         | `csrc/conv_axis.cu`       | `ops/pallas_kernels.py::conv_axis_last`   |
 | `separable_conv3d`  | `csrc/separable_conv3d.cu` (the three axes in one launch) | `ops/pallas_kernels.py::separable_conv3d` |
+| `conv_axis_dx`      | `csrc/conv_axis_bwd.cu`   | the input gradient of `conv_axis_last` (XLA's in JAX) |
+| `conv_axis_dw`      | `csrc/conv_axis_bwd.cu` (two passes, no atomics) | the weight and bias gradients of `conv_axis_last` |
 
 `conv_one_axis` and `separable_conv3d` keep the signatures of their JAX
 namesakes (without the Mosaic workarounds `interpret` and `max_taps`).
@@ -17,6 +19,9 @@ namesakes (without the Mosaic workarounds `interpret` and `max_taps`).
 `conv_axis` launches.  The served UNet calls `conv2_packed_as_bn_act`
 at its aligned->shifted sites; the standalone `bn_act_zero_pads` is the
 counterpart of the JAX function and is no longer on that path.
+`SeparableConv3dFn` is the stack's autograd Function: the fused forward,
+and a backward of `conv_axis` recomputes, `conv_axis_dw` and
+`conv_axis_dx` launches, axis by axis in reverse.
 
 Each wrapper takes a CPU tensor through the kernel's plain version and a
 CUDA tensor through the kernel, or raises: there is no fallback from one
@@ -52,7 +57,7 @@ import torch.nn.functional as TF
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("conv2_packed.cu", "conv2_packed_tc.cu", "bn_act_zero_pads.cu",
-           "conv_axis.cu", "separable_conv3d.cu")
+           "conv_axis.cu", "separable_conv3d.cu", "conv_axis_bwd.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -143,6 +148,12 @@ def load() -> ctypes.CDLL:
     lib.mri_conv_axis.restype = i
     lib.mri_separable_conv3d.argtypes = [vp] * 8 + [i, ll, vp, i, vp]
     lib.mri_separable_conv3d.restype = i
+    lib.mri_conv_axis_dx.argtypes = [vp, vp, vp, i, ll, i, i, ll, i, i, i, i,
+                                     i, vp]
+    lib.mri_conv_axis_dx.restype = i
+    lib.mri_conv_axis_dw.argtypes = [vp, vp, vp, vp, vp, i, ll, i, i, ll, i,
+                                     i, i, i, i, vp, vp]
+    lib.mri_conv_axis_dw.restype = i
     return lib
 
 
@@ -595,10 +606,6 @@ bn_act_zero_pads.launches = 0
 # B3: zero-padded strided conv along one spatial axis
 # ---------------------------------------------------------------------------
 
-# the most float32 weights one block can hold in shared memory (227 KB)
-_AXIS_MAX_WEIGHTS = 232448 // 4
-
-
 def _axis_out_len(length: int, k: int, stride: int, pad: int) -> int:
     return (length + 2 * pad - k) // stride + 1
 
@@ -639,7 +646,8 @@ def conv_axis(x: torch.Tensor, w: torch.Tensor,
     with x zero outside its extent, so the axis has length
     (L + 2 pad - k) // stride + 1 in the output.  Computed in float32 (w and
     bias are read as float32) and rounded once to x's dtype, float32 or
-    bfloat16."""
+    bfloat16.  The kernel keeps w in shared memory, or reads it from
+    global memory where it exceeds one block's 227 KB."""
     if x.ndim != 5 or w.ndim != 3:
         raise ValueError(f"conv_axis needs x (N,D,H,W,Ci) and w (k,Ci,Co); "
                          f"got {tuple(x.shape)}, {tuple(w.shape)}")
@@ -664,9 +672,6 @@ def conv_axis(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"conv_axis runs on cpu or cuda, not {x.device}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"conv_axis takes float32 or bfloat16, not {x.dtype}")
-    if k * ci * co > _AXIS_MAX_WEIGHTS:
-        raise ValueError(f"w {tuple(w.shape)} does not fit in one block's "
-                         f"shared memory")
     _check_cuda("x", x, x.dtype, x.device)
     wf = w.to(device=x.device, dtype=torch.float32).contiguous()
     _check_cuda("w", wf, torch.float32, x.device)
@@ -891,8 +896,312 @@ def separable_conv3d(x: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
 
 separable_conv3d.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# B3's backward: input, weight and bias gradients of the one-axis conv
+# ---------------------------------------------------------------------------
+
+
+def _axis_slice(ndim: int, axis: int, sl: slice) -> tuple:
+    idx = [slice(None)] * ndim
+    idx[axis] = sl
+    return tuple(idx)
+
+
+def conv_axis_dx_taps(i: int, lo: int, k: int, stride: int,
+                      pad: int) -> list:
+    """The (tap t, output index j) pairs that `conv_axis_dx` sums at input
+    index i, in the kernel's order: t = (i + pad) % stride, then every
+    stride-th tap, j = (i + pad - t) / stride, kept while 0 <= j < lo."""
+    taps = []
+    for t in range((i + pad) % stride, k, stride):
+        j = (i + pad - t) // stride
+        if j < 0:
+            break
+        if j < lo:
+            taps.append((t, j))
+    return taps
+
+
+def conv_axis_dx_plain(g: torch.Tensor, w: torch.Tensor, *, length: int,
+                       axis: int, stride: int = 1,
+                       pad: int = 0) -> torch.Tensor:
+    """Plain version of `conv_axis_dx`: each tap's `g @ w[t]^T` added at
+    the input positions j * stride + t - pad of a float32 buffer, which is
+    then cropped to the input's extent and rounded once to g.dtype."""
+    k, ci, _ = w.shape
+    lo = g.shape[axis]
+    shape = list(g.shape)
+    shape[axis] = max(length + 2 * pad, (lo - 1) * stride + k)
+    shape[-1] = ci
+    out = torch.zeros(shape, dtype=torch.float32, device=g.device)
+    gf, wf = g.float(), w.float()
+    for t in range(k):
+        out[_axis_slice(g.ndim, axis,
+                        slice(t, t + (lo - 1) * stride + 1, stride))] += (
+            torch.matmul(gf, wf[t].t()))
+    return out[_axis_slice(g.ndim, axis, slice(pad, pad + length))].to(
+        g.dtype)
+
+
+def conv_axis_dx(g: torch.Tensor, w: torch.Tensor, *, length: int,
+                 axis: int, stride: int = 1, pad: int = 0) -> torch.Tensor:
+    """Input gradient of `y = conv_axis(x, w, axis=axis, stride=stride,
+    pad=pad)` for x of `length` along `axis`: with y's cotangent g (N, D,
+    H, W, Co) and w (k, Ci, Co),
+
+        dx[..., i, ..., ci] = sum over (t, j) of conv_axis_dx_taps(i, ...)
+                              sum_co g[..., j, ..., co] w[t, ci, co],
+
+    a gather with no zero-stuffed cotangent, summed in float32 (w read as
+    float32) and rounded once to g's dtype, float32 or bfloat16.  One
+    launch of `conv_axis_bwd.cu`'s dx kernel on the card."""
+    if g.ndim != 5 or w.ndim != 3:
+        raise ValueError(f"conv_axis_dx needs g (N,D,H,W,Co) and w "
+                         f"(k,Ci,Co); got {tuple(g.shape)}, {tuple(w.shape)}")
+    if axis not in (1, 2, 3):
+        raise ValueError(f"axis must be 1, 2 or 3, got {axis}")
+    k, ci, co = w.shape
+    if co != g.shape[4]:
+        raise ValueError(f"w has {co} output channels, g {g.shape[4]}")
+    if stride < 1 or pad < 0 or _axis_out_len(length, k, stride, pad) \
+            != g.shape[axis]:
+        raise ValueError(f"an input of length {length} with k={k}, "
+                         f"stride={stride}, pad={pad} does not give g's "
+                         f"length {g.shape[axis]}")
+    if g.device.type == "cpu":
+        return conv_axis_dx_plain(g, w, length=length, axis=axis,
+                                  stride=stride, pad=pad)
+    if g.device.type != "cuda":
+        raise ValueError(f"conv_axis_dx runs on cpu or cuda, not {g.device}")
+    if g.dtype not in _DTYPE_CODE:
+        raise TypeError(f"conv_axis_dx takes float32 or bfloat16, not "
+                        f"{g.dtype}")
+    g = g.contiguous()
+    _check_cuda("g", g, g.dtype, g.device)
+    # the kernel reads the weights as (k, Co, Ci): a row of Ci per (t, co)
+    wt = w.to(device=g.device, dtype=torch.float32).permute(0, 2, 1) \
+        .contiguous()
+    _check_cuda("wt", wt, torch.float32, g.device)
+    shape = list(g.shape)
+    shape[axis], shape[4] = length, ci
+    dx = torch.empty(shape, dtype=g.dtype, device=g.device)
+    if dx.numel() == 0:
+        return dx
+    a = int(g.shape[:axis].numel())
+    b = int(g.shape[axis + 1:4].numel())
+    lib = load()
+    with torch.cuda.device(g.device):
+        rc = lib.mri_conv_axis_dx(
+            g.data_ptr(), wt.data_ptr(), dx.data_ptr(), _DTYPE_CODE[g.dtype],
+            a, length, g.shape[axis], b, ci, co, k, stride, pad,
+            torch.cuda.current_stream(g.device).cuda_stream)
+    _raise_on(rc, "conv_axis_dx")
+    conv_axis_dx.launches += 1
+    return dx
+
+
+conv_axis_dx.launches = 0
+
+# dw's split plan: a block holds _DW_THREADS threads; the rows are split
+# into enough chunks for about _DW_BLOCKS blocks in all (8 per SM of the
+# H100's 132), each thread taking at least _DW_MIN_ROWS rows of its chunk,
+# and the partial sums held to _DW_MAX_PARTIALS floats of scratch
+_DW_THREADS = 256
+_DW_BLOCKS = 132 * 8
+_DW_MIN_ROWS = 16
+_DW_MAX_PARTIALS = 1 << 24
+
+
+class DwPlan(NamedTuple):
+    """Split plan of one `conv_axis_dw` call over `rows` = A x Lo x B
+    cotangent rows and k x Ci x Co (+ Co) outputs."""
+    cot: int             # output channels per thread (a channel group)
+    og_total: int        # output groups: k x Ci x Co / cot
+    og_block: int        # output groups per block (its tile)
+    lanes: int           # threads per output group; a block is og_block x lanes
+    tiles: int           # output tiles (grid y)
+    chunks: int          # row chunks (grid x)
+    rows_per_chunk: int
+    nout: int            # partial sums per chunk: k x Ci x Co + Co
+
+
+def conv_axis_dw_plan(rows: int, k: int, ci: int, co: int) -> DwPlan:
+    """The plan of `conv_axis_dw` for `rows` >= 1.  Thread (lane, g) of
+    block (chunk, tile) owns output group og = tile * og_block + g, that
+    is (t, ci, channel group) = divmod(og // (Co / cot), Ci), group og %
+    (Co / cot), and sums rows chunk * rows_per_chunk + lane, + lanes, ...
+    of its chunk; the db sums ride with the (t, ci) = (0, 0) groups, all
+    in tile 0."""
+    cot = next(c for c in (8, 4, 2, 1) if co % c == 0)
+    groups = co // cot
+    og_total = k * ci * groups
+    og_block = min(og_total, _DW_THREADS)
+    if groups > og_block:
+        raise ValueError(f"conv_axis_dw takes at most {_DW_THREADS * 8} "
+                         f"output channels, got {co}")
+    lanes = _DW_THREADS // og_block
+    tiles = -(-og_total // og_block)
+    nout = k * ci * co + co
+    chunks = max(1, min(-(-_DW_BLOCKS // tiles),
+                        rows // (lanes * _DW_MIN_ROWS),
+                        _DW_MAX_PARTIALS // nout))
+    rows_per_chunk = -(-rows // chunks)
+    chunks = -(-rows // rows_per_chunk)
+    return DwPlan(cot, og_total, og_block, lanes, tiles, chunks,
+                  rows_per_chunk, nout)
+
+
+def conv_axis_dw_plain(x: torch.Tensor, g: torch.Tensor, *, k: int,
+                       axis: int, stride: int = 1, pad: int = 0,
+                       bias: bool = True):
+    """Plain version of `conv_axis_dw`: per tap, the float32 product of
+    the zero-padded input's strided slice and g over every other index;
+    db the float32 sum of g.  Returns (dw, db or None)."""
+    lo, ci, co = g.shape[axis], x.shape[-1], g.shape[-1]
+    if pad:
+        spec = [0] * (2 * (x.ndim - axis))
+        spec[-2:] = (pad, pad)
+        x = TF.pad(x, spec)
+    g2 = g.reshape(-1, co).float()
+    dw = torch.stack([
+        torch.matmul(x[_axis_slice(x.ndim, axis, slice(
+            t, t + (lo - 1) * stride + 1, stride))].reshape(-1, ci)
+            .float().t(), g2) for t in range(k)])
+    return dw, (g2.sum(0) if bias else None)
+
+
+def conv_axis_dw(x: torch.Tensor, g: torch.Tensor, *, k: int, axis: int,
+                 stride: int = 1, pad: int = 0, bias: bool = True):
+    """Weight and bias gradients of `y = conv_axis(x, w, axis=axis,
+    stride=stride, pad=pad)` with w (k, Ci, Co), given x (N, D, H, W, Ci)
+    and y's cotangent g (N, D', H', W', Co) in one dtype:
+
+        dw[t, ci, co] = sum x[..., j * stride + t - pad, ..., ci]
+                            * g[..., j, ..., co]   (x zero outside)
+        db[co]        = sum g[..., co]             (with `bias`)
+
+    float32 results (k, Ci, Co) and (Co,) or None.  On the card, two
+    launches of `conv_axis_bwd.cu` (partial sums per row chunk, then the
+    chunks summed in order; `conv_axis_dw_plan`), counted as one call: no
+    float atomics, so a run repeats bit for bit."""
+    if x.ndim != 5 or g.ndim != 5:
+        raise ValueError(f"conv_axis_dw needs x and g (N,D,H,W,C); got "
+                         f"{tuple(x.shape)}, {tuple(g.shape)}")
+    if axis not in (1, 2, 3):
+        raise ValueError(f"axis must be 1, 2 or 3, got {axis}")
+    if x.dtype != g.dtype:
+        raise TypeError(f"x is {x.dtype}, g {g.dtype}")
+    lo = _axis_out_len(x.shape[axis], k, stride, pad)
+    other = [d for d in range(4) if d != axis]
+    if stride < 1 or pad < 0 or lo != g.shape[axis] or [
+            x.shape[d] for d in other] != [g.shape[d] for d in other]:
+        raise ValueError(f"g {tuple(g.shape)} is not the output of x "
+                         f"{tuple(x.shape)} with k={k}, stride={stride}, "
+                         f"pad={pad} along axis {axis}")
+    if x.device.type == "cpu":
+        return conv_axis_dw_plain(x, g, k=k, axis=axis, stride=stride,
+                                  pad=pad, bias=bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_axis_dw runs on cpu or cuda, not {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"conv_axis_dw takes float32 or bfloat16, not "
+                        f"{x.dtype}")
+    x, g = x.contiguous(), g.contiguous()
+    _check_cuda("x", x, x.dtype, x.device)
+    _check_cuda("g", g, x.dtype, x.device)
+    ci, co = x.shape[4], g.shape[4]
+    dw = torch.zeros((k, ci, co), dtype=torch.float32, device=x.device)
+    db = (torch.zeros(co, dtype=torch.float32, device=x.device) if bias
+          else None)
+    a = int(x.shape[:axis].numel())
+    b = int(x.shape[axis + 1:4].numel())
+    rows = a * lo * b
+    if rows == 0:
+        return dw, db
+    plan = conv_axis_dw_plan(rows, k, ci, co)
+    partials = torch.empty(plan.chunks * plan.nout, dtype=torch.float32,
+                           device=x.device)
+    plan_arr = (ctypes.c_int * 7)(plan.cot, plan.og_total, plan.og_block,
+                                  plan.lanes, plan.tiles, plan.chunks,
+                                  plan.rows_per_chunk)
+    lib = load()
+    with torch.cuda.device(x.device):
+        rc = lib.mri_conv_axis_dw(
+            x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+            None if db is None else db.data_ptr(), partials.data_ptr(),
+            _DTYPE_CODE[x.dtype], a, x.shape[axis], lo, b, ci, co, k, stride,
+            pad, ctypes.cast(plan_arr, ctypes.c_void_p),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "conv_axis_dw")
+    conv_axis_dw.launches += 1
+    return dw, db
+
+
+conv_axis_dw.launches = 0
+
+
+class SeparableConv3dFn(torch.autograd.Function):
+    """`separable_conv3d` (x, wx, wy, wz, bx, by, bz, stride, pad) with B3's
+    backward.  The forward is the fused kernel, which keeps the stack's
+    intermediates y1 (after D) and y2 (after H) in shared memory; the
+    backward recomputes those it needs with `conv_axis` and then, axis by
+    axis in reverse, takes dw and db from (y2, g3), g2 = dx(g3), dw and db
+    from (y1, g2), g1 = dx(g2), dw and db from (x, g1), gx = dx(g1).
+    `ctx.needs_input_grad` prunes it: no dx of the input where x takes no
+    gradient (the image), no dw, db or recompute where the weights take
+    none (a frozen head, which only passes its gradient to its input).
+    Weight gradients come back in the weights' dtype, bias gradients in
+    the biases'; dx is rounded to the cotangent's dtype at each axis."""
+
+    @staticmethod
+    def forward(ctx, x, wx, wy, wz, bx, by, bz, stride, pad):
+        stride, pad = tuple(stride), tuple(pad)
+        out = separable_conv3d(x, wx, wy, wz, stride=stride, pad=pad,
+                               biases=(bx, by, bz))
+        ctx.save_for_backward(x, wx, wy, wz, bx, by)
+        ctx.stride, ctx.pad = stride, pad
+        ctx.bias_dtypes = tuple(None if b is None else b.dtype
+                                for b in (bx, by, bz))
+        return out
+
+    @staticmethod
+    def backward(ctx, g3):
+        x, wx, wy, wz, bx, by = ctx.saved_tensors
+        s, p = ctx.stride, ctx.pad
+        need = ctx.needs_input_grad
+        ws = (wx, wy, wz)
+        # params[a]: whether axis a's weight or bias takes a gradient
+        params = [need[1 + a] or need[4 + a] for a in range(3)]
+        y1 = y2 = None
+        if params[1] or params[2]:
+            y1 = conv_axis(x, wx, bx, axis=1, stride=s[0], pad=p[0])
+        if params[2]:
+            y2 = conv_axis(y1, wy, by, axis=2, stride=s[1], pad=p[1])
+        inputs = (x, y1, y2)
+        grads = [None] * 9
+        g = g3.contiguous()
+        for a in (2, 1, 0):
+            if params[a]:
+                dw, db = conv_axis_dw(inputs[a], g, k=ws[a].shape[0],
+                                      axis=a + 1, stride=s[a], pad=p[a],
+                                      bias=need[4 + a])
+                if need[1 + a]:
+                    grads[1 + a] = dw.to(ws[a].dtype)
+                if need[4 + a]:
+                    grads[4 + a] = db.to(ctx.bias_dtypes[a])
+            if need[0] or any(params[:a]):
+                g = conv_axis_dx(g, ws[a], length=x.shape[1 + a],
+                                 axis=a + 1, stride=s[a], pad=p[a])
+            else:
+                break
+        if need[0]:
+            grads[0] = g
+        return tuple(grads)
+
+
 KERNELS = (conv2_packed, bn_act_zero_pads, conv_axis, conv2_packed_as_bn_act,
-           conv2_packed_dx, separable_conv3d)
+           conv2_packed_dx, separable_conv3d, conv_axis_dx, conv_axis_dw)
 
 
 def reset_launch_counts():

@@ -1,7 +1,8 @@
 """Channels-last functional ops of the fine UNet3D and the fader family
 (counterpart of the JAX package's `ops/functional.py`: `prelu`,
 `batch_norm` with the train-mode statistics of `ops/layers.py::BatchNorm`,
-`maxpool3d`, `resize_linear`, `resize_nearest`, the fader's
+`maxpool3d`, `resize_linear`, `resize_nearest`, `module_batch_norm` and
+`dropout` (with `generator_on`) for the train-mode layers, the fader's
 `relu`/`l_relu` activations, and the shape utilities `pad_to` and
 `crop_or_pad`).  Every function takes and returns `(N, D, H, W, C)`
 tensors."""
@@ -49,6 +50,64 @@ def update_running_stats(running_mean, running_var, mean, var,
     unbiased = var.detach() * (count / max(count - 1.0, 1.0))
     return ((1 - momentum) * running_mean + momentum * mean.detach(),
             (1 - momentum) * running_var + momentum * unbiased)
+
+
+def module_batch_norm(bn, x: torch.Tensor) -> torch.Tensor:
+    """Channels-last BatchNorm through the statistics and affine parameters
+    of the torch module `bn` (`nn.BatchNorm1d`/`3d`).  In train mode, the
+    batch's moments (`batch_moments`), with torch's running update in
+    place (`update_running_stats`, `bn.momentum`, `num_batches_tracked`
+    counted) and torch's refusal of a single value per channel; in eval
+    mode, the running statistics.  The JAX package's `ops/layers.py::
+    BatchNorm`."""
+    if not bn.training:
+        return batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                          bn.bias, bn.eps)
+    count = x[..., 0].numel()
+    if count <= 1:
+        raise ValueError("Expected more than 1 value per channel when "
+                         f"training, got input size {tuple(x.shape)}")
+    mean, var = batch_moments(x)
+    with torch.no_grad():
+        new = update_running_stats(bn.running_mean, bn.running_var, mean,
+                                   var, count, bn.momentum)
+        bn.running_mean.copy_(new[0])
+        bn.running_var.copy_(new[1])
+        bn.num_batches_tracked.add_(1)
+    return batch_norm(x, mean, var, bn.weight, bn.bias, bn.eps)
+
+
+def dropout_core(x: torch.Tensor, keep_mask: torch.Tensor,
+                 rate: float) -> torch.Tensor:
+    """Inverted dropout with a given boolean keep mask: `x / (1 - rate)`
+    where kept, 0 elsewhere (the JAX package's `ops/layers.py::Dropout`)."""
+    return torch.where(keep_mask, x / (1.0 - rate), 0.0)
+
+
+def generator_on(gen: torch.Generator, device: torch.device
+                 ) -> torch.Generator:
+    """`gen` if it lives on `device`, else a generator on `device` seeded
+    from one draw of `gen`: a host generator then never moves a tensor
+    between the host and the card."""
+    if gen.device == device:
+        return gen
+    seed = int(torch.randint(0, 2 ** 62, (), generator=gen,
+                             device=gen.device))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout in train mode, the identity otherwise or at rate 0.
+    The keep mask (`u < 1 - rate` for u uniform in [0, 1)) is drawn on
+    x's device, from `generator_on(generator, x.device)` (torch's default
+    generator of that device if None).  JAX draws other bits from its
+    keys (ROADMAP §C)."""
+    if not training or rate == 0.0:
+        return x
+    gen = None if generator is None else generator_on(generator, x.device)
+    u = torch.rand(x.shape, generator=gen, device=x.device)
+    return dropout_core(x, u < 1.0 - rate, rate)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,10 @@
-from .accum import packed_seg_train_step_accum
+from .accum import class_train_step_accum, packed_seg_train_step_accum
+from .classification import (create_model_opt, cross_entropy,
+                             cross_val_score, run_one_epoch,
+                             stratified_batch_indices)
+from .classification import train as train_classifier
+from .fader import (FaderState, adv_loss, ae_step, disc_step, enc_clf_step,
+                    fader_main_loss, train_fader)
 from .checkpoint import (load_checkpoint, load_checkpoint_extra,
                          load_jax_checkpoint, load_scheduler_state,
                          save_checkpoint)
@@ -11,8 +17,12 @@ from .seg import (Action, get_model_and_optimizer, mask_forward,
 from .state import TrainState, create_train_state
 
 __all__ = [
-    "Action", "CheckpointManager", "ReduceLROnPlateau", "StepLR",
-    "TrainState", "create_train_state", "get_model_and_optimizer",
+    "Action", "CheckpointManager", "FaderState", "ReduceLROnPlateau",
+    "StepLR", "TrainState", "adv_loss", "ae_step", "class_train_step_accum",
+    "create_model_opt", "create_train_state", "cross_entropy",
+    "cross_val_score", "disc_step", "enc_clf_step", "fader_main_loss",
+    "get_model_and_optimizer", "run_one_epoch", "stratified_batch_indices",
+    "train_classifier", "train_fader",
     "load_checkpoint", "load_checkpoint_extra", "load_jax_checkpoint",
     "load_scheduler_state", "mask_forward", "packed_seg_eval_step",
     "packed_seg_train_step", "packed_seg_train_step_accum", "run_epoch",

@@ -24,6 +24,7 @@ from typing import Callable, Sequence, Tuple
 
 import torch
 
+from ..ops.functional import generator_on as _generator_on
 from ..ops.functional import resize_linear
 from .spatial import affine_resample, flip, warp_dense
 
@@ -33,17 +34,6 @@ def _uniform(gen: torch.Generator, shape, lo: float, hi: float
     """float32 U(lo, hi) draws from `gen`, on the generator's device."""
     u = torch.rand(shape, generator=gen, device=gen.device)
     return u * (hi - lo) + lo
-
-
-def _generator_on(gen: torch.Generator, device: torch.device
-                  ) -> torch.Generator:
-    """`gen` if it lives on `device`, else a generator on `device` seeded
-    from one draw of `gen`."""
-    if gen.device == device:
-        return gen
-    seed = int(torch.randint(0, 2 ** 62, (), generator=gen,
-                             device=gen.device))
-    return torch.Generator(device=device).manual_seed(seed)
 
 
 def random_flip(gen, vol, axes: Sequence[int] = (0,),

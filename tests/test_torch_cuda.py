@@ -586,6 +586,20 @@ def test_random_noise_with_a_host_generator_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_dropout_with_a_host_generator_draws_on_the_card(cuda_device):
+    """A CPU generator seeds a generator on the card for the mask: no
+    tensor crosses from the host, and the same seed gives the same mask."""
+    from mri_epilepsy_diagnosis_torch.ops import functional as F
+
+    x = torch.ones(64, 256, device=cuda_device)
+    a = F.dropout(x, 0.5, True, torch.Generator().manual_seed(3))
+    b = F.dropout(x, 0.5, True, torch.Generator().manual_seed(3))
+    assert a.device.type == "cuda" and torch.equal(a, b)
+    assert set(a.unique().tolist()) == {0.0, 2.0}
+    assert 0.4 < (a == 0).float().mean().item() < 0.6
+
+
+@pytest.mark.cuda
 def test_sliding_window_on_the_card_matches_cpu(cuda_device, no_tf32):
     """`sliding_window_predict` over the packed UNet3D (B1 with B2 fused)
     on a 64^3 volume, patch 32, overlap 4, f32: the card against the CPU
@@ -635,3 +649,135 @@ def test_prefetcher_passes_card_tensors_through(cuda_device):
     assert sx is x
     assert sy.device.type == "cuda" and sy.tolist() == [0, 1]
     assert pf.get() is None
+
+
+# B3's backward: (axis, k, stride, pad, Ci, Co), the encoder's k=6/s=2/p=2
+# stages, the heads' k=3/p=0, the AE's stride-1 k=3/p=1 and k=5/p=2, odd
+# channel counts, and the discriminator's k=2/s=2 conv
+B3_BWD_SITES = [(1, 6, 2, 2, 1, 8), (2, 6, 2, 2, 8, 8), (3, 6, 2, 2, 8, 16),
+                (1, 3, 1, 0, 32, 64), (3, 3, 1, 0, 64, 64),
+                (2, 3, 1, 1, 16, 16), (3, 5, 1, 2, 8, 1), (1, 3, 1, 1, 3, 6),
+                (2, 2, 2, 0, 16, 32), (1, 6, 2, 1, 8, 8), (3, 3, 2, 0, 4, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis,k,stride,pad,ci,co", B3_BWD_SITES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_axis_dx_kernel_matches_plain(cuda_device, axis, k, stride, pad,
+                                           ci, co, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    shape = [2, 9, 8, 11]
+    length = shape[axis]
+    lo = (length + 2 * pad - k) // stride + 1
+    gshape = list(shape) + [co]
+    gshape[axis] = lo
+    gy = torch.randn(gshape, generator=g, device=cuda_device).to(dtype)
+    w = (torch.randn(k, ci, co, generator=g, device=cuda_device)
+         / (k * co) ** 0.5).to(dtype)
+    before = K.conv_axis_dx.launches
+    got = K.conv_axis_dx(gy, w, length=length, axis=axis, stride=stride,
+                         pad=pad)
+    torch.cuda.synchronize()
+    assert K.conv_axis_dx.launches == before + 1
+    ref = K.conv_axis_dx_plain(gy, w, length=length, axis=axis,
+                               stride=stride, pad=pad)
+    assert got.shape == ref.shape and got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis,k,stride,pad,ci,co", B3_BWD_SITES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_axis_dw_kernel_matches_plain(cuda_device, axis, k, stride, pad,
+                                           ci, co, dtype):
+    """dw and db (float32) within 2e-4 x max|ref|, as chip_smoke's dw
+    gates; a second run repeats them bit for bit (no float atomics)."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    shape = [2, 9, 8, 11]
+    x = torch.randn(shape + [ci], generator=g, device=cuda_device).to(dtype)
+    gshape = list(shape) + [co]
+    gshape[axis] = (shape[axis] + 2 * pad - k) // stride + 1
+    gy = torch.randn(gshape, generator=g, device=cuda_device).to(dtype)
+    before = K.conv_axis_dw.launches
+    dw, db = K.conv_axis_dw(x, gy, k=k, axis=axis, stride=stride, pad=pad)
+    torch.cuda.synchronize()
+    assert K.conv_axis_dw.launches == before + 1
+    rdw, rdb = K.conv_axis_dw_plain(x, gy, k=k, axis=axis, stride=stride,
+                                    pad=pad)
+    assert dw.dtype == db.dtype == torch.float32
+    for got, ref in ((dw, rdw), (db, rdb)):
+        assert got.shape == ref.shape
+        assert (got - ref).abs().max() <= 2e-4 * ref.abs().max()
+    dw2, db2 = K.conv_axis_dw(x, gy, k=k, axis=axis, stride=stride, pad=pad)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    dw3, db3 = K.conv_axis_dw(x, gy, k=k, axis=axis, stride=stride, pad=pad,
+                              bias=False)
+    assert db3 is None and torch.equal(dw3, dw)
+
+
+@pytest.mark.cuda
+def test_conv_axis_bwd_many_chunks_and_tiles(cuda_device):
+    """dw split over many row chunks (the first encoder stage's shape at
+    batch 2, 48^3) and over many output tiles (Ci 256, Co 512); dx with
+    weights past one block's shared memory (global-memory route)."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(2, 48, 48, 48, 1, generator=g,
+                    device=cuda_device).bfloat16()
+    gy = torch.randn(2, 24, 48, 48, 8, generator=g,
+                     device=cuda_device).bfloat16()
+    plan = K.conv_axis_dw_plan(2 * 24 * 48 * 48, 6, 1, 8)
+    assert plan.chunks > 100
+    dw, db = K.conv_axis_dw(x, gy, k=6, axis=1, stride=2, pad=2)
+    rdw, rdb = K.conv_axis_dw_plain(x, gy, k=6, axis=1, stride=2, pad=2)
+    assert (dw - rdw).abs().max() <= 2e-4 * rdw.abs().max()
+    assert (db - rdb).abs().max() <= 2e-4 * rdb.abs().max()
+    x = torch.randn(3, 6, 6, 6, 256, generator=g, device=cuda_device)
+    gy = torch.randn(3, 6, 6, 6, 512, generator=g, device=cuda_device)
+    w = torch.randn(3, 256, 512, generator=g, device=cuda_device) / 40
+    assert K.conv_axis_dw_plan(3 * 36 * 6, 3, 256, 512).tiles > 1
+    dw, db = K.conv_axis_dw(x, gy, k=3, axis=3, stride=1, pad=1)
+    rdw, rdb = K.conv_axis_dw_plain(x, gy, k=3, axis=3, stride=1, pad=1)
+    assert (dw - rdw).abs().max() <= 2e-4 * rdw.abs().max()
+    dx = K.conv_axis_dx(gy, w, length=6, axis=3, stride=1, pad=1)
+    ref = K.conv_axis_dx_plain(gy, w, length=6, axis=3, stride=1, pad=1)
+    assert (dx - ref).abs().max() <= 1e-5 * ref.abs().max()
+    y = K.conv_axis(x, w, axis=3, stride=1, pad=1)
+    ref = K.conv_axis_plain(x, w, axis=3, stride=1, pad=1)
+    assert (y - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_separable_fn_on_the_card_matches_plain_autograd(cuda_device, dtype):
+    """`SeparableConv3dFn` on the card (fused forward, recompute, dw, dx
+    kernels) against autograd through the plain stack, at the first
+    encoder stage's geometry; the launches it makes."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(2, 24, 20, 22, 1, generator=g,
+                    device=cuda_device).to(dtype)
+    ws = [(torch.randn(6, ci, 8, generator=g, device=cuda_device)
+           / (6 * ci) ** 0.5).to(dtype) for ci in (1, 8, 8)]
+    bs = [torch.randn(8, generator=g, device=cuda_device) for _ in range(3)]
+    gy = torch.randn(2, 12, 10, 11, 8, generator=g,
+                     device=cuda_device).to(dtype)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in ws + bs]
+        fn(x, leaves).backward(gy)
+        return [t.grad for t in leaves]
+
+    K.reset_launch_counts()
+    got = grads(lambda x, l: K.SeparableConv3dFn.apply(
+        x, *l, (2, 2, 2), (2, 2, 2)))
+    torch.cuda.synchronize()
+    assert (K.separable_conv3d.launches, K.conv_axis.launches,
+            K.conv_axis_dw.launches, K.conv_axis_dx.launches) == (1, 2, 3, 2)
+    ref = grads(lambda x, l: K.separable_conv3d_plain(
+        x, *l[:3], stride=(2, 2, 2), pad=(2, 2, 2), biases=tuple(l[3:])))
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype
+        assert (a.float() - b.float()).abs().max() <= tol * b.float().abs(
+        ).max()

@@ -202,6 +202,10 @@ def test_activations_match_jax():
 
 @pytest.mark.parametrize("name", ["encoder", "clf", "ae"])
 def test_train_mode_raises(name):
+    """Train mode runs (tests/test_torch_fader_train.py holds it against
+    JAX) and raises where torch's BatchNorm does: a batch that leaves one
+    value per channel (batch 1 through a 1^3 pooled block or a head)."""
     _, tmodel, shape = jax_model(name)
-    with pytest.raises(RuntimeError, match="eval mode"):
+    shape = (1, 3, 3, 3, 16) if name == "clf" else (1, 6, 6, 6, 1)
+    with pytest.raises(ValueError, match="more than 1 value per channel"):
         tmodel.train()(torch.zeros(shape))

@@ -34,9 +34,13 @@ def test_port_sources_found():
             "seg.py", "accum.py", "resilience.py", "flax_msgpack.py",
             "surface.py", "nifti.py", "spatial.py", "intensity.py",
             "preprocessing.py", "augment.py", "data.py", "pipeline.py",
-            "collate.py", "sliding_window.py"} <= names
-    assert ROOT / "mri_epilepsy_diagnosis_torch" / "native" / "__init__.py" \
-        in SOURCES
+            "collate.py", "sliding_window.py", "cnn.py",
+            "classification.py"} <= names
+    port = ROOT / "mri_epilepsy_diagnosis_torch"
+    for path in ("native/__init__.py", "train/fader.py",
+                 "train/classification.py", "metrics/classification.py",
+                 "models/cnn.py"):
+        assert port / path in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES,
