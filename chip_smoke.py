@@ -121,11 +121,14 @@ Phases (each raises on failure, so the script exits nonzero):
       recompute) and fused `separable_conv3d` site in f32 at batch 2 and
       in bf16 at batch 35 against its plain version (dx 2^-7, dw and db
       2e-4, the stacks as in phase 3, x max|ref|), timed beside cuDNN's
-      `conv3d_input` / `conv3d_weight` / `conv3d`;
+      `conv3d_input` / `conv3d_weight` / `conv3d`; each dx / dw site's
+      route (bf16: the tensor-core kernels of `conv_axis_bwd_tc.cu`;
+      f32: the CUDA-core ones of `conv_axis_bwd.cu`);
    b. the alternation of `examples/train_fader.py` (3 `disc_step`s and one
       `enc_clf_step` a batch, Adam 7e-4 / 7e-4 / 5e-4, lambda ramp, class
       weight [1, 2]): exact launch counts per batch (fused 17, `conv_axis`
-      14, dw 21, dx 20), ms per batch, vol/s, peak memory, finite losses,
+      14, dw 21, dx 20, every dw and dx on tensor cores), ms per batch,
+      vol/s, peak memory, finite losses,
       float32 master weights, one profiled batch (host syncs and copies
       counted; its idle share also with the device alone traced); then
       `train_fader` over
@@ -219,7 +222,8 @@ UNET_PER_BATCH = {"conv2_packed": len(B1_SITES),
                   "conv2_packed_as_bn_act_tc": len(B2_SITES) - 1,
                   "bn_act_zero_pads": 0, "conv_axis": 0,
                   "separable_conv3d": 0, "conv_axis_dx": 0,
-                  "conv_axis_dw": 0}
+                  "conv_axis_dw": 0, "conv_axis_dx_tc": 0,
+                  "conv_axis_dw_tc": 0}
 ENSEMBLE_PER_BATCH = {**UNET_PER_BATCH, "separable_conv3d": len(B3_STACKS)}
 
 # training (phase 6): a packed train step launches B1 for each of the 12
@@ -238,7 +242,8 @@ TRAIN_PER_STEP = {"conv2_packed": len(B1_SITES) + len(DX_SITES),
                   "conv2_packed_as_bn_act": 0, "conv2_packed_as_bn_act_tc": 0,
                   "bn_act_zero_pads": 0, "conv_axis": 0,
                   "separable_conv3d": 0, "conv_axis_dx": 0,
-                  "conv_axis_dw": 0}
+                  "conv_axis_dw": 0, "conv_axis_dx_tc": 0,
+                  "conv_axis_dw_tc": 0}
 # dw sums K = N x cells ~ 1.8M products per entry in f32 in an order that
 # neither side controls; sequential f32 accumulation errs by about
 # sqrt(K) 2^-24 ~ 1e-4 of a typical entry, a few times less of the
@@ -380,6 +385,10 @@ def alternation_per_batch(depth):
                "conv_axis_dx": 3 * trained - 1 + 3}
     disc = {"separable_conv3d": depth + 1, "conv_axis": 2,
             "conv_axis_dw": 3, "conv_axis_dx": 2}
+    # in bf16 every dw and dx takes the tensor-core kernels
+    for d in (enc_clf, disc):
+        d["conv_axis_dw_tc"], d["conv_axis_dx_tc"] = (d["conv_axis_dw"],
+                                                      d["conv_axis_dx"])
     return {**{k: 0 for k in UNET_PER_BATCH}, **{
         k: v + FADER_DISC_LOOP * disc[k] for k, v in enc_clf.items()}}
 
@@ -874,9 +883,10 @@ def sep_time_row(K, name, x, ws, kw, plan, out):
         flops.append(2.0 * float(np.prod(shape)) * k * ci)
         t_ops += flops[-1] / PEAK_OPS_PER_S[
             "bf16" if plan.mma[a] else "f32"] * 1e3
-    nbytes = (x.numel() + out.numel()) * x.element_size() + sum(
-        4 * w.numel() for w in ws) + sum(4 * b.numel() for b in bs
-                                          if b is not None)
+    # the kernel reads the weights in x's dtype and the biases in float32
+    nbytes = (x.numel() + out.numel() + sum(w.numel() for w in ws)
+              ) * x.element_size() + sum(4 * b.numel() for b in bs
+                                         if b is not None)
 
     def per_axis():
         v = x
@@ -1080,7 +1090,8 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True):
                       "bn_act_zero_pads_kernel", "conv_axis_kernel",
                       "separable_conv3d_kernel", "conv_axis_dx_kernel",
                       "conv_axis_dw_partial_kernel",
-                      "conv_axis_dw_finish_kernel")}
+                      "conv_axis_dw_finish_kernel", "axis_dx_tc_kernel",
+                      "axis_dw_tc_kernel", "axis_dw_tc_finish_kernel")}
     # the epilogue instantiations carry `true>` in their template arguments
     fused_tc = sum(r[1] for r in rows if "conv2_packed_tc_kernel" in r[0]
                    and "true>" in r[0])
@@ -1109,9 +1120,11 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True):
             "bn_act_zero_pads_ms": ours["bn_act_zero_pads_kernel"],
             "conv_axis_ms": ours["conv_axis_kernel"],
             "separable_conv3d_ms": ours["separable_conv3d_kernel"],
-            "conv_axis_dx_ms": ours["conv_axis_dx_kernel"],
+            "conv_axis_dx_ms": ours["conv_axis_dx_kernel"]
+            + ours["axis_dx_tc_kernel"],
             "conv_axis_dw_ms": ours["conv_axis_dw_partial_kernel"]
-            + ours["conv_axis_dw_finish_kernel"],
+            + ours["conv_axis_dw_finish_kernel"] + ours["axis_dw_tc_kernel"]
+            + ours["axis_dw_tc_finish_kernel"],
             "other_kernels_ms": device_ms - copy_ms - sum(ours.values()),
             "top": [{"name": k[:90], "ms": ms, "calls": n}
                     for k, ms, n in rows[:top]]}
@@ -1615,7 +1628,9 @@ def _counted_b1(c):
             "conv2_packed_tc.dx": c["conv2_packed_dx_tc"],
             "separable_conv3d": c["separable_conv3d"],
             "conv_axis": c["conv_axis"], "conv_axis_dx": c["conv_axis_dx"],
-            "conv_axis_dw": c["conv_axis_dw"]}
+            "conv_axis_dw": c["conv_axis_dw"],
+            "conv_axis_dx_tc": c["conv_axis_dx_tc"],
+            "conv_axis_dw_tc": c["conv_axis_dw_tc"]}
 
 
 def _expect_counts(label, counts, want):
@@ -2572,7 +2587,7 @@ def record_b3(K, fn):
     # the recorded step's launches do not reach
     recs = (rec_stack, rec_axis, rec_dw, rec_dx)
     for rec in recs:
-        rec.launches = 0
+        rec.launches = rec.tc_launches = 0
     (K.separable_conv3d, K.conv_axis, K.conv_axis_dw,
      K.conv_axis_dx) = recs
     try:
@@ -2629,6 +2644,9 @@ def b3_bwd_rows(K, label, sites, gen, checks, timed):
 
     rows = {"dx": [], "dw": [], "axis": []}
     errs = {k: {"f32": None, "bf16": None} for k in rows}
+    # the kernel route of every checked dx / dw site, by dtype: bf16 must
+    # take the tensor cores, float32 the CUDA cores
+    routes = {k: {"f32": [], "bf16": []} for k in ("dx", "dw")}
 
     def note(kind, dn, err):
         errs[kind][dn] = max(errs[kind][dn] or 0.0, err)
@@ -2647,6 +2665,8 @@ def b3_bwd_rows(K, label, sites, gen, checks, timed):
                          / np.sqrt(k * co)).to(dt)
                     kw = dict(length=site["length"], axis=axis, stride=s,
                               pad=p)
+                    route = K._axis_bwd_route(g.dtype, w.dtype)
+                    routes["dx"][dn].append(route)
                     got = K.conv_axis_dx(g, w, **kw)
                     torch.cuda.synchronize()
                     ref = K.conv_axis_dx_plain(g, w, **kw)
@@ -2661,6 +2681,8 @@ def b3_bwd_rows(K, label, sites, gen, checks, timed):
                                     device="cuda").to(dt)
                     kw = dict(k=site["k"], axis=axis, stride=s, pad=p,
                               bias=site["bias"])
+                    route = K._axis_bwd_route(x.dtype)
+                    routes["dw"][dn].append(route)
                     got = K.conv_axis_dw(x, g, **kw)
                     torch.cuda.synchronize()
                     ref = K.conv_axis_dw_plain(x, g, **kw)
@@ -2700,6 +2722,15 @@ def b3_bwd_rows(K, label, sites, gen, checks, timed):
                     rows[kind] += [row] * calls
                 del got
                 torch.cuda.empty_cache()
+    want = {"f32": "cuda_core", "bf16": "tc"}
+    for kind, by_dtype in routes.items():
+        for dn, seen in by_dtype.items():
+            log(f"{label} {kind} {dn}: routes {sorted(set(seen))} over "
+                f"{len(seen)} sites")
+            if any(r != want[dn] for r in seen):
+                raise AssertionError(f"{label} {kind} {dn} sites took "
+                                     f"routes {seen}, not {want[dn]}")
+    rows["routes"] = routes
     return rows, errs
 
 
@@ -2712,7 +2743,8 @@ def dx_axis_time_row(K, tgrad, label, g, w, kw, dx):
     rows_ab = g.numel() // (g.shape[axis] * co)
     flops = 2.0 * rows_ab * _axis_valid_taps(length, g.shape[axis], k, s,
                                              p) * ci * co
-    nbytes = (g.numel() + dx.numel()) * g.element_size() + 4 * w.numel()
+    nbytes = ((g.numel() + dx.numel()) * g.element_size()
+              + w.numel() * w.element_size())
     bound_ms, bound_by = _bound(flops, nbytes, "bf16")
     stride, pad = [1, 1, 1], [0, 0, 0]
     stride[axis - 1], pad[axis - 1] = s, p
@@ -2722,7 +2754,8 @@ def dx_axis_time_row(K, tgrad, label, g, w, kw, dx):
     in_size[1], in_size[1 + axis] = ci, length
     ms = time_ms(lambda: K.conv_axis_dx(g, w, **kw), 10)
     row = {"site": label, "g": list(g.shape), "axis": axis, "k": k,
-           "stride": s, "pad": p, "ci": ci, "co": co, "ms": ms,
+           "stride": s, "pad": p, "ci": ci, "co": co,
+           "route": K._axis_bwd_route(g.dtype, w.dtype), "ms": ms,
            "plain_ms": time_ms(lambda: K.conv_axis_dx_plain(g, w, **kw), 1),
            "library_ms": time_ms(lambda: tgrad.conv3d_input(
                in_size, wc, gc, stride=stride, padding=pad), 5),
@@ -2751,10 +2784,18 @@ def dw_axis_time_row(K, tgrad, label, x, g, kw):
     wshape[1 + axis] = k
     xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
     ms = time_ms(lambda: K.conv_axis_dw(x, g, **kw), 10)
+    route = K._axis_bwd_route(x.dtype)
+    if route == "tc":
+        a = int(np.prod(x.shape[:axis]))
+        plan = K.conv_axis_dw_tc_plan(a, x.shape[axis], g.shape[axis],
+                                      rows_ab // a, ci, co, k, s, p)
+        chunks = plan.slots
+    else:
+        chunks = K.conv_axis_dw_plan(rows_ab * g.shape[axis], k, ci,
+                                     co).chunks
     row = {"site": label, "x": list(x.shape), "g": list(g.shape),
            "axis": axis, "k": k, "stride": s, "pad": p, "ci": ci, "co": co,
-           "chunks": K.conv_axis_dw_plan(rows_ab * g.shape[axis], k, ci,
-                                         co).chunks, "ms": ms,
+           "route": route, "chunks": chunks, "ms": ms,
            "plain_ms": time_ms(lambda: K.conv_axis_dw_plain(x, g, **kw), 1),
            "library_ms": time_ms(lambda: tgrad.conv3d_weight(
                xc, wshape, gc, stride=stride, padding=pad), 5),
@@ -3066,9 +3107,12 @@ def ae_phase(K, Fd, gen, launch_counts):
            "launches_per_step": per_step[0],
            "b3_bwd_recorded": {k: len(v) for k, v in sites.items()}}
     log(f"ae_step: {json.dumps(out)}")
-    if (not all(np.isfinite(losses)) or any(c != per_step[0]
-                                            for c in per_step)
-            or min(_b3_counts(per_step[0]).values()) <= 0):
+    # in bf16 every dw and dx launch takes the tensor cores
+    c0 = per_step[0]
+    if (not all(np.isfinite(losses)) or any(c != c0 for c in per_step)
+            or min(_b3_counts(c0).values()) <= 0
+            or c0["conv_axis_dw_tc"] != c0["conv_axis_dw"]
+            or c0["conv_axis_dx_tc"] != c0["conv_axis_dx"]):
         raise AssertionError(f"ae_step: {out}")
     return out, sites
 
@@ -3136,6 +3180,11 @@ def classification_phase(K, gen, launch_counts):
         del state, x
         torch.cuda.empty_cache()
     return out
+
+
+def ae_entry(rows, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
+    """The AE step's sums of a kernel's timed rows (one bf16 step)."""
+    return {k: sum(r[k] for r in rows) for k in keys}
 
 
 def kernel_entry(name, source, replaces, rows, errs, launches, per_batch,
@@ -3295,7 +3344,9 @@ def main() -> int:
                 "conv_axis": K.conv_axis.launches,
                 "separable_conv3d": K.separable_conv3d.launches,
                 "conv_axis_dx": K.conv_axis_dx.launches,
-                "conv_axis_dw": K.conv_axis_dw.launches}
+                "conv_axis_dw": K.conv_axis_dw.launches,
+                "conv_axis_dx_tc": K.conv_axis_dx.tc_launches,
+                "conv_axis_dw_tc": K.conv_axis_dw.tc_launches}
 
     def counted(fn, per_batch):
         """Run fn with every launch count at 0 before it; each count after
@@ -3761,19 +3812,30 @@ def main() -> int:
                                      for r in fader_rows["stack"]),
                      cudnn_3calls_ms=sum(r["cudnn_3calls_ms"]
                                          for r in fader_rows["stack"]),
+                     ae_step=ae_entry(ae_bwd_rows["stack"], (
+                         "ms", "plain_ms", "bound_ms", "per_axis_ms",
+                         "cudnn_3calls_ms")),
                      max_abs_err_ae_bf16=ae_bwd_errs["stack"]["bf16"],
                      max_abs_err_ae_f32=ae_bwd_errs["stack"]["f32"]),
-        kernel_entry("conv_axis_dx", src + "conv_axis_bwd.cu", tpu + "70",
-                     fader_rows["dx"], fader_errs["dx"], fb["conv_axis_dx"],
-                     fader["launches_per_batch"]["conv_axis_dx"],
+        kernel_entry("conv_axis_dx", src + "conv_axis_bwd_tc.cu", tpu + "70",
+                     fader_rows["dx"], fader_errs["dx"],
+                     fb["conv_axis_dx_tc"],
+                     fader["launches_per_batch"]["conv_axis_dx_tc"],
                      path="fader_training", shapes=per_alt,
                      gradient_of=grad_of,
+                     f32_route=src + "conv_axis_bwd.cu (CUDA cores; "
+                     "max_abs_err_f32)",
+                     ae_step=ae_entry(ae_bwd_rows["dx"]),
                      max_abs_err_ae_bf16=ae_bwd_errs["dx"]["bf16"]),
-        kernel_entry("conv_axis_dw", src + "conv_axis_bwd.cu", tpu + "70",
-                     fader_rows["dw"], fader_errs["dw"], fb["conv_axis_dw"],
-                     fader["launches_per_batch"]["conv_axis_dw"],
+        kernel_entry("conv_axis_dw", src + "conv_axis_bwd_tc.cu", tpu + "70",
+                     fader_rows["dw"], fader_errs["dw"],
+                     fb["conv_axis_dw_tc"],
+                     fader["launches_per_batch"]["conv_axis_dw_tc"],
                      path="fader_training", shapes=per_alt,
                      gradient_of=grad_of,
+                     f32_route=src + "conv_axis_bwd.cu (CUDA cores; "
+                     "max_abs_err_f32)",
+                     ae_step=ae_entry(ae_bwd_rows["dw"]),
                      max_abs_err_ae_bf16=ae_bwd_errs["dw"]["bf16"]),
         kernel_entry("conv_axis", src + "conv_axis.cu", tpu + "70",
                      fader_rows["axis"], fader_errs["axis"], fb["conv_axis"],
@@ -3805,7 +3867,9 @@ def main() -> int:
                   "conv2_packed_tc.patch_train_forward": "conv2_packed_tc",
                   "conv2_packed.patch_train_stem": "conv2_packed",
                   "conv2_packed_tc.patch_dx": "conv2_packed_tc.dx",
-                  "separable_conv3d.fader_training": "separable_conv3d"}
+                  "separable_conv3d.fader_training": "separable_conv3d",
+                  "conv_axis_dx": "conv_axis_dx_tc",
+                  "conv_axis_dw": "conv_axis_dw_tc"}
     for entry in kernels:
         key = counted_as.get(entry["name"], entry["name"])
         entry["launches_by_path"] = {p: _counted_b1(n)[key]
@@ -3835,6 +3899,14 @@ def main() -> int:
                      tpu + "197", b2_rows, b2_errs, c["bn_act_zero_pads"],
                      0),
     ]
+    # B3's backward in float32 (CUDA cores): checked at batch 2 in phase 9a
+    # and run by the f32 parity steps of 9c, off the bf16 paths
+    off_path += [{"name": f"{kind}.f32_cuda_core", "route": "cuda",
+                  "source": src + "conv_axis_bwd.cu", "replaces": tpu + "70",
+                  "launches_by_path": {"fader_alternation":
+                                       fb[kind] - fb[f"{kind}_tc"]},
+                  "max_abs_err_f32": fader_errs[kind[-2:]]["f32"]}
+                 for kind in ("conv_axis_dx", "conv_axis_dw")]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "off_path_kernels": off_path,

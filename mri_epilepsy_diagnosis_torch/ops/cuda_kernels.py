@@ -9,8 +9,8 @@ launch counters and build.
 | `bn_act_zero_pads`  | `csrc/bn_act_zero_pads.cu`| `ops/pallas_kernels.py::bn_act_zero_pads` |
 | `conv_axis`         | `csrc/conv_axis.cu`       | `ops/pallas_kernels.py::conv_axis_last`   |
 | `separable_conv3d`  | `csrc/separable_conv3d.cu` (the three axes in one launch) | `ops/pallas_kernels.py::separable_conv3d` |
-| `conv_axis_dx`      | `csrc/conv_axis_bwd.cu`   | the input gradient of `conv_axis_last` (XLA's in JAX) |
-| `conv_axis_dw`      | `csrc/conv_axis_bwd.cu` (two passes, no atomics) | the weight and bias gradients of `conv_axis_last` |
+| `conv_axis_dx`      | `csrc/conv_axis_bwd_tc.cu` (bf16: mma.sync), `csrc/conv_axis_bwd.cu` (f32: CUDA cores) | the input gradient of `conv_axis_last` (XLA's in JAX) |
+| `conv_axis_dw`      | the same two sources (two passes each, no atomics) | the weight and bias gradients of `conv_axis_last` |
 
 `conv_one_axis` and `separable_conv3d` keep the signatures of their JAX
 namesakes (without the Mosaic workarounds `interpret` and `max_taps`).
@@ -31,7 +31,8 @@ counts every B1 launch, fused or not, `conv2_packed.tc_launches` those on
 the tensor-core route; `conv2_packed_as_bn_act.launches` (and
 `.tc_launches`) the B1 launches that ran B2 as their epilogue,
 `conv2_packed_dx.launches` (and `.tc_launches`) those that computed an
-input gradient.
+input gradient; `conv_axis_dx.tc_launches` and `conv_axis_dw.tc_launches`
+the backward launches on the tensor-core route (`_axis_bwd_route`).
 
 The kernels are CUDA C++ for `sm_90a` with a plain C interface, compiled
 by `nvcc` at first use (one process per source, all started together) and
@@ -44,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -57,7 +59,8 @@ import torch.nn.functional as TF
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("conv2_packed.cu", "conv2_packed_tc.cu", "bn_act_zero_pads.cu",
-           "conv_axis.cu", "separable_conv3d.cu", "conv_axis_bwd.cu")
+           "conv_axis.cu", "separable_conv3d.cu", "conv_axis_bwd.cu",
+           "conv_axis_bwd_tc.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -154,6 +157,10 @@ def load() -> ctypes.CDLL:
     lib.mri_conv_axis_dw.argtypes = [vp, vp, vp, vp, vp, i, ll, i, i, ll, i,
                                      i, i, i, i, vp, vp]
     lib.mri_conv_axis_dw.restype = i
+    lib.mri_conv_axis_dw_tc.argtypes = [vp] * 6 + [i, vp]
+    lib.mri_conv_axis_dw_tc.restype = i
+    lib.mri_conv_axis_dx_tc.argtypes = [vp] * 4 + [i, vp]
+    lib.mri_conv_axis_dx_tc.restype = i
     return lib
 
 
@@ -955,7 +962,9 @@ def conv_axis_dx(g: torch.Tensor, w: torch.Tensor, *, length: int,
 
     a gather with no zero-stuffed cotangent, summed in float32 (w read as
     float32) and rounded once to g's dtype, float32 or bfloat16.  One
-    launch of `conv_axis_bwd.cu`'s dx kernel on the card."""
+    launch on the card: with g and w in bfloat16 (`_axis_bwd_route`) the
+    tensor-core kernel of `conv_axis_bwd_tc.cu` (`conv_axis_dx_tc_plan`),
+    counted in `.tc_launches` too, else `conv_axis_bwd.cu`'s."""
     if g.ndim != 5 or w.ndim != 3:
         raise ValueError(f"conv_axis_dx needs g (N,D,H,W,Co) and w "
                          f"(k,Ci,Co); got {tuple(g.shape)}, {tuple(w.shape)}")
@@ -979,10 +988,17 @@ def conv_axis_dx(g: torch.Tensor, w: torch.Tensor, *, length: int,
                         f"{g.dtype}")
     g = g.contiguous()
     _check_cuda("g", g, g.dtype, g.device)
-    # the kernel reads the weights as (k, Co, Ci): a row of Ci per (t, co)
-    wt = w.to(device=g.device, dtype=torch.float32).permute(0, 2, 1) \
-        .contiguous()
-    _check_cuda("wt", wt, torch.float32, g.device)
+    tc = _axis_bwd_route(g.dtype, w.dtype) == "tc"
+    if tc:
+        # (k, Ci, Co) bf16 as it comes: a row of Co per (t, ci)
+        wt = w.to(device=g.device).contiguous()
+        _check_cuda("w", wt, torch.bfloat16, g.device)
+    else:
+        # the kernel reads the weights as (k, Co, Ci): a row of Ci per
+        # (t, co)
+        wt = w.to(device=g.device, dtype=torch.float32).permute(0, 2, 1) \
+            .contiguous()
+        _check_cuda("wt", wt, torch.float32, g.device)
     shape = list(g.shape)
     shape[axis], shape[4] = length, ci
     dx = torch.empty(shape, dtype=g.dtype, device=g.device)
@@ -991,17 +1007,28 @@ def conv_axis_dx(g: torch.Tensor, w: torch.Tensor, *, length: int,
     a = int(g.shape[:axis].numel())
     b = int(g.shape[axis + 1:4].numel())
     lib = load()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
     with torch.cuda.device(g.device):
-        rc = lib.mri_conv_axis_dx(
-            g.data_ptr(), wt.data_ptr(), dx.data_ptr(), _DTYPE_CODE[g.dtype],
-            a, length, g.shape[axis], b, ci, co, k, stride, pad,
-            torch.cuda.current_stream(g.device).cuda_stream)
+        if tc:
+            plan = _cached_plan(conv_axis_dx_tc_plan, a, length,
+                                g.shape[axis], b, ci, co, k, stride, pad)
+            geo = (ctypes.c_longlong * len(plan))(*plan)
+            rc = lib.mri_conv_axis_dx_tc(
+                g.data_ptr(), wt.data_ptr(), dx.data_ptr(),
+                ctypes.cast(geo, ctypes.c_void_p), len(plan), stream)
+        else:
+            rc = lib.mri_conv_axis_dx(
+                g.data_ptr(), wt.data_ptr(), dx.data_ptr(),
+                _DTYPE_CODE[g.dtype], a, length, g.shape[axis], b, ci, co, k,
+                stride, pad, stream)
     _raise_on(rc, "conv_axis_dx")
     conv_axis_dx.launches += 1
+    conv_axis_dx.tc_launches += tc
     return dx
 
 
 conv_axis_dx.launches = 0
+conv_axis_dx.tc_launches = 0
 
 # dw's split plan: a block holds _DW_THREADS threads; the rows are split
 # into enough chunks for about _DW_BLOCKS blocks in all (8 per SM of the
@@ -1082,9 +1109,12 @@ def conv_axis_dw(x: torch.Tensor, g: torch.Tensor, *, k: int, axis: int,
         db[co]        = sum g[..., co]             (with `bias`)
 
     float32 results (k, Ci, Co) and (Co,) or None.  On the card, two
-    launches of `conv_axis_bwd.cu` (partial sums per row chunk, then the
-    chunks summed in order; `conv_axis_dw_plan`), counted as one call: no
-    float atomics, so a run repeats bit for bit."""
+    launches counted as one call: partial sums per row chunk, then the
+    chunks summed in order, so with no float atomics a run repeats bit for
+    bit.  bfloat16 takes the tensor-core kernels of `conv_axis_bwd_tc.cu`
+    (`conv_axis_dw_tc_plan`; counted in `.tc_launches` too), float32 the
+    CUDA-core ones of `conv_axis_bwd.cu` (`conv_axis_dw_plan`):
+    `_axis_bwd_route`."""
     if x.ndim != 5 or g.ndim != 5:
         raise ValueError(f"conv_axis_dw needs x and g (N,D,H,W,C); got "
                          f"{tuple(x.shape)}, {tuple(g.shape)}")
@@ -1119,26 +1149,405 @@ def conv_axis_dw(x: torch.Tensor, g: torch.Tensor, *, k: int, axis: int,
     rows = a * lo * b
     if rows == 0:
         return dw, db
-    plan = conv_axis_dw_plan(rows, k, ci, co)
-    partials = torch.empty(plan.chunks * plan.nout, dtype=torch.float32,
-                           device=x.device)
-    plan_arr = (ctypes.c_int * 7)(plan.cot, plan.og_total, plan.og_block,
-                                  plan.lanes, plan.tiles, plan.chunks,
-                                  plan.rows_per_chunk)
+    tc = _axis_bwd_route(x.dtype) == "tc"
     lib = load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    db_ptr = None if db is None else db.data_ptr()
     with torch.cuda.device(x.device):
-        rc = lib.mri_conv_axis_dw(
-            x.data_ptr(), g.data_ptr(), dw.data_ptr(),
-            None if db is None else db.data_ptr(), partials.data_ptr(),
-            _DTYPE_CODE[x.dtype], a, x.shape[axis], lo, b, ci, co, k, stride,
-            pad, ctypes.cast(plan_arr, ctypes.c_void_p),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if tc:
+            plan = _cached_plan(conv_axis_dw_tc_plan, a, x.shape[axis], lo,
+                                b, ci, co, k, stride, pad)
+            partials = torch.empty(plan.slots * plan.nout,
+                                   dtype=torch.float32, device=x.device)
+            geo = (ctypes.c_longlong * len(plan))(*plan)
+            rc = lib.mri_conv_axis_dw_tc(
+                x.data_ptr(), g.data_ptr(), dw.data_ptr(), db_ptr,
+                partials.data_ptr(), ctypes.cast(geo, ctypes.c_void_p),
+                len(plan), stream)
+        else:
+            plan = conv_axis_dw_plan(rows, k, ci, co)
+            partials = torch.empty(plan.chunks * plan.nout,
+                                   dtype=torch.float32, device=x.device)
+            plan_arr = (ctypes.c_int * 7)(plan.cot, plan.og_total,
+                                          plan.og_block, plan.lanes,
+                                          plan.tiles, plan.chunks,
+                                          plan.rows_per_chunk)
+            rc = lib.mri_conv_axis_dw(
+                x.data_ptr(), g.data_ptr(), dw.data_ptr(), db_ptr,
+                partials.data_ptr(), _DTYPE_CODE[x.dtype], a, x.shape[axis],
+                lo, b, ci, co, k, stride, pad,
+                ctypes.cast(plan_arr, ctypes.c_void_p), stream)
     _raise_on(rc, "conv_axis_dw")
     conv_axis_dw.launches += 1
+    conv_axis_dw.tc_launches += tc
     return dw, db
 
 
 conv_axis_dw.launches = 0
+conv_axis_dw.tc_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B3's backward on tensor cores (bf16): plans and route
+# ---------------------------------------------------------------------------
+
+_TC_SMEM = 232448              # shared memory one block may use on the H100
+_TC_BLOCKS = 132 * 8           # dx blocks to aim for: 8 per SM of the 132
+_TC_DW_BLOCKS = 132 * 2        # dw blocks: one wave of 2 an SM (a block
+                               # walks many row tiles; fewer slots to sum)
+_TC_STAGE_BYTES = 32 * 1024    # bytes a ring stage aims to stage
+_TC_STAGES = 3                 # ring stages, where shared memory allows
+_TC_RING_BYTES = 110 * 1024    # a ring of small stages grows to this (2
+                               # blocks an SM), up to 5 stages
+
+
+def _axis_bwd_route(dtype: torch.dtype, w_dtype: Optional[torch.dtype] = None
+                    ) -> str:
+    """The kernels that serve a `conv_axis_dw` (x and g in `dtype`) or a
+    `conv_axis_dx` (g in `dtype`, w in `w_dtype`) call on the card: "tc"
+    (`conv_axis_bwd_tc.cu`: mma.sync on the tensor cores) when every
+    operand is bfloat16, "cuda_core" (`conv_axis_bwd.cu`) otherwise.
+    float32 stays off the tensor cores: TF32 would not hold dw to 2e-4 x
+    max|ref| nor the f32 fader steps to their parity gates."""
+    if dtype == torch.bfloat16 and w_dtype in (None, torch.bfloat16):
+        return "tc"
+    return "cuda_core"
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _warp_split(mt: int, nt: int, fms: Sequence[int]):
+    """(wm, wn, fm, fn): the 8 warps of a block as wm x wn warp tiles of fm
+    m16 tiles (of mt) by fn n8 tiles (of nt, a power of two), fm the least
+    of `fms` that covers mt; the rest of the warps (8 / (wm wn)) split the
+    K steps.  None if no split fits."""
+    wn = max(1, nt // 4)
+    for wm in (1, 2, 4, 8):
+        if wm * wn > 8:
+            break
+        fm = next((f for f in fms if f * wm >= mt), None)
+        if fm is not None:
+            return wm, wn, fm, nt // wn
+    return None
+
+
+class DwTcPlan(NamedTuple):
+    """Tile plan of one tensor-core `conv_axis_dw` call: the shape, x as
+    (a, l, B, Ci) and g as (a, lo, B, Co), then the plan, in the order of
+    the kernel's geometry array."""
+    a: int
+    l: int
+    lo: int
+    b: int
+    ci: int
+    co: int
+    k: int
+    s: int
+    p: int
+    cit: int         # input channels per M tile (1 when Ci = 1)
+    cot: int         # output channels per N tile
+    wm: int          # warps along M, along N, over k-steps
+    wn: int
+    wk: int
+    fm: int          # m16 tiles and n8 tiles per warp
+    fn: int
+    bt: int          # a row tile: jn positions j x bt positions b of one a
+    jn: int
+    nl: int          # staged x positions along L: (jn - 1) s + k
+    nlc: int         # staged x positions per parity class: ceil(nl / s)
+    xpitch: int      # Ci = 1: elements per staged x row (bt rounded to 8)
+    jtiles: int
+    btiles: int
+    tiles: int       # row tiles: a x jtiles x btiles
+    tpc: int         # row tiles per chunk
+    chunks: int      # grid x
+    mtiles: int      # grid y: ceil(Ci / cit)
+    ntiles: int      # grid z: ceil(Co / cot)
+    stages: int
+    smem: int        # bytes of shared memory per block
+    ci1: int
+    swap: int        # 1: the caller's (A, L, 1, Ci) as (1, L, A, Ci)
+
+    @property
+    def mt(self) -> int:
+        """m16 tiles of a block's M (Ci = 1: taps; else pairs of 8-row
+        groups (tap, 8 channels))."""
+        if self.ci1:
+            return _ceil(self.k, 16)
+        return _ceil(self.k * self.cit // 8, 2)
+
+    @property
+    def nout(self) -> int:
+        return self.k * self.ci * self.co + self.co
+
+    @property
+    def slots(self) -> int:
+        """Slots of partial sums: one per (chunk, warp group over K)."""
+        return self.chunks * self.wk
+
+
+@functools.lru_cache(maxsize=1024)
+def _cached_plan(plan_fn, *shape):
+    """plan_fn(*shape), computed once per shape: a training step makes the
+    same calls every step, and the plans' Python search costs tens of
+    microseconds of host time per call."""
+    return plan_fn(*shape)
+
+
+def _dw_stage_bytes(jn, bt, k, s, cit, cot, ci1):
+    nlc = _ceil((jn - 1) * s + k, s)
+    x_row = _ceil(bt, 8) * 8 if ci1 else bt * cit
+    return 2 * (s * nlc * x_row + jn * bt * cot)
+
+
+def conv_axis_dw_tc_plan(a: int, l: int, lo: int, b: int, ci: int, co: int,
+                         k: int, s: int, p: int) -> DwTcPlan:
+    """The plan of a tensor-core `conv_axis_dw` call, x viewed as (a, l, b,
+    ci), g as (a, lo, b, co), a x lo x b >= 1.  Block (chunk, mt, nt) sums
+    row tiles chunk * tpc ... of the (a, j tile, b tile) order, b tiles
+    fastest, into the M tile of all k taps x cit channels from mt * cit and
+    the N tile of cot channels from nt * cot; warp (wmi, wni, kg), warp =
+    wmi + wm (wni + wn kg), takes m16 tiles wmi * fm .., n8 tiles wni * fn
+    .. and k-steps kg, kg + wk, .. of each row tile, into slot chunk * wk +
+    kg.  A row tile stages nl x positions from j0 s - p and jn x bt g rows
+    in a ring of `stages` buffers.  Along the last axis (b = 1, a > 1,
+    Ci > 1) the plan swaps a and b: a row tile then takes bt consecutive
+    a, each a row of l, which the kernel reads at l + b l (x) and j + b lo
+    (g), so that a tile is not one short row."""
+    swap = int(b == 1 and a > 1 and ci > 1)
+    if swap:
+        a, b = 1, a
+    ci1 = ci == 1
+    cit = 1 if ci1 else min(64, _pow2_at_least(max(ci, 8)))
+    cot = min(64, _pow2_at_least(max(co, 8)))
+    while True:
+        mt = _ceil(k, 16) if ci1 else _ceil(k * cit // 8, 2)
+        split = _warp_split(mt, cot // 8, (1,) if ci1 else (1, 2, 3, 4))
+        if split is not None:
+            break
+        if not ci1 and cit > 8:
+            cit //= 2
+        elif cot > 8:
+            cot //= 2
+        else:
+            raise ValueError(f"conv_axis_dw on tensor cores takes k <= 128, "
+                             f"got k={k}")
+    wm, wn, fm, fn = split
+    wk = 8 // (wm * wn)
+    stages = _TC_STAGES
+    bt = min(b, 64)
+    while True:
+        jq = 16 // math.gcd(bt, 16)
+        jmax = _ceil(lo, jq) * jq
+        jn = jq
+        # grow the tile to the stage target, and past it while the halo
+        # (k - s rows) costs more than a quarter of the slab
+        while jn + jq <= jmax:
+            grown = _dw_stage_bytes(jn + jq, bt, k, s, cit, cot, ci1)
+            if not (grown <= _TC_STAGE_BYTES or (
+                    4 * (k - s) > jn * s and stages * grown <= _TC_SMEM)):
+                break
+            jn += jq
+        # the same number of j tiles with the least padding
+        jn = _ceil(_ceil(lo, _ceil(lo, jn)), jq) * jq
+        stage = _dw_stage_bytes(jn, bt, k, s, cit, cot, ci1)
+        fits = stages * stage <= _TC_SMEM
+        if fits and (4 * (k - s) <= jn * s or jn >= lo or bt <= 16):
+            break
+        if bt > 16:      # narrower b tiles: a longer j range in the budget
+            bt = 16 * _ceil(bt // 2, 16)
+        elif fits:
+            break
+        elif stages > 2:
+            stages -= 1
+        else:
+            raise ValueError(f"no conv_axis_dw tile fits shared memory at "
+                             f"k={k}, s={s}, Ci={ci}, Co={co}")
+    stages = max(stages, min(5, _TC_RING_BYTES // stage))
+    nl = (jn - 1) * s + k
+    jtiles, btiles = _ceil(lo, jn), _ceil(b, bt)
+    tiles = a * jtiles * btiles
+    mtiles, ntiles = (1 if ci1 else _ceil(ci, cit)), _ceil(co, cot)
+    nout = k * ci * co + co
+    chunks = max(1, min(tiles, _ceil(_TC_DW_BLOCKS, mtiles * ntiles),
+                        _DW_MAX_PARTIALS // (nout * wk)))
+    tpc = _ceil(tiles, chunks)
+    chunks = _ceil(tiles, tpc)
+    return DwTcPlan(a, l, lo, b, ci, co, k, s, p, cit, cot, wm, wn, wk, fm,
+                    fn, bt, jn, nl, _ceil(nl, s), _ceil(bt, 8) * 8, jtiles,
+                    btiles, tiles, tpc, chunks, mtiles, ntiles, stages,
+                    stages * stage, int(ci1), swap)
+
+
+class DxTcPlan(NamedTuple):
+    """Tile plan of one tensor-core `conv_axis_dx` call: the shape, g as
+    (a, lo, B, Co) and dx as (a, l, B, Ci), then the plan, in the order of
+    the kernel's geometry array."""
+    a: int
+    l: int
+    lo: int
+    b: int
+    ci: int
+    co: int
+    k: int
+    s: int
+    p: int
+    cit: int         # input channels per block (N tile)
+    cok: int         # output channels per K chunk (a ring unit)
+    kst: int         # K chunks: ceil(Co / cok)
+    wm: int          # warps along M and N (wm x wn = 8)
+    wn: int
+    fm: int          # m16 and n8 tiles per warp
+    fn: int
+    bt: int          # a tile: in_ positions i x bt positions b of one a
+    in_: int         # s x u
+    u: int           # positions i per parity class
+    jb: int          # first staged g row: j = i0 / s + jb
+    ng: int          # staged g positions along Lo
+    itiles: int
+    btiles: int
+    tiles: int       # a x itiles x btiles
+    tpb: int         # tiles per block
+    blocks: int      # grid x
+    ctiles: int      # grid y: ceil(Ci / cit)
+    stages: int
+    swap: int        # 1: the caller's (A, Lo, 1, Co) as (1, Lo, A, Co)
+
+    @property
+    def mt(self) -> int:
+        """m16 tiles of a tile's M rows (class, u, bb)."""
+        return self.in_ * self.bt // 16
+
+    @property
+    def smem(self) -> int:
+        """Bytes of shared memory (`_dx_smem`)."""
+        return _dx_smem(self.ng * self.bt, self.k * self.cit, self.cok,
+                        self.kst, self.stages, self.in_ * self.bt * self.cit)
+
+
+def _dx_smem(g_rows: int, w_rows: int, cok: int, kst: int, stages: int,
+             out_elems: int) -> int:
+    """Bytes of shared memory of a `conv_axis_dx` block: the ring of g rows
+    (with the weights, several co-chunks; else the weights once,
+    resident), the output tile and one zero row."""
+    ring = (w_rows + stages * g_rows if kst == 1
+            else stages * (g_rows + w_rows))
+    return 2 * (cok * ring + out_elems) + 16
+
+
+def conv_axis_dx_classes(k: int, s: int, p: int) -> list:
+    """(tc, cp, nv) of each parity class c = i mod s of the input: its
+    first tap tc = (c + p) mod s, cp = (c + p) // s, and nv taps tc, tc +
+    s, ... < k; tap tc + s v reads g at j = i0 / s + u + cp - v for i = i0
+    + c + s u."""
+    out = []
+    for c in range(s):
+        tc = (c + p) % s
+        out.append((tc, (c + p) // s, _ceil(k - tc, s) if tc < k else 0))
+    return out
+
+
+def conv_axis_dx_tc_plan(a: int, l: int, lo: int, b: int, ci: int, co: int,
+                         k: int, s: int, p: int) -> DxTcPlan:
+    """The plan of a tensor-core `conv_axis_dx` call, g viewed as (a, lo,
+    b, co), dx as (a, l, b, ci), a x l x b >= 1.  Block (x, y) takes tiles x
+    * tpb .. of the (a, i tile, b tile) order, b tiles fastest, and the cit
+    input channels from y * cit; a tile's M rows are (class c, u, bb) for i
+    = i0 + c + s u, b = b0 + bb; warp (wmi, wni), warp = wmi + wm wni,
+    holds m16 tiles wmi * fm .. and n8 tiles wni * fn ..  Each (tile,
+    co-chunk) unit stages ng g positions from j = i0 / s + jb, bt wide, and
+    the weights (k, cit, cok) in a ring of `stages` buffers.  Along the
+    last axis (b = 1, a > 1) a and b swap, as in `conv_axis_dw_tc_plan`."""
+    swap = int(b == 1 and a > 1)
+    if swap:
+        a, b = 1, a
+    classes = conv_axis_dx_classes(k, s, p)
+    live = [(cp - nv + 1, cp) for _, cp, nv in classes if nv]
+    jb = min(j for j, _ in live) if live else 0
+    top = max(cp for _, cp in live) if live else 0
+    cok = min(128, _pow2_at_least(max(co, 8)))
+    umax_l = _ceil(l, s)
+
+    def split_of(u, bt, cit):
+        """The warp split (wm, wn, fm, fn) of a tile of u x bt rows per
+        class over the 8 warps, fn <= 4 and fm x fn <= 8 accumulator
+        tiles (fm up to 8): preferably with a warp's fm
+        m16 tiles all of one class (one tap list, the kernel's faster
+        path), then the fewest accumulator tiles a warp, then the most
+        warps along M."""
+        mpc, nt = u * bt // 16, cit // 8
+        best, best_key = None, None
+        for wn in (1, 2, 4, 8):
+            fm = _pow2_at_least(_ceil(s * mpc, 8 // wn))
+            if nt % wn or nt // wn > 4 or fm > 8 or fm * (nt // wn) > 8:
+                continue
+            key = (s > 1 and mpc % fm != 0, fm * (nt // wn))
+            if best is None or key < best_key:
+                best, best_key = (8 // wn, wn, fm, nt // wn), key
+        return best
+
+    cit = min(64, _pow2_at_least(max(ci, 8)))
+    bts = sorted({min(b, 64), 32, 16} - {x for x in (32, 16) if x > b},
+                 reverse=True)
+    while True:
+        bt = next((t for t in bts
+                   if split_of(16 // math.gcd(t, 16), t, cit)), None)
+        if bt is not None:
+            break
+        if cit == 8:
+            raise ValueError(f"no conv_axis_dx tile at stride {s}")
+        cit //= 2
+    uq = 16 // math.gcd(bt, 16)
+
+    def stage_bytes(u, cok):
+        """A ring stage's bytes: g rows, and the weights with several
+        co-chunks."""
+        return 2 * cok * ((top + u - jb) * bt
+                          + (k * cit if co > cok else 0))
+
+    def smem(u, cok, stages):
+        return _dx_smem((top + u - jb) * bt, k * cit, cok, _ceil(co, cok),
+                        stages, s * u * bt * cit)
+
+    # the longest i range per class in the stage target, among those whose
+    # warps each see one class where any does
+    us = [uq]
+    while (us[-1] + uq <= _ceil(umax_l, uq) * uq
+           and split_of(us[-1] + uq, bt, cit)
+           and stage_bytes(us[-1] + uq, cok) <= _TC_STAGE_BYTES):
+        us.append(us[-1] + uq)
+
+    def uniform(u):
+        return s == 1 or (u * bt // 16) % split_of(u, bt, cit)[2] == 0
+
+    u = max(us, key=lambda u: (uniform(u), u))
+    wm, wn, fm, fn = split_of(u, bt, cit)
+    stages = _TC_STAGES
+    while smem(u, cok, stages) > _TC_SMEM:
+        if stages > 2:
+            stages -= 1
+        elif cok > 8:
+            cok //= 2
+        else:
+            raise ValueError(f"no conv_axis_dx tile fits shared memory at "
+                             f"k={k}, s={s}, Ci={ci}, Co={co}")
+    while stages < 5 and smem(u, cok, stages + 1) <= _TC_RING_BYTES:
+        stages += 1
+    in_ = s * u
+    itiles, btiles = _ceil(l, in_), _ceil(b, bt)
+    tiles = a * itiles * btiles
+    ctiles = _ceil(ci, cit)
+    tpb = _ceil(tiles, max(1, _TC_BLOCKS // ctiles))
+    return DxTcPlan(a, l, lo, b, ci, co, k, s, p, cit, cok, _ceil(co, cok),
+                    wm, wn, fm, fn, bt, in_, u, jb, top + u - jb, itiles,
+                    btiles, tiles, tpb, _ceil(tiles, tpb), ctiles, stages,
+                    swap)
 
 
 class SeparableConv3dFn(torch.autograd.Function):
@@ -1210,3 +1619,5 @@ def reset_launch_counts():
     conv2_packed.tc_launches = 0
     conv2_packed_as_bn_act.tc_launches = 0
     conv2_packed_dx.tc_launches = 0
+    conv_axis_dx.tc_launches = 0
+    conv_axis_dw.tc_launches = 0

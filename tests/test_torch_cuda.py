@@ -675,10 +675,13 @@ def test_conv_axis_dx_kernel_matches_plain(cuda_device, axis, k, stride, pad,
     w = (torch.randn(k, ci, co, generator=g, device=cuda_device)
          / (k * co) ** 0.5).to(dtype)
     before = K.conv_axis_dx.launches
+    tc_before = K.conv_axis_dx.tc_launches
     got = K.conv_axis_dx(gy, w, length=length, axis=axis, stride=stride,
                          pad=pad)
     torch.cuda.synchronize()
     assert K.conv_axis_dx.launches == before + 1
+    # bf16 takes the tensor-core kernel, float32 the CUDA-core one
+    assert K.conv_axis_dx.tc_launches == tc_before + (dtype == torch.bfloat16)
     ref = K.conv_axis_dx_plain(gy, w, length=length, axis=axis,
                                stride=stride, pad=pad)
     assert got.shape == ref.shape and got.dtype == dtype
@@ -701,9 +704,11 @@ def test_conv_axis_dw_kernel_matches_plain(cuda_device, axis, k, stride, pad,
     gshape[axis] = (shape[axis] + 2 * pad - k) // stride + 1
     gy = torch.randn(gshape, generator=g, device=cuda_device).to(dtype)
     before = K.conv_axis_dw.launches
+    tc_before = K.conv_axis_dw.tc_launches
     dw, db = K.conv_axis_dw(x, gy, k=k, axis=axis, stride=stride, pad=pad)
     torch.cuda.synchronize()
     assert K.conv_axis_dw.launches == before + 1
+    assert K.conv_axis_dw.tc_launches == tc_before + (dtype == torch.bfloat16)
     rdw, rdb = K.conv_axis_dw_plain(x, gy, k=k, axis=axis, stride=stride,
                                     pad=pad)
     assert dw.dtype == db.dtype == torch.float32
@@ -748,6 +753,59 @@ def test_conv_axis_bwd_many_chunks_and_tiles(cuda_device):
     assert (y - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
+# the tensor-core backward (bf16) at the CPU walks' ragged shapes (Ci in
+# {1, 8}, Co no tile multiple, k/s/p of every kind, each axis), at e0's
+# first stage (Ci = 1, Co = 8, batch 4) and at the AE's 512-wide H stage
+TC_BWD_CASES = [((1, 7, 6, 9), ci, co, k, s, p, axis)
+                for ci, co in ((1, 12), (8, 3), (8, 20))
+                for k, s, p in ((3, 1, 1), (6, 2, 2), (2, 2, 0))
+                for axis in (1, 2, 3)] + [
+    ((4, 192, 192, 192), 1, 8, 6, 2, 2, 1),
+    ((3, 6, 6, 6), 512, 512, 3, 1, 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ci,co,k,s,p,axis", TC_BWD_CASES)
+def test_axis_bwd_tensor_cores_match_plain(cuda_device, shape, ci, co, k, s,
+                                           p, axis):
+    """bf16 dw, db and dx through `conv_axis_bwd_tc.cu` against their
+    plain versions (dw, db 2e-4 x max|ref|; dx 2^-7), counted in
+    `.tc_launches`; two dw calls equal bit for bit; float32 inputs keep
+    the CUDA-core kernels (no tensor-core launch)."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    shape = list(shape)
+    x = torch.randn(shape + [ci], generator=g, device=cuda_device).bfloat16()
+    gshape = shape + [co]
+    gshape[axis] = (shape[axis] + 2 * p - k) // s + 1
+    gy = torch.randn(gshape, generator=g, device=cuda_device).bfloat16()
+    w = (torch.randn(k, ci, co, generator=g, device=cuda_device)
+         / (k * co) ** 0.5).bfloat16()
+    K.reset_launch_counts()
+    dw, db = K.conv_axis_dw(x, gy, k=k, axis=axis, stride=s, pad=p)
+    dw2, db2 = K.conv_axis_dw(x, gy, k=k, axis=axis, stride=s, pad=p)
+    dx = K.conv_axis_dx(gy, w, length=shape[axis], axis=axis, stride=s,
+                        pad=p)
+    torch.cuda.synchronize()
+    assert (K.conv_axis_dw.tc_launches, K.conv_axis_dx.tc_launches) == (2, 1)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    rdw, rdb = K.conv_axis_dw_plain(x, gy, k=k, axis=axis, stride=s, pad=p)
+    for got, ref in ((dw, rdw), (db, rdb)):
+        assert (got - ref).abs().max() <= 2e-4 * ref.abs().max()
+    ref = K.conv_axis_dx_plain(gy, w, length=shape[axis], axis=axis,
+                               stride=s, pad=p)
+    assert dx.dtype == torch.bfloat16
+    assert ((dx.float() - ref.float()).abs().max()
+            <= 2.0 ** -7 * ref.float().abs().max())
+    K.conv_axis_dw(x.float(), gy.float(), k=k, axis=axis, stride=s, pad=p)
+    K.conv_axis_dx(gy.float(), w, length=shape[axis], axis=axis, stride=s,
+                   pad=p)
+    K.conv_axis_dx(gy, w.float(), length=shape[axis], axis=axis, stride=s,
+                   pad=p)
+    torch.cuda.synchronize()
+    assert (K.conv_axis_dw.launches, K.conv_axis_dx.launches) == (3, 3)
+    assert (K.conv_axis_dw.tc_launches, K.conv_axis_dx.tc_launches) == (2, 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_separable_fn_on_the_card_matches_plain_autograd(cuda_device, dtype):
@@ -774,6 +832,9 @@ def test_separable_fn_on_the_card_matches_plain_autograd(cuda_device, dtype):
     torch.cuda.synchronize()
     assert (K.separable_conv3d.launches, K.conv_axis.launches,
             K.conv_axis_dw.launches, K.conv_axis_dx.launches) == (1, 2, 3, 2)
+    tc = 1 if dtype == torch.bfloat16 else 0
+    assert (K.conv_axis_dw.tc_launches,
+            K.conv_axis_dx.tc_launches) == (3 * tc, 2 * tc)
     ref = grads(lambda x, l: K.separable_conv3d_plain(
         x, *l[:3], stride=(2, 2, 2), pad=(2, 2, 2), biases=tuple(l[3:])))
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
