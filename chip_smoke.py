@@ -26,8 +26,9 @@ Phases (each raises on failure, so the script exits nonzero):
      the seg+clf ensemble through the fused B3 kernel
      (`separable_conv3d`), timed beside the three per-axis `conv_axis`
      launches it replaces, and every one-axis conv of those stacks
-     through `conv_axis` (`F.conv3d` as its yardstick); the stride-1
-     stacks of one fader AE forward likewise at batch 1;
+     through `conv_axis` (`F.conv3d` as its yardstick; bf16 takes the
+     tensor-core kernel of `conv_axis_tc.cu`, f32 `conv_axis.cu`); the
+     stride-1 stacks of one fader AE forward likewise at batch 1;
 4. end-to-end serving: a BN-folded random UNet3D serves 16 int16 192^3
    T1w-like volumes at batch 8 in bf16 through `segment_volumes` (device
    z-normalisation, `packed_unet_mask_v2`, bit-packed masks), then again
@@ -121,13 +122,16 @@ Phases (each raises on failure, so the script exits nonzero):
       recompute) and fused `separable_conv3d` site in f32 at batch 2 and
       in bf16 at batch 35 against its plain version (dx 2^-7, dw and db
       2e-4, the stacks as in phase 3, x max|ref|), timed beside cuDNN's
-      `conv3d_input` / `conv3d_weight` / `conv3d`; each dx / dw site's
-      route (bf16: the tensor-core kernels of `conv_axis_bwd_tc.cu`;
-      f32: the CUDA-core ones of `conv_axis_bwd.cu`);
+      `conv3d_input` / `conv3d_weight` / `conv3d`; each site's route
+      (bf16: the tensor-core kernels of `conv_axis_tc.cu` and
+      `conv_axis_bwd_tc.cu`; f32: the CUDA-core ones of `conv_axis.cu` and
+      `conv_axis_bwd.cu`); two bf16 `conv_axis` calls equal bit for bit;
+      each stack's time on the fused and on the per-axis route;
    b. the alternation of `examples/train_fader.py` (3 `disc_step`s and one
       `enc_clf_step` a batch, Adam 7e-4 / 7e-4 / 5e-4, lambda ramp, class
       weight [1, 2]): exact launch counts per batch (fused 17, `conv_axis`
-      14, dw 21, dx 20, every dw and dx on tensor cores), ms per batch,
+      14, dw 21, dx 20, every conv_axis, dw and dx on tensor cores), ms
+      per batch,
       vol/s, peak memory, finite losses,
       float32 master weights, one profiled batch (host syncs and copies
       counted; its idle share also with the device alone traced); then
@@ -135,11 +139,13 @@ Phases (each raises on failure, so the script exits nonzero):
       two batches and a validation batch;
    c. f32 parity at 48^3, depth 2: one `enc_clf_step` and one `disc_step`
       with the kernels against the same steps with per-axis cuDNN convs
-      (loss 1e-5, gradients 2e-2 x max, running statistics 1e-5);
+      (loss 1e-5, gradients 2e-2 x max, running statistics 1e-5); their
+      recomputes stay on `conv_axis.cu` (no tensor-core launch);
    d. `ae_step` at 192^3 with `examples/train_ae.py`'s settings (depth 6,
       c_base 16, batch 3, bf16), its B3 sites checked and timed as in
       9a (its stacks in f32 at batch 1), fused or per-axis as the plan
-      routes them; ms per step, peak memory;
+      routes them, each stack timed on both routes; ms per step, peak
+      memory, every conv_axis, dw and dx launch on tensor cores;
    e. bf16 `_class_step`s of DilatedCNN (180^3) and VoxResNet (192^3) at
       batch 10, and one `class_train_step_accum` (micro 2): ms per step,
       vol/s, peak memory (cuDNN convs: no kernel of the port launches).
@@ -149,8 +155,8 @@ the served path: B1 on tensor cores, B2 fused into B1 on either route,
 fused B3; of the training path: B1's forward on tensor cores, the
 stem's forward on CUDA cores, B1 as input gradient; of f32 validation;
 of phase 8's sliding window and patch training; of phase 9's fader
-training: fused B3, B3's dx and dw and the `conv_axis` recomputes; the
-standalone
+training: fused B3, B3's dx and dw and the `conv_axis` recomputes on
+tensor cores; the standalone
 B2, off every path, goes to the JSON file with its numbers, as does dw
 of the packed UNet, which is cuBLAS and no kernel of the port), the card's
 `nvidia-smi` name and power limit, and last
@@ -221,9 +227,9 @@ UNET_PER_BATCH = {"conv2_packed": len(B1_SITES),
                   "conv2_packed_as_bn_act": len(B2_SITES),
                   "conv2_packed_as_bn_act_tc": len(B2_SITES) - 1,
                   "bn_act_zero_pads": 0, "conv_axis": 0,
-                  "separable_conv3d": 0, "conv_axis_dx": 0,
-                  "conv_axis_dw": 0, "conv_axis_dx_tc": 0,
-                  "conv_axis_dw_tc": 0}
+                  "conv_axis_tc": 0, "separable_conv3d": 0,
+                  "conv_axis_dx": 0, "conv_axis_dw": 0,
+                  "conv_axis_dx_tc": 0, "conv_axis_dw_tc": 0}
 ENSEMBLE_PER_BATCH = {**UNET_PER_BATCH, "separable_conv3d": len(B3_STACKS)}
 
 # training (phase 6): a packed train step launches B1 for each of the 12
@@ -241,9 +247,9 @@ TRAIN_PER_STEP = {"conv2_packed": len(B1_SITES) + len(DX_SITES),
                   "conv2_packed_dx_tc": len(DX_SITES),
                   "conv2_packed_as_bn_act": 0, "conv2_packed_as_bn_act_tc": 0,
                   "bn_act_zero_pads": 0, "conv_axis": 0,
-                  "separable_conv3d": 0, "conv_axis_dx": 0,
-                  "conv_axis_dw": 0, "conv_axis_dx_tc": 0,
-                  "conv_axis_dw_tc": 0}
+                  "conv_axis_tc": 0, "separable_conv3d": 0,
+                  "conv_axis_dx": 0, "conv_axis_dw": 0,
+                  "conv_axis_dx_tc": 0, "conv_axis_dw_tc": 0}
 # dw sums K = N x cells ~ 1.8M products per entry in f32 in an order that
 # neither side controls; sequential f32 accumulation errs by about
 # sqrt(K) 2^-24 ~ 1e-4 of a typical entry, a few times less of the
@@ -385,10 +391,10 @@ def alternation_per_batch(depth):
                "conv_axis_dx": 3 * trained - 1 + 3}
     disc = {"separable_conv3d": depth + 1, "conv_axis": 2,
             "conv_axis_dw": 3, "conv_axis_dx": 2}
-    # in bf16 every dw and dx takes the tensor-core kernels
+    # in bf16 every recompute, dw and dx takes the tensor-core kernels
     for d in (enc_clf, disc):
-        d["conv_axis_dw_tc"], d["conv_axis_dx_tc"] = (d["conv_axis_dw"],
-                                                      d["conv_axis_dx"])
+        d["conv_axis_tc"], d["conv_axis_dw_tc"], d["conv_axis_dx_tc"] = (
+            d["conv_axis"], d["conv_axis_dw"], d["conv_axis_dx"])
     return {**{k: 0 for k in UNET_PER_BATCH}, **{
         k: v + FADER_DISC_LOOP * disc[k] for k, v in enc_clf.items()}}
 
@@ -817,14 +823,17 @@ def axis_sites(stacks):
     return sites
 
 
-def sep_kernel_phase(K, named, gen, checks, timed, fused_only=True):
+def sep_kernel_phase(K, named, gen, checks, timed, fused_only=True,
+                     route_rows=None):
     """Each (name, separable stack, calls per step) of `named` through
     `separable_conv3d` at each (batch, dtype) of `checks`, batch None
     meaning the recorded one, against its plain version; timed at the pair
     `timed` where it takes the fused kernel (the row repeated by its
     calls).  `fused_only`: every stack must take the fused kernel; else a
     stack may take the per-axis route, whose `conv_axis` launches
-    `b3_bwd_rows` holds."""
+    `b3_bwd_rows` holds.  `route_rows`, a list: each stack's times on both
+    routes at `timed` (three runs each, in turns; fused none where its
+    plan does not fit) are appended to it."""
     import torch
 
     rows, errs = [], {"f32": 0.0, "bf16": 0.0}
@@ -859,9 +868,46 @@ def sep_kernel_phase(K, named, gen, checks, timed, fused_only=True):
                 row = sep_time_row(K, name, x, ws, kw, plan, got)
                 row.update(calls_per_step=calls, max_abs_err=err)
                 rows += [row] * calls
+            if (batch, dn) == timed and route_rows is not None:
+                route_rows.append(route_time_row(K, name, x, ws, kw, plan,
+                                                 route, calls))
             del x, ws, got, ref
             torch.cuda.empty_cache()
     return rows, errs
+
+
+def route_time_row(K, name, x, ws, kw, plan, route, calls):
+    """The stack's time through the fused kernel and through three
+    `conv_axis` launches, three runs each in turns (F P P F F P), so that
+    `_separable_route` can be held to what the card measures."""
+    def per_axis():
+        v = x
+        for a in range(3):
+            v = K.conv_axis(v, ws[a], kw["biases"][a], axis=a + 1,
+                            stride=kw["stride"][a], pad=kw["pad"][a])
+
+    def fused_kernel():
+        # the fused kernel whatever `_separable_route` says
+        route_ = K._separable_route
+        K._separable_route = lambda dtype, plan: "fused"
+        try:
+            K.separable_conv3d(x, *ws, **kw)
+        finally:
+            K._separable_route = route_
+
+    fused, split = [], []
+    for order in ("fp", "pf", "fp"):
+        for r in order:
+            if r == "f" and plan is not None:
+                fused.append(time_ms(fused_kernel, 10))
+            elif r == "p":
+                split.append(time_ms(per_axis, 10))
+    row = {"site": name, "x": list(x.shape),
+           "w": [list(w.shape) for w in ws], "route": route,
+           "calls_per_step": calls, "fused_ms_runs": fused or None,
+           "per_axis_ms_runs": split}
+    log(f"route {name} b{x.shape[0]}: {json.dumps(row)}")
+    return row
 
 
 def sep_time_row(K, name, x, ws, kw, plan, out):
@@ -970,6 +1016,10 @@ def b3_time_row(K, TF, name, x, w, bias, kw, out):
         0 if bias is None else 4 * co)
     ms = time_ms(lambda: K.conv_axis(x, w, bias, **kw), 20)
     plain_ms = time_ms(lambda: K.conv_axis_plain(x, w, bias, **kw), 3)
+    # the CUDA-core kernel on the same inputs (bf16 x with float32 w takes
+    # it): the route this site took before the tensor-core one
+    wf = w.float()
+    cuda_core_ms = time_ms(lambda: K.conv_axis(x, wf, bias, **kw), 5)
     # yardstick only: torch's conv3d with the (Co, Ci, k, 1, 1)-shaped
     # weight on the NCDHW view of the channels-last data
     axis = kw["axis"]
@@ -984,8 +1034,10 @@ def b3_time_row(K, TF, name, x, w, bias, kw, out):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS_PER_S["bf16"] * 1e3
     row = {"site": name, "x": list(x.shape), "axis": axis, "k": k,
-           "stride": kw["stride"], "pad": kw["pad"], "co": co, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms, "flops": flops,
+           "stride": kw["stride"], "pad": kw["pad"], "co": co,
+           "route": K._axis_fwd_route(x.dtype, w.dtype), "ms": ms,
+           "cuda_core_ms": cuda_core_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "flops": flops,
            "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "gb_per_s": nbytes / ms / 1e6, "f32_core_ms": flops
@@ -1088,6 +1140,7 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True):
     ours = {k: sum(r[1] for r in rows if k in r[0])
             for k in ("conv2_packed_tc_kernel", "conv2_packed_kernel",
                       "bn_act_zero_pads_kernel", "conv_axis_kernel",
+                      "axis_fwd_tc_kernel",
                       "separable_conv3d_kernel", "conv_axis_dx_kernel",
                       "conv_axis_dw_partial_kernel",
                       "conv_axis_dw_finish_kernel", "axis_dx_tc_kernel",
@@ -1118,7 +1171,8 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True):
             "conv2_packed_ms": ours["conv2_packed_kernel"],
             "conv2_packed_bn_act_ms": fused_cc,
             "bn_act_zero_pads_ms": ours["bn_act_zero_pads_kernel"],
-            "conv_axis_ms": ours["conv_axis_kernel"],
+            "conv_axis_ms": ours["conv_axis_kernel"]
+            + ours["axis_fwd_tc_kernel"],
             "separable_conv3d_ms": ours["separable_conv3d_kernel"],
             "conv_axis_dx_ms": ours["conv_axis_dx_kernel"]
             + ours["axis_dx_tc_kernel"],
@@ -1627,7 +1681,8 @@ def _counted_b1(c):
             - c["conv2_packed_as_bn_act_tc"],
             "conv2_packed_tc.dx": c["conv2_packed_dx_tc"],
             "separable_conv3d": c["separable_conv3d"],
-            "conv_axis": c["conv_axis"], "conv_axis_dx": c["conv_axis_dx"],
+            "conv_axis": c["conv_axis"], "conv_axis_tc": c["conv_axis_tc"],
+            "conv_axis_dx": c["conv_axis_dx"],
             "conv_axis_dw": c["conv_axis_dw"],
             "conv_axis_dx_tc": c["conv_axis_dx_tc"],
             "conv_axis_dw_tc": c["conv_axis_dw_tc"]}
@@ -2644,9 +2699,10 @@ def b3_bwd_rows(K, label, sites, gen, checks, timed):
 
     rows = {"dx": [], "dw": [], "axis": []}
     errs = {k: {"f32": None, "bf16": None} for k in rows}
-    # the kernel route of every checked dx / dw site, by dtype: bf16 must
-    # take the tensor cores, float32 the CUDA cores
-    routes = {k: {"f32": [], "bf16": []} for k in ("dx", "dw")}
+    # the kernel route of every checked site, by dtype: bf16 must take the
+    # tensor cores, float32 the CUDA cores
+    routes = {k: {"f32": [], "bf16": []} for k in ("dx", "dw", "axis")}
+    repeats = []
 
     def note(kind, dn, err):
         errs[kind][dn] = max(errs[kind][dn] or 0.0, err)
@@ -2702,11 +2758,17 @@ def b3_bwd_rows(K, label, sites, gen, checks, timed):
                     bias = (torch.randn(co, generator=gen, device="cuda")
                             if site["bias"] else None)
                     kw = dict(axis=axis, stride=s, pad=p)
+                    routes["axis"][dn].append(K._axis_fwd_route(x.dtype,
+                                                                w.dtype))
                     got = K.conv_axis(x, w, bias, **kw)
                     torch.cuda.synchronize()
                     ref = K.conv_axis_plain(x, w, bias, **kw)
                     err = check(f"{label} conv_axis {xshape} axis {axis}",
                                 got, ref, dn)
+                    if dn == "bf16":
+                        # no atomics: a second call repeats bit for bit
+                        repeats.append(bool(torch.equal(
+                            got, K.conv_axis(x, w, bias, **kw))))
                 note(kind, dn, err)
                 del ref
                 if (batch, dn) == timed:
@@ -2730,7 +2792,12 @@ def b3_bwd_rows(K, label, sites, gen, checks, timed):
             if any(r != want[dn] for r in seen):
                 raise AssertionError(f"{label} {kind} {dn} sites took "
                                      f"routes {seen}, not {want[dn]}")
+    log(f"{label} conv_axis bf16: {sum(repeats)} of {len(repeats)} sites "
+        "repeat bit for bit")
+    if not all(repeats):
+        raise AssertionError(f"{label} conv_axis: a second call differs")
     rows["routes"] = routes
+    rows["repeat_bit_for_bit"] = len(repeats)
     return rows, errs
 
 
@@ -2902,8 +2969,10 @@ def fader_phase(K, Fd, gen, launch_counts):
                              f"{recorded} != {want}")
     checks, timed_at = [(2, "f32"), (None, "bf16")], (None, "bf16")
     rows, errs = b3_bwd_rows(K, "fader", sites, gen, checks, timed_at)
+    rows["route_check"] = []
     rows["stack"], errs["stack"] = sep_kernel_phase(
-        K, named_stacks("fader", sites["stack"]), gen, checks, timed_at)
+        K, named_stacks("fader", sites["stack"]), gen, checks, timed_at,
+        route_rows=rows["route_check"])
 
     # the alternation, device-resident batch: 1 warm-up, then timed
     fstate, losses = fader_alternation(Tr, fstate, xb, y, dom, lam, rng)
@@ -3022,6 +3091,7 @@ def fader_parity_phase(K, Fd, gen):
             stack = Fd._separable_conv
             if path == "cudnn":
                 Fd._separable_conv = cudnn_stack
+            K.reset_launch_counts()
             try:
                 if step == "enc_clf_step":
                     out = Tr.enc_clf_step(fs, x, y, dom, 0.3, rng,
@@ -3031,6 +3101,10 @@ def fader_parity_phase(K, Fd, gen):
                     out = Tr.disc_step(fs, x, dom, rng, FADER_N_DOMAINS)
             finally:
                 Fd._separable_conv = stack
+            if path == "kernels":
+                # the f32 recomputes keep the CUDA-core conv_axis.cu
+                axis_launches = {"conv_axis": K.conv_axis.launches,
+                                 "conv_axis_tc": K.conv_axis.tc_launches}
             runs[path] = (float(out[1]), ms, [_deltas(m, b)
                                               for m, b in zip(ms, before)])
         (loss, ms, deltas), (rloss, rms, rdeltas) = (runs["kernels"],
@@ -3050,12 +3124,15 @@ def fader_parity_phase(K, Fd, gen):
         res = {"loss": loss, "ref_loss": rloss,
                "loss_rel_err": abs(loss - rloss) / abs(rloss),
                "grad_worst_err_over_tol": worst,
-               "running_stats_err": stats_err}
+               "running_stats_err": stats_err,
+               "launches": axis_launches}
         log(f"f32 parity {step} (kernels vs per-axis cuDNN, "
             f"{FADER_PARITY_SIZE}^3 b{FADER_PARITY_BATCH}): "
             f"{json.dumps(res)}")
         if (worst > 1 or res["loss_rel_err"] > PARITY_LOSS_RTOL
-                or stats_err > PARITY_STATS_TOL):
+                or stats_err > PARITY_STATS_TOL
+                or axis_launches["conv_axis"] <= 0
+                or axis_launches["conv_axis_tc"] != 0):
             raise AssertionError(f"f32 fader parity {step}: {res}")
         results[step] = res
     return results
@@ -3107,10 +3184,11 @@ def ae_phase(K, Fd, gen, launch_counts):
            "launches_per_step": per_step[0],
            "b3_bwd_recorded": {k: len(v) for k, v in sites.items()}}
     log(f"ae_step: {json.dumps(out)}")
-    # in bf16 every dw and dx launch takes the tensor cores
+    # in bf16 every conv_axis, dw and dx launch takes the tensor cores
     c0 = per_step[0]
     if (not all(np.isfinite(losses)) or any(c != c0 for c in per_step)
             or min(_b3_counts(c0).values()) <= 0
+            or c0["conv_axis_tc"] != c0["conv_axis"]
             or c0["conv_axis_dw_tc"] != c0["conv_axis_dw"]
             or c0["conv_axis_dx_tc"] != c0["conv_axis_dx"]):
         raise AssertionError(f"ae_step: {out}")
@@ -3289,9 +3367,11 @@ def main() -> int:
             K, [(n, st, 1) for n, st in zip(B3_STACKS, b3_stacks)], gen,
             [(b, dn) for b in (1, BATCH) for dn in ("f32", "bf16")],
             (BATCH, "bf16"))
+        # the AE's last stack ends in one channel: in bf16 it takes the
+        # per-axis route (`_separable_route`), checked all the same
         ae_sep_rows, ae_sep_errs = sep_kernel_phase(
             K, [(n, st, 1) for n, st in zip(AE_B3_STACKS, ae_stacks)], gen,
-            [(1, "f32"), (1, "bf16")], (1, "bf16"))
+            [(1, "f32"), (1, "bf16")], (1, "bf16"), fused_only=False)
         b3_rows, b3_errs = b3_kernel_phase(K, B3_SITES, axis_sites(b3_stacks),
                                            gen, (1, BATCH))
         ae_rows, ae_errs = b3_kernel_phase(K, AE_B3_SITES,
@@ -3342,6 +3422,7 @@ def main() -> int:
                     K.conv2_packed_as_bn_act.tc_launches,
                 "bn_act_zero_pads": K.bn_act_zero_pads.launches,
                 "conv_axis": K.conv_axis.launches,
+                "conv_axis_tc": K.conv_axis.tc_launches,
                 "separable_conv3d": K.separable_conv3d.launches,
                 "conv_axis_dx": K.conv_axis_dx.launches,
                 "conv_axis_dw": K.conv_axis_dw.launches,
@@ -3618,9 +3699,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the AE's stacks (fused, or per-axis where too wide: those launches
     # are ae_bwd_rows' "axis" sites)
+    ae_bwd_rows["route_check"] = []
     ae_bwd_rows["stack"], ae_bwd_errs["stack"] = sep_kernel_phase(
         K, named_stacks("ae", ae_sites["stack"]), gen,
-        [(1, "f32"), (None, "bf16")], (None, "bf16"), fused_only=False)
+        [(1, "f32"), (None, "bf16")], (None, "bf16"), fused_only=False,
+        route_rows=ae_bwd_rows["route_check"])
     torch.cuda.empty_cache()
     classification = classification_phase(K, gen, launch_counts)
     phase9_s = time.perf_counter() - t9
@@ -3837,12 +3920,21 @@ def main() -> int:
                      "max_abs_err_f32)",
                      ae_step=ae_entry(ae_bwd_rows["dw"]),
                      max_abs_err_ae_bf16=ae_bwd_errs["dw"]["bf16"]),
-        kernel_entry("conv_axis", src + "conv_axis.cu", tpu + "70",
-                     fader_rows["axis"], fader_errs["axis"], fb["conv_axis"],
-                     fader["launches_per_batch"]["conv_axis"],
+        kernel_entry("conv_axis_tc", src + "conv_axis_tc.cu", tpu + "70",
+                     fader_rows["axis"],
+                     {"f32": None, "bf16": fader_errs["axis"]["bf16"]},
+                     fb["conv_axis_tc"],
+                     fader["launches_per_batch"]["conv_axis_tc"],
                      path="fader_training", shapes=per_alt,
                      role="recomputes the stacks' intermediates in the "
                      "backward; the per-axis route of wide AE stacks",
+                     f32_route=src + "conv_axis.cu (CUDA cores; "
+                     "off_path_kernels)",
+                     cuda_core_ms=sum(r["cuda_core_ms"]
+                                      for r in fader_rows["axis"]),
+                     ae_step=ae_entry(ae_bwd_rows["axis"], (
+                         "ms", "cuda_core_ms", "plain_ms", "bound_ms",
+                         "library_ms")),
                      max_abs_err_ae_bf16=ae_bwd_errs["axis"]["bf16"]),
     ]
     # every entry's launches on each path driven with the counts at 0
@@ -3907,6 +3999,17 @@ def main() -> int:
                                        fb[kind] - fb[f"{kind}_tc"]},
                   "max_abs_err_f32": fader_errs[kind[-2:]]["f32"]}
                  for kind in ("conv_axis_dx", "conv_axis_dw")]
+    # the one-axis conv in float32 (and bf16 x with float32 w) on CUDA
+    # cores: checked at batch 2 in 9a and in phase 3, run by the f32
+    # parity steps of 9c
+    off_path.append({
+        "name": "conv_axis.f32_cuda_core", "route": "cuda",
+        "source": src + "conv_axis.cu", "replaces": tpu + "70",
+        "launches_by_path": {
+            "fader_alternation": fb["conv_axis"] - fb["conv_axis_tc"],
+            **{f"fader_parity_f32.{step}": r["launches"]["conv_axis"]
+               for step, r in fader_parity.items()}},
+        "max_abs_err_f32": fader_errs["axis"]["f32"]})
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "off_path_kernels": off_path,

@@ -7,7 +7,7 @@ launch counters and build.
 | `conv2_packed_as_bn_act` | the same two kernels, with B2 as the epilogue of an aligned->shifted launch | `conv2_packed_pallas` + `bn_act_zero_pads` |
 | `conv2_packed_dx`   | the same two kernels, in the other parity with flipped, io-swapped weights: B1's input gradient | the dx of `ops/packed.py::_conv3_packed_bwd` / `_conv3_packed_as_bwd` |
 | `bn_act_zero_pads`  | `csrc/bn_act_zero_pads.cu`| `ops/pallas_kernels.py::bn_act_zero_pads` |
-| `conv_axis`         | `csrc/conv_axis.cu`       | `ops/pallas_kernels.py::conv_axis_last`   |
+| `conv_axis`         | `csrc/conv_axis_tc.cu` (bf16 x and w: mma.sync), `csrc/conv_axis.cu` (the rest: CUDA cores) | `ops/pallas_kernels.py::conv_axis_last`   |
 | `separable_conv3d`  | `csrc/separable_conv3d.cu` (the three axes in one launch) | `ops/pallas_kernels.py::separable_conv3d` |
 | `conv_axis_dx`      | `csrc/conv_axis_bwd_tc.cu` (bf16: mma.sync), `csrc/conv_axis_bwd.cu` (f32: CUDA cores) | the input gradient of `conv_axis_last` (XLA's in JAX) |
 | `conv_axis_dw`      | the same two sources (two passes each, no atomics) | the weight and bias gradients of `conv_axis_last` |
@@ -15,8 +15,9 @@ launch counters and build.
 `conv_one_axis` and `separable_conv3d` keep the signatures of their JAX
 namesakes (without the Mosaic workarounds `interpret` and `max_taps`).
 `separable_conv3d` runs a stack as one fused launch where
-`_separable_route` says so (every stack the fader serves), else as three
-`conv_axis` launches.  The served UNet calls `conv2_packed_as_bn_act`
+`_separable_route` says so (every stack the fader serves and trains on),
+else as three `conv_axis` launches (the depth-6 AE's bf16 stacks of 64
+channels and more, and its one-channel output stack).  The served UNet calls `conv2_packed_as_bn_act`
 at its aligned->shifted sites; the standalone `bn_act_zero_pads` is the
 counterpart of the JAX function and is no longer on that path.
 `SeparableConv3dFn` is the stack's autograd Function: the fused forward,
@@ -31,8 +32,10 @@ counts every B1 launch, fused or not, `conv2_packed.tc_launches` those on
 the tensor-core route; `conv2_packed_as_bn_act.launches` (and
 `.tc_launches`) the B1 launches that ran B2 as their epilogue,
 `conv2_packed_dx.launches` (and `.tc_launches`) those that computed an
-input gradient; `conv_axis_dx.tc_launches` and `conv_axis_dw.tc_launches`
-the backward launches on the tensor-core route (`_axis_bwd_route`).
+input gradient; `conv_axis.tc_launches` the one-axis launches on the
+tensor-core route (`_axis_fwd_route`), `conv_axis_dx.tc_launches` and
+`conv_axis_dw.tc_launches` the backward launches on theirs
+(`_axis_bwd_route`).
 
 The kernels are CUDA C++ for `sm_90a` with a plain C interface, compiled
 by `nvcc` at first use (one process per source, all started together) and
@@ -60,8 +63,8 @@ SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("conv2_packed.cu", "conv2_packed_tc.cu", "bn_act_zero_pads.cu",
            "conv_axis.cu", "separable_conv3d.cu", "conv_axis_bwd.cu",
-           "conv_axis_bwd_tc.cu")
-HEADERS = ("common.cuh",)
+           "conv_axis_bwd_tc.cu", "conv_axis_tc.cu")
+HEADERS = ("common.cuh", "tc_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libmri_torch_kernels.so"
@@ -161,6 +164,8 @@ def load() -> ctypes.CDLL:
     lib.mri_conv_axis_dw_tc.restype = i
     lib.mri_conv_axis_dx_tc.argtypes = [vp] * 4 + [i, vp]
     lib.mri_conv_axis_dx_tc.restype = i
+    lib.mri_conv_axis_tc.argtypes = [vp] * 5 + [i, vp]
+    lib.mri_conv_axis_tc.restype = i
     return lib
 
 
@@ -651,10 +656,13 @@ def conv_axis(x: torch.Tensor, w: torch.Tensor,
             + sum_{t, ci} x[..., j * stride + t - pad, ..., ci] w[t, ci, co]
 
     with x zero outside its extent, so the axis has length
-    (L + 2 pad - k) // stride + 1 in the output.  Computed in float32 (w and
-    bias are read as float32) and rounded once to x's dtype, float32 or
-    bfloat16.  The kernel keeps w in shared memory, or reads it from
-    global memory where it exceeds one block's 227 KB."""
+    (L + 2 pad - k) // stride + 1 in the output.  Computed in float32 and
+    rounded once to x's dtype, float32 or bfloat16.  One launch on the
+    card: with x and w both bfloat16 (`_axis_fwd_route`) the tensor-core
+    kernel of `conv_axis_tc.cu` (`conv_axis_tc_plan`), counted in
+    `.tc_launches` too; else `conv_axis.cu`'s, which reads w and bias as
+    float32 and keeps w in shared memory, or reads it from global memory
+    where it exceeds one block's 227 KB."""
     if x.ndim != 5 or w.ndim != 3:
         raise ValueError(f"conv_axis needs x (N,D,H,W,Ci) and w (k,Ci,Co); "
                          f"got {tuple(x.shape)}, {tuple(w.shape)}")
@@ -680,8 +688,12 @@ def conv_axis(x: torch.Tensor, w: torch.Tensor,
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"conv_axis takes float32 or bfloat16, not {x.dtype}")
     _check_cuda("x", x, x.dtype, x.device)
-    wf = w.to(device=x.device, dtype=torch.float32).contiguous()
-    _check_cuda("w", wf, torch.float32, x.device)
+    tc = _axis_fwd_route(x.dtype, w.dtype) == "tc"
+    # the tensor-core kernel reads w (k, Ci, Co) in bf16 as it comes, the
+    # CUDA-core one in float32
+    wt = w.to(device=x.device, dtype=torch.bfloat16 if tc
+              else torch.float32).contiguous()
+    _check_cuda("w", wt, wt.dtype, x.device)
     bias_ptr = None
     if bias is not None:
         bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
@@ -690,22 +702,35 @@ def conv_axis(x: torch.Tensor, w: torch.Tensor,
     shape = list(x.shape)
     shape[axis], shape[4] = lo, co
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
     # x as (A, L, B, Ci): the dims before the conv axis, the axis, and the
     # spatial dims after it
     a = int(x.shape[:axis].numel())
     b = int(x.shape[axis + 1:4].numel())
     lib = load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = lib.mri_conv_axis(
-            x.data_ptr(), wf.data_ptr(), bias_ptr, out.data_ptr(),
-            _DTYPE_CODE[x.dtype], a, length, lo, b, ci, co, k, stride, pad,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if tc:
+            plan = _cached_plan(conv_axis_tc_plan, a, length, lo, b, ci, co,
+                                k, stride, pad)
+            geo = (ctypes.c_longlong * len(plan))(*plan)
+            rc = lib.mri_conv_axis_tc(
+                x.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(),
+                ctypes.cast(geo, ctypes.c_void_p), len(plan), stream)
+        else:
+            rc = lib.mri_conv_axis(
+                x.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(),
+                _DTYPE_CODE[x.dtype], a, length, lo, b, ci, co, k, stride,
+                pad, stream)
     _raise_on(rc, "conv_axis")
     conv_axis.launches += 1
+    conv_axis.tc_launches += tc
     return out
 
 
 conv_axis.launches = 0
+conv_axis.tc_launches = 0
 
 
 def conv_one_axis(x: torch.Tensor, w: torch.Tensor, axis: int, *,
@@ -728,6 +753,7 @@ _SEP_TILE = (4, 8, 16)
 _SEP_SMEM_TARGET = 112 * 1024
 _SMEM_MAX = 232448
 _SEP_MMA_MAX_K = 512          # k x Cin of a tensor-core stage (its K table)
+_SEP_PER_AXIS_MIN_CIN = 64    # bf16 stacks this wide take three conv_axis
 
 
 def _align16(nbytes: int) -> int:
@@ -745,6 +771,8 @@ class SepPlan(NamedTuple):
     off_w: int                    # at 0, y1 at off_y1, weights at off_w
     smem: int
     grid: int                     # blocks: N x tiles
+    cin: int                      # the stack's input channels
+    cout: int                     # and its output channels
 
 
 def _sep_smem(tile, halo, chans, ks, mma, esize):
@@ -803,17 +831,29 @@ def _separable_plan(n, spatial, chans, ks, strides, pads, dtype):
     tiles = tuple(-(-o // t) for o, t in zip(out, tile))
     return SepPlan(out=out, tile=tuple(tile), halo=halo, tiles=tiles,
                    mma=mma, off_y1=off_y1, off_w=off_w, smem=smem,
-                   grid=n * tiles[0] * tiles[1] * tiles[2])
+                   grid=n * tiles[0] * tiles[1] * tiles[2], cin=chans[0],
+                   cout=chans[3])
 
 
 def _separable_route(dtype: torch.dtype, plan: Optional[SepPlan]) -> str:
     """The kernel that serves a `separable_conv3d` call on the card:
     "fused" (`separable_conv3d.cu`, one launch) for float32 and bfloat16
     stacks whose tile plan fits shared memory, "per_axis" (three
-    `conv_axis` launches) otherwise.  It depends on dtype and shape only,
+    `conv_axis` launches) otherwise, and for two kinds of bfloat16 stack
+    where three `conv_axis` launches measured far faster on the H100
+    (PERF.md): those of at least `_SEP_PER_AXIS_MIN_CIN` input channels,
+    where the fused tile shrinks to a few cells and recomputes its halo
+    many times over (the depth-6 AE's 24^3 x 64 -> 128 stack at batch 3:
+    0.18-0.30 against 5.11 ms), and those with one output channel, which
+    `conv_axis` takes on its dense path (the AE's 192^3 x 16 -> 1 output
+    stack: 0.82 against 1.72 ms).  It depends on dtype and shape only,
     never on whether a build or launch failed."""
-    return "fused" if dtype in _DTYPE_CODE and plan is not None \
-        else "per_axis"
+    if dtype not in _DTYPE_CODE or plan is None:
+        return "per_axis"
+    if dtype == torch.bfloat16 and (plan.cin >= _SEP_PER_AXIS_MIN_CIN
+                                    or plan.cout == 1):
+        return "per_axis"
+    return "fused"
 
 
 def separable_conv3d_plain(x: torch.Tensor, wx: torch.Tensor,
@@ -1550,6 +1590,197 @@ def conv_axis_dx_tc_plan(a: int, l: int, lo: int, b: int, ci: int, co: int,
                     swap)
 
 
+# ---------------------------------------------------------------------------
+# B3's one-axis conv on tensor cores (bf16): plan and route
+# ---------------------------------------------------------------------------
+
+_FWD_CIK = 64                  # input channels per K chunk at most
+_FWD_COT = 64                  # output channels per N tile at most
+_FWD_MROWS = 1024              # output cells per tile (M) at most
+_FWD_CI1_MAX_K = 16            # Ci = 1 takes the taps as one k16 step
+
+
+def _axis_fwd_route(dtype: torch.dtype, w_dtype: torch.dtype) -> str:
+    """The kernel that serves a `conv_axis` call on the card: "tc"
+    (`conv_axis_tc.cu`: mma.sync on the tensor cores) when x (`dtype`) and
+    w are both bfloat16, "cuda_core" (`conv_axis.cu`) otherwise.  float32
+    stays off the tensor cores (TF32 would not hold the f32 parity gates),
+    and so does bf16 x with float32 w, whose weights would otherwise be
+    rounded to bf16 unasked.  It depends on dtype only, never on whether a
+    build or launch failed."""
+    if dtype == torch.bfloat16 and w_dtype == torch.bfloat16:
+        return "tc"
+    return "cuda_core"
+
+
+class AxisTcPlan(NamedTuple):
+    """Tile plan of one tensor-core `conv_axis` call: the shape, x as (a,
+    l, B, Ci) and out as (a, lo, B, Co), then the plan, in the order of
+    the kernel's geometry array."""
+    a: int
+    l: int
+    lo: int
+    b: int
+    ci: int
+    co: int
+    k: int
+    s: int
+    p: int
+    cik: int         # input channels per K chunk (1 when Ci = 1)
+    cot: int         # output channels per N tile
+    kst: int         # K chunks: ceil(Ci / cik)
+    wm: int          # warps along M and N (wm x wn = 8)
+    wn: int
+    fm: int          # m16 and n8 tiles per warp
+    fn: int
+    bt: int          # a tile: jn positions j x bt positions b of one a
+    jn: int
+    nl: int          # staged x positions along l: (jn - 1) s + k
+    nlc: int         # staged x positions per parity class: ceil(nl / s)
+    xpitch: int      # Ci = 1: elements per staged x row (else 0)
+    jtiles: int
+    btiles: int
+    tiles: int       # a x jtiles x btiles
+    tpb: int         # tiles per block
+    blocks: int      # grid x
+    ntiles: int      # grid y: ceil(Co / cot)
+    stages: int
+    smem: int        # bytes of shared memory per block
+    ci1: int
+    swap: int        # 1: the caller's (A, L, 1, Ci) as (1, L, A, Ci)
+    tma: int         # 1: x slabs by tensor-map box copies, else cp.async
+    bulk: int        # 1: output rows by bulk copies, else 16-byte stores
+    dense: int       # 1 (Co = 1): the dense path, no MMA tiles
+
+    @property
+    def mt(self) -> int:
+        """m16 tiles of a tile's M rows (jj, bb)."""
+        return self.jn * self.bt // 16
+
+
+def _fwd_x_bytes(jn: int, bt: int, k: int, s: int, cik: int,
+                 xpitch: int) -> int:
+    """Bytes of one staged x slab: s parity classes of nlc rows (x bt with
+    Ci > 1; with Ci = 1 each class's rows padded to 128 bytes)."""
+    nlc = _ceil((jn - 1) * s + k, s)
+    if xpitch:
+        return 2 * s * _ceil(nlc * xpitch, 64) * 64
+    return 2 * s * nlc * bt * cik
+
+
+def _fwd_smem(x_bytes: int, w_bytes: int, kst: int, stages: int,
+              out_bytes: int, k: int, tma: int) -> int:
+    """Bytes of shared memory of a `conv_axis` tensor-core block: the
+    ring of x slabs (with the weights, several K chunks), its stages
+    1024-byte aligned with TMA; the weights once, resident (one K chunk);
+    the output tile, one zero row, the tap table and, with TMA, an
+    mbarrier a stage."""
+    stage = x_bytes + (w_bytes if kst > 1 else 0)
+    if tma:
+        stage = _ceil(stage, 1024) * 1024
+    return ((1024 + 8 * stages if tma else 0) + stages * stage
+            + (w_bytes if kst == 1 else 0) + out_bytes + 16
+            + _ceil(4 * k, 8) * 8)
+
+
+def _ci1_pitch(bt: int) -> int:
+    """Elements per staged Ci = 1 row: bt rounded up to 16-byte chunks,
+    plus one chunk where rows would be a multiple of 128 bytes apart (the
+    A gathers read four tap rows at once: keep them off one bank)."""
+    pitch = _ceil(bt, 8) * 8
+    return pitch + 8 if pitch % 64 == 0 else pitch
+
+
+def conv_axis_tc_plan(a: int, l: int, lo: int, b: int, ci: int, co: int,
+                      k: int, s: int, p: int) -> AxisTcPlan:
+    """The plan of a tensor-core `conv_axis` call, x viewed as (a, l, b,
+    ci), out as (a, lo, b, co), a x lo x b >= 1.  Block (x, y) takes tiles
+    x * tpb .. of the (a, j tile, b tile) order, b tiles fastest, and the
+    cot output channels from y * cot; a tile's M rows are m = jj bt + bb
+    for j = j0 + jj, b = b0 + bb; warp (wmi, wni), warp = wmi + wm wni,
+    holds m16 tiles wmi * fm .. and n8 tiles wni * fn ..  Each (tile, K
+    chunk) unit stages nl x positions from j0 s - p, bt wide, cik
+    channels, by parity class, and with several K chunks the chunk's
+    weights (k, cik, cot), in a ring of `stages` buffers.  The b tile is
+    up to 64 positions (b tiles of equal width); the j range grows to the
+    M limit and the stage target, and b tiles narrow (to 16) while the
+    halo (k - s rows) costs more than a quarter of the slab.  Along the
+    last axis (b = 1, a > 1, Ci > 1) a and b swap, as in
+    `conv_axis_dw_tc_plan`.  With Co = 1 (`dense`) the kernel takes no
+    tiles: thread (a, j, b group) sums its cells with float32 FMAs, a
+    group being 8 consecutive b with Ci = 1 and one cell otherwise."""
+    swap = int(b == 1 and a > 1 and ci > 1)
+    if swap:
+        a, b = 1, a
+    ci1 = ci == 1
+    if ci1 and k > _FWD_CI1_MAX_K:
+        raise ValueError(f"conv_axis on tensor cores takes k <= "
+                         f"{_FWD_CI1_MAX_K} at Ci = 1, got k={k}")
+    cik = 1 if ci1 else min(_FWD_CIK, _pow2_at_least(max(ci, 8)))
+    cot = min(_FWD_COT, _pow2_at_least(max(co, 8)))
+    kst = _ceil(ci, cik)
+    fn = min(cot // 8, 4)
+    wn = cot // 8 // fn
+    wm = 8 // wn
+    mmax = min(_FWD_MROWS, wm * (8 // fn) * 16)
+    w_bytes = 2 * k * cik * cot
+    bt = b if b <= 64 else _ceil(_ceil(b, _ceil(b, 64)), 8) * 8
+    while True:
+        jq = 16 // math.gcd(bt, 16)
+        xpitch = _ci1_pitch(bt) if ci1 else 0
+        if bt * jq <= mmax:
+            jn = max(jq, min(_ceil(lo, jq), mmax // bt // jq) * jq)
+            while jn > jq and _fwd_x_bytes(jn, bt, k, s, cik,
+                                           xpitch) > _TC_STAGE_BYTES:
+                jn -= jq
+            # the same number of j tiles with the least padding
+            jn = _ceil(_ceil(lo, _ceil(lo, jn)), jq) * jq
+            if 4 * (k - s) <= jn * s or jn >= lo or bt <= 16:
+                break
+        if bt > 16:
+            bt = 16 * _ceil(bt // 2, 16)
+        elif bt > 1:
+            bt = 8 if bt > 8 else bt // 2
+        else:
+            raise ValueError(f"no conv_axis tile at k={k}, s={s}, Ci={ci}, "
+                             f"Co={co}")
+    fm = next(f for f in (1, 2, 4, 8) if wm * f * 16 >= jn * bt)
+    nl = (jn - 1) * s + k
+    nlc = _ceil(nl, s)
+    # TMA where the map takes the slab: 16-byte strides, boxes of at most
+    # 256 a dimension, class boxes at multiples of their swizzle span
+    tma = int(nlc * s <= 256 and (b % 8 == 0 if ci1 else
+                                  ci % 8 == 0 and bt % 8 == 0))
+    # bulk stores where an output row of the tile is one contiguous run of
+    # whole 16-byte pieces: all Co channels (8 or 16); Co = 1 takes the
+    # dense path, which stages nothing
+    dense = int(co == 1)
+    tma *= 1 - dense
+    bulk = int(not swap and co == cot <= 16)
+    x_bytes = _fwd_x_bytes(jn, bt, k, s, cik, xpitch)
+    out_bytes = 2 * jn * bt * cot
+
+    def smem(stages):
+        return _fwd_smem(x_bytes, w_bytes, kst, stages, out_bytes, k, tma)
+
+    stages = _TC_STAGES
+    while smem(stages) > _TC_SMEM:
+        if stages == 2:
+            raise ValueError(f"no conv_axis tile fits shared memory at "
+                             f"k={k}, s={s}, Ci={ci}, Co={co}")
+        stages -= 1
+    while stages < 5 and smem(stages + 1) <= _TC_RING_BYTES:
+        stages += 1
+    jtiles, btiles = _ceil(lo, jn), _ceil(b, bt)
+    tiles = a * jtiles * btiles
+    ntiles = _ceil(co, cot)
+    tpb = _ceil(tiles, max(1, _TC_BLOCKS // ntiles))
+    return AxisTcPlan(a, l, lo, b, ci, co, k, s, p, cik, cot, kst, wm, wn,
+                      fm, fn, bt, jn, nl, nlc, xpitch, jtiles, btiles, tiles,
+                      tpb, _ceil(tiles, tpb), ntiles, stages, smem(stages),
+                      int(ci1), swap, tma, bulk, dense)
+
+
 class SeparableConv3dFn(torch.autograd.Function):
     """`separable_conv3d` (x, wx, wy, wz, bx, by, bz, stride, pad) with B3's
     backward.  The forward is the fused kernel, which keeps the stack's
@@ -1619,5 +1850,6 @@ def reset_launch_counts():
     conv2_packed.tc_launches = 0
     conv2_packed_as_bn_act.tc_launches = 0
     conv2_packed_dx.tc_launches = 0
+    conv_axis.tc_launches = 0
     conv_axis_dx.tc_launches = 0
     conv_axis_dw.tc_launches = 0

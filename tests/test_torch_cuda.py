@@ -121,9 +121,12 @@ def test_conv_axis_kernel_matches_plain(cuda_device, axis, k, stride, pad,
     bias = (torch.randn(co, generator=g, device=cuda_device) if with_bias
             else None)
     before = K.conv_axis.launches
+    tc_before = K.conv_axis.tc_launches
     got = K.conv_axis(x, w, bias, axis=axis, stride=stride, pad=pad)
     torch.cuda.synchronize()
     assert K.conv_axis.launches == before + 1
+    # bf16 takes the tensor-core kernel, float32 the CUDA-core one
+    assert K.conv_axis.tc_launches == tc_before + (dtype == torch.bfloat16)
     ref = K.conv_axis_plain(x, w, bias, axis=axis, stride=stride, pad=pad)
     assert got.shape == ref.shape and got.dtype == dtype
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
@@ -233,12 +236,15 @@ def _check_separable(dev, shape, ci, c, k, s, p, dtype, with_bias=True,
     kw = dict(stride=(s,) * 3, pad=(p,) * 3, biases=bs)
     plan = K.separable_plan(shape[0], shape[1:4], (ci, c, c, c), (k,) * 3,
                             (s,) * 3, (p,) * 3, dtype)
-    assert K._separable_route(dtype, plan) == "fused"
+    # bf16 stacks with one output channel take three conv_axis launches
+    fused = not (dtype == torch.bfloat16 and c == 1)
+    assert K._separable_route(dtype, plan) == (
+        "fused" if fused else "per_axis")
     before = (K.separable_conv3d.launches, K.conv_axis.launches)
     got = K.separable_conv3d(x, *ws, **kw)
     torch.cuda.synchronize()
     assert (K.separable_conv3d.launches, K.conv_axis.launches) == (
-        before[0] + 1, before[1])
+        before[0] + fused, before[1] + 3 * (not fused))
     ref = K.separable_conv3d_plain(x, *ws, **kw)
     assert got.shape == ref.shape and got.dtype == dtype
     err = (got.float() - ref.float()).abs().max().item()
@@ -835,6 +841,8 @@ def test_separable_fn_on_the_card_matches_plain_autograd(cuda_device, dtype):
     tc = 1 if dtype == torch.bfloat16 else 0
     assert (K.conv_axis_dw.tc_launches,
             K.conv_axis_dx.tc_launches) == (3 * tc, 2 * tc)
+    # the recomputes of y1 and y2 take the tensor-core forward in bf16
+    assert K.conv_axis.tc_launches == 2 * tc
     ref = grads(lambda x, l: K.separable_conv3d_plain(
         x, *l[:3], stride=(2, 2, 2), pad=(2, 2, 2), biases=tuple(l[3:])))
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
@@ -842,3 +850,70 @@ def test_separable_fn_on_the_card_matches_plain_autograd(cuda_device, dtype):
         assert a.dtype == b.dtype
         assert (a.float() - b.float()).abs().max() <= tol * b.float().abs(
         ).max()
+
+
+# the tensor-core one-axis conv (bf16 x and w): the CPU walk's ragged
+# shapes (Ci or Co 1, 8, 20; k/s/p of every kind; each axis: cp.async
+# staging, 16-byte stores), shapes whose b extents are multiples of 8 (TMA
+# staging; bulk stores at Co = 8, 16), then the recompute and per-axis
+# sites of the fader (e0's D and H at batch 4) and of the depth-6 AE (a
+# 192^3 16 -> 16 stage, the 16 -> 1 output, a 512-wide stage, the disc's
+# 2 x 512 x 1024 along D and along W)
+TC_FWD_CASES = [((1, 7, 6, 9), ci, co, k, s, p, axis)
+                for ci, co in ((1, 8), (8, 20), (20, 1), (1, 1))
+                for k, s, p in ((3, 1, 1), (6, 2, 2), (2, 2, 0))
+                for axis in (1, 2, 3)] + [
+    ((2, 9, 8, 16), ci, co, k, s, p, axis)
+    for ci, co in ((1, 8), (8, 16), (16, 1), (32, 32))
+    for k, s, p in ((3, 1, 1), (6, 2, 2))
+    for axis in (1, 2, 3)] + [
+    ((4, 192, 192, 192), 1, 8, 6, 2, 2, 1),
+    ((4, 96, 192, 192), 8, 8, 6, 2, 2, 2),
+    ((1, 192, 192, 192), 16, 16, 3, 1, 1, 2),
+    ((1, 192, 192, 192), 16, 1, 3, 1, 1, 1),
+    ((3, 6, 6, 6), 512, 512, 3, 1, 1, 2),
+    ((3, 3, 3, 3), 512, 1024, 2, 2, 0, 1),
+    ((3, 1, 1, 3), 1024, 1024, 2, 2, 0, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ci,co,k,s,p,axis", TC_FWD_CASES)
+def test_axis_fwd_tensor_cores_match_plain(cuda_device, shape, ci, co, k, s,
+                                           p, axis):
+    """bf16 `conv_axis` through `conv_axis_tc.cu` against its plain version
+    (2^-7 x max|ref|), the weights a (k, Ci, Co) view of torch's (Co, Ci,
+    k) as the fader passes them, counted in `.tc_launches`; two calls
+    equal bit for bit; float32 x or float32 w keep `conv_axis.cu`."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(list(shape) + [ci], generator=g,
+                    device=cuda_device).bfloat16()
+    w = (torch.randn(co, ci, k, generator=g, device=cuda_device)
+         / (k * ci) ** 0.5).bfloat16().permute(2, 1, 0)
+    bias = torch.randn(co, generator=g, device=cuda_device)
+    kw = dict(axis=axis, stride=s, pad=p)
+    K.reset_launch_counts()
+    y = K.conv_axis(x, w, bias, **kw)
+    y2 = K.conv_axis(x, w, bias, **kw)
+    torch.cuda.synchronize()
+    assert (K.conv_axis.launches, K.conv_axis.tc_launches) == (2, 2)
+    assert torch.equal(y, y2)
+    ref = K.conv_axis_plain(x, w, bias, **kw)
+    assert y.shape == ref.shape and y.dtype == torch.bfloat16
+    assert ((y.float() - ref.float()).abs().max()
+            <= 2.0 ** -7 * ref.float().abs().max())
+    K.conv_axis(x.float(), w, bias, **kw)
+    K.conv_axis(x, w.float(), bias, **kw)
+    torch.cuda.synchronize()
+    assert (K.conv_axis.launches, K.conv_axis.tc_launches) == (4, 2)
+
+
+@pytest.mark.cuda
+def test_axis_fwd_tensor_cores_refuse_what_they_do_not_serve(cuda_device):
+    """A bf16 call the tensor-core plan cannot serve (Ci = 1 with more than
+    16 taps) raises: no fallback to the CUDA-core kernel."""
+    x = torch.randn(1, 20, 4, 8, 1, device=cuda_device).bfloat16()
+    w = torch.randn(17, 1, 8, device=cuda_device).bfloat16()
+    K.reset_launch_counts()
+    with pytest.raises(ValueError):
+        K.conv_axis(x, w, axis=1)
+    assert K.conv_axis.launches == 0
