@@ -149,6 +149,28 @@ Phases (each raises on failure, so the script exits nonzero):
    e. bf16 `_class_step`s of DilatedCNN (180^3) and VoxResNet (192^3) at
       batch 10, and one `class_train_step_accum` (micro 2): ms per step,
       vol/s, peak memory (cuDNN convs: no kernel of the port launches).
+10. detection on a synthetic template on the 1 mm MNI152 grid
+   (182 x 218 x 182, made from a seed: `mni_template`), f32 (no kernel of
+   the port launches: counts gated at 0):
+   a. registration (`transforms/registration.py`): `apply_transform`,
+      20 Adam steps of `_register_level` at level 4 (dof 9 and 12) and
+      `bias_field_correction`, card against the port on the CPU; the
+      quality gates of `tests/test_transforms.py` at full size (the
+      dof-9 misalignment: NCC against the true inverse's, gray-mask Dice,
+      the moved mask's Dice; a quarter turn with dof 6 through the coarse
+      search); `register_img_and_mask` from NIfTI files with another
+      world grid, a bias field and a lesion mask that must land; ms of
+      the grid's scores, its 16 refinements, each pyramid level's step,
+      the bias fit, a subject; peak memory; the idle share of a profiled
+      descent;
+   b. detection (`data/patches.py`, `models/patch_model.py`,
+      `infer/detection.py`): a bright lesion in the template, its patches
+      and labels (host ms), PatchModel's forward on 512 patches against
+      the CPU, training at batch 128 with Adam 3e-4 through
+      `train_classifier` (ms per step, patches/s, peak memory, falling
+      losses), then `FCDMaskGenerator.inference_pipeline` from NIfTI
+      files at batch 512 (host and device ms, idle share, IoU against the
+      lesion and the mask read back from disk).
 
 It prints one line per check, then `{"kernels": [...]}` (the kernels of
 the served path: B1 on tensor cores, B2 fused into B1 on either route,
@@ -423,6 +445,45 @@ AE_STEPS = 3
 CLASS_BATCH = 10
 DILATED_SIZE = 180
 CLASS_STEPS = 3
+
+# phase 10: detection on the card.  The reference registers each detection
+# subject to the 1 mm MNI152 grid (FSL FLIRT and FAST), cuts hemisphere-
+# pair patches guided by the MNI152 gray-matter template and trains and
+# applies PatchModel on them (`detection/`).  The repository holds no
+# template, so a synthetic one on the same grid, made from a seed, stands
+# in for it: a folded cortical shell around white matter, deep nuclei,
+# ventricles and a cerebellum, inside a zero margin, with the gray-matter
+# probability map derived from the same tissue model.
+MNI_SHAPE = (182, 218, 182)
+MNI_AFFINE = ((-1.0, 0.0, 0.0, 90.0), (0.0, 1.0, 0.0, -126.0),
+              (0.0, 0.0, 1.0, -72.0), (0.0, 0.0, 0.0, 1.0))
+REG_PARITY_ITERS = 20          # 10a: Adam steps at level 4, card vs CPU
+# Adam turns the float32 noise of the two devices' sums into parameter
+# differences of up to 2.8e-4 after 20 steps on an H100 (a component that
+# crosses zero makes its moment a cancelling sum); the NCC holds to 1e-4.
+# A step of lr 0.03 with a flipped sign would move a parameter by 0.06.
+REG_PARAM_TOL = 1e-3
+REG_LOSS_TOL = 1e-4
+BIAS_TOL = 1e-4                # x max|ref|
+APPLY_TOL = 1e-5               # x max|ref|
+# `tests/test_transforms.py`'s misalignment (dof 9) and quarter turn about
+# x with a shift (dof 6), in `params_to_affine`'s order
+MISALIGN_PARAMS = (4.0, -3.0, 2.0, 0.09, -0.07, 0.05, float(np.log(1.03)),
+                   float(np.log(0.97)), 0.0, 0.0, 0.0, 0.0)
+QUARTER_PARAMS = (8.0, -6.0, 5.0, float(np.pi / 2)) + (0.0,) * 8
+GRAY_THRESHOLD = 0.25
+REG_TIMED_ITERS = 10           # ms per iteration at each pyramid level
+REG_PROFILE_ITERS = (40, 20, 10)   # the profiled descent: fewer steps
+SUBJECT_SHIFT = (6.0, -5.0, 4.0)   # voxels between subject and MNI grids
+LESION_RADIUS = 14.0
+LESION_CONTRAST = 0.45
+DET_BATCH = 512                # FCDMaskGenerator's batch (the reference's)
+DET_TRAIN_BATCH = 128          # examples/detection_pipeline.py
+DET_LR = 3e-4
+DET_EPOCHS = 5
+DET_TIMED_STEPS = 10
+DET_FORWARD_TOL = 1e-4         # x max|ref|, card vs CPU, 512 patches
+DET_IOU_GATE = 0.1             # tests/test_infer.py's gate
 
 
 def log(*args):
@@ -3260,6 +3321,418 @@ def classification_phase(K, gen, launch_counts):
     return out
 
 
+def _logistic(v, edge, width=0.012):
+    return 1.0 / (1.0 + np.exp(-(v - edge) / width))
+
+
+def mni_template(shape=MNI_SHAPE, seed=SEED):
+    """(T1 template, gray-matter probability map), float32 on the host.
+    Geometry scales with `shape` (MNI_SHAPE is the 1 mm grid).  The brain
+    is an egg-shaped ellipsoid (normalized radius rho); sines of seeded
+    phases fold a cortex about 3 voxels thick (gray matter between folded
+    radii 0.88 and 0.925) with sulci about 15 voxels apart, so that
+    `MISALIGN_PARAMS` is a real misalignment (NCC 0.48 before, on the
+    CPU) while twice resampling keeps it sharp (the true inverse reaches
+    NCC 0.995 and gray-mask Dice 0.968).  Every voxel beyond rho 1.05 is
+    exactly 0, so each slice has the zero margin the band walk asserts."""
+    rng = np.random.default_rng(seed)
+    sc = np.asarray(shape, np.float64) / np.asarray(MNI_SHAPE)
+    x, y, z = np.meshgrid(*[np.arange(n, dtype=np.float32) for n in shape],
+                          indexing="ij", sparse=True)
+    c = np.array([90.5, 112.0, 84.0]) * sc
+    ay = np.where(y > c[1], 82.0, 90.0) * sc[1]      # narrower in front
+    rho = np.sqrt(((x - c[0]) / (68.0 * sc[0])) ** 2 + ((y - c[1]) / ay) ** 2
+                  + ((z - c[2]) / (66.0 * sc[2])) ** 2)
+    ph = rng.uniform(0.0, 2 * np.pi, 5)
+    xs, ys, zs = x / sc[0], y / sc[1], z / sc[2]
+    fold = (0.06 * np.sin(0.42 * xs + ph[0]) * np.sin(0.36 * ys + ph[1])
+            * np.sin(0.40 * zs + ph[2])
+            + 0.034 * np.sin(0.11 * (xs + ys) + ph[3])
+            * np.sin(0.13 * zs + ph[4]))
+    rf = rho + fold
+    wm = 1.0 - _logistic(rf, 0.88)
+    gm = _logistic(rf, 0.88) * (1.0 - _logistic(rf, 0.925))
+    csf = _logistic(rf, 0.925) * (1.0 - _logistic(rho, 1.0))
+
+    def blob(center, radii):
+        d = sum(((v - ci * s) / (ri * s)) ** 2
+                for v, ci, ri, s in zip((x, y, z), center, radii, sc))
+        return np.exp(-d ** 2)
+
+    nuclei = (blob((72.5, 105.0, 80.0), (8, 12, 9))
+              + blob((108.5, 105.0, 80.0), (8, 12, 9)))
+    ventricles = (blob((83.5, 125.0, 92.0), (4, 18, 6))
+                  + blob((97.5, 125.0, 92.0), (4, 18, 6)))
+    cerebellum = blob((90.5, 62.0, 42.0), (38, 22, 17))
+    t1 = 0.8 * wm + 0.5 * gm + 0.15 * csf
+    t1 = t1 * (1 - nuclei) + 0.55 * nuclei
+    t1 = t1 * (1 - ventricles) + 0.1 * ventricles
+    t1 = t1 * (1 - cerebellum) + 0.6 * cerebellum
+    gray = np.clip(gm * (1 - ventricles) + nuclei, 0, 1)
+    inside = rho < 1.05
+    gray = np.where(inside & (gray >= 1e-3), gray, 0.0)
+    return (np.where(inside, t1, 0.0).astype(np.float32),
+            gray.astype(np.float32))
+
+
+def lesion_ball(shape, radius=LESION_RADIUS):
+    """A ball in the left cortex (x below the midline) at normalized radius
+    0.87 along a fixed direction: a soft profile (a one-voxel edge) and its
+    binary mask."""
+    sc = np.asarray(shape, np.float64) / np.asarray(MNI_SHAPE)
+    c = np.array([90.5, 112.0, 84.0]) * sc
+    u = np.array([-1.0, 0.3, 0.25])
+    a = np.array([68.0, 82.0, 66.0]) * sc
+    p = c + 0.87 * u / np.sqrt(((u / a) ** 2).sum())
+    x, y, z = np.meshgrid(*[np.arange(n, dtype=np.float32) for n in shape],
+                          indexing="ij", sparse=True)
+    d = np.sqrt((x - p[0]) ** 2 + (y - p[1]) ** 2 + (z - p[2]) ** 2)
+    r = radius * float(sc.mean())
+    return (_logistic(d, r, -1.0).astype(np.float32), d <= r)
+
+
+def _dice(a, b) -> float:
+    a, b = np.asarray(a, bool), np.asarray(b, bool)
+    return float(2 * (a & b).sum() / max(a.sum() + b.sum(), 1))
+
+
+def _sync_ms(fn):
+    """(fn(), host ms around it, synchronized)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def registration_phase(K, t1, gmpm, launch_counts, out_dir):
+    """Phase 10a: registration and bias correction on the card at the
+    template's full size, f32 (TF32 off).  No kernel of the port runs."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.transforms import registration as R
+    from mri_epilepsy_diagnosis_torch.transforms.preprocessing import (
+        register_img_and_mask)
+    from mri_epilepsy_diagnosis_torch.utils.nifti import (
+        NiftiImage, load_nifti, save_nifti)
+
+    shape = tuple(t1.shape)
+    zero = {k: 0 for k in launch_counts()}
+    K.reset_launch_counts()
+    res = {"shape": list(shape), "seed": SEED}
+    tpl = torch.from_numpy(gmpm).cuda()
+    fwd = R.params_to_affine(torch.tensor(MISALIGN_PARAMS), shape).numpy()
+
+    # card against the port on the CPU
+    subject = R.apply_transform(tpl, fwd, shape)
+    ref = R.apply_transform(gmpm, fwd, shape, device="cpu")
+    err = (subject.cpu() - ref).abs().max().item() / ref.abs().max().item()
+    res["apply_transform_rel_err"] = err
+    if not err <= APPLY_TOL:
+        raise AssertionError(f"apply_transform card vs CPU: {err}")
+    mv, fx = R._downsample(ref, 4), R._downsample(torch.from_numpy(gmpm), 4)
+    for dof in (9, 12):
+        mask = torch.tensor([1.0] * dof + [0.0] * (12 - dof))
+        p_ref, l_ref = R._register_level(mv, fx, torch.zeros(12), mask,
+                                         REG_PARITY_ITERS, 0.03)
+        p, loss = R._register_level(mv.cuda(), fx.cuda(),
+                                    torch.zeros(12).cuda(), mask.cuda(),
+                                    REG_PARITY_ITERS, 0.03)
+        diff = (p.cpu() - p_ref).abs()
+        res[f"register_level4_dof{dof}"] = {
+            "param_err": diff.tolist(), "loss": [loss.item(), l_ref.item()]}
+        if not (diff.max().item() <= REG_PARAM_TOL
+                and abs(loss.item() - l_ref.item()) <= REG_LOSS_TOL):
+            raise AssertionError(f"_register_level (dof {dof}) card vs CPU: "
+                                 f"{res[f'register_level4_dof{dof}']}")
+    g = np.meshgrid(*[np.linspace(-1, 1, n, dtype=np.float32)
+                      for n in shape], indexing="ij", sparse=True)
+    field = np.exp(0.25 * g[0] - 0.2 * g[1] * g[2] + 0.15 * g[2] ** 2)
+    corrupted = (t1 * field + 0.01).astype(np.float32)
+    corrupted_card = torch.from_numpy(corrupted).cuda()
+    R.bias_field_correction(corrupted_card)                  # warm-up
+    (got, _), res["bias_correction_ms"] = _sync_ms(
+        lambda: R.bias_field_correction(corrupted_card))
+    ref, _ = R.bias_field_correction(corrupted, device="cpu")
+    err = (got.cpu() - ref).abs().max().item() / ref.abs().max().item()
+    res["bias_correction_rel_err"] = err
+    if not err <= BIAS_TOL:
+        raise AssertionError(f"bias_field_correction card vs CPU: {err}")
+    del got, ref, corrupted_card
+
+    # where the time goes: the grid's scores, the 16 refinements, and the
+    # descent's ms per iteration at each pyramid level
+    quarter = R.params_to_affine(torch.tensor(QUARTER_PARAMS), shape).numpy()
+    subject_q = R.apply_transform(tpl, quarter, shape)
+    mv, fx = R._downsample(subject_q, 4), R._downsample(tpl, 4)
+    com_mv, com_fx = R._center_of_mass(mv), R._center_of_mass(fx)
+    grid = np.deg2rad(np.arange(-150.0, 180.0 + 1e-6, 30.0,
+                                dtype=np.float32))
+    angles = torch.tensor([(a, b, c) for a in grid for b in grid
+                           for c in grid], device="cuda")
+    R._search_scores(mv, fx, com_mv, com_fx, angles[:64])   # warm-up
+    scores, res["search_scores_ms"] = _sync_ms(
+        lambda: R._search_scores(mv, fx, com_mv, com_fx, angles))
+    center = (torch.tensor(mv.shape, dtype=torch.float32,
+                           device="cuda") - 1) / 2
+    cands = R._candidate_params(angles[torch.argsort(-scores)[:R.PRESELECT]],
+                                com_mv, com_fx, center)
+    rigid = torch.tensor([1.0] * 6 + [0.0] * 6, device="cuda")
+    _, res["search_refine_ms"] = _sync_ms(
+        lambda: R._register_level(mv, fx, cands, rigid, 60, 0.03))
+    res["search_candidates"] = len(angles)
+    mask9 = torch.tensor([1.0] * 9 + [0.0] * 3, device="cuda")
+    res["ms_per_iter"] = {}
+    for level in (4, 2, 1):
+        a, b = R._downsample(subject, level), R._downsample(tpl, level)
+        R._register_level(a, b, torch.zeros(12, device="cuda"), mask9, 2,
+                          0.03)
+        _, ms = _sync_ms(lambda: R._register_level(
+            a, b, torch.zeros(12, device="cuda"), mask9, REG_TIMED_ITERS,
+            0.03))
+        res["ms_per_iter"][f"level{level}"] = ms / REG_TIMED_ITERS
+    del subject_q, mv, fx, scores
+
+    # quality: tests/test_transforms.py's gates at the template's full size
+    def ncc(a, b):
+        return float(R._ncc(a, b))
+
+    oracle = R.apply_transform(subject, np.linalg.inv(fwd), shape)
+    torch.cuda.reset_peak_memory_stats()
+    (aff, warped), res["register_dof9_ms"] = _sync_ms(
+        lambda: R.register_affine(subject, tpl, dof=9))
+    res["register_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gt = (tpl > GRAY_THRESHOLD).cpu().numpy()
+    moved = R.apply_transform((subject > GRAY_THRESHOLD).float(), aff, shape)
+    q = {"ncc_oracle": ncc(oracle, tpl), "ncc_before": ncc(subject, tpl),
+         "ncc_after": ncc(warped, tpl),
+         "dice_gray": _dice(gt, (warped > GRAY_THRESHOLD).cpu().numpy()),
+         "dice_moved_mask": _dice(gt, (moved > 0.5).cpu().numpy())}
+    res["misalignment_dof9"] = q
+    log(f"registration dof 9: {json.dumps(q)}")
+    if not (q["ncc_after"] > q["ncc_oracle"] - 0.005 and q["ncc_after"] > 0.95
+            and q["ncc_before"] < 0.5 and q["dice_gray"] > 0.95
+            and q["dice_moved_mask"] > 0.93):
+        raise AssertionError(f"registration quality (dof 9): {q}")
+    del oracle, warped, moved
+    subject_q = R.apply_transform(tpl, quarter, shape)
+    (aff_q, warped_q), res["register_quarter_turn_ms"] = _sync_ms(
+        lambda: R.register_affine(subject_q, tpl, dof=6))
+    q = {"ncc_before": ncc(subject_q, tpl), "ncc_after": ncc(warped_q, tpl)}
+    res["quarter_turn_dof6"] = q
+    log(f"registration quarter turn, dof 6: {json.dumps(q)}")
+    if not q["ncc_after"] > 0.95:
+        raise AssertionError(f"registration quality (quarter turn): {q}")
+    del subject_q, warped_q
+
+    prof = profile_batch(lambda: R.register_affine(
+        subject, tpl, dof=9, search=False, iters=REG_PROFILE_ITERS),
+        host_ops=False)
+    res["profile_descent"] = {k: prof[k] for k in (
+        "wall_ms", "device_ms", "kernel_ms", "copy_ms", "idle_share",
+        "top")}
+    res["profile_descent"]["iters"] = list(REG_PROFILE_ITERS)
+
+    # a subject from NIfTI files: its own world grid, a smooth bias, a
+    # lesion mask carried along by the recovered transform
+    shift = np.eye(4)
+    shift[:3, 3] = SUBJECT_SHIFT
+    tpl_affine = np.asarray(MNI_AFFINE)
+    to_tpl = fwd @ shift                 # subject voxel -> template voxel
+    soft, ball = lesion_ball(shape)
+    data = R.apply_transform(t1, to_tpl, shape).cpu().numpy()
+    data = np.round(data * field * 1000).astype(np.int16)
+    mask = R.apply_transform(ball.astype(np.float32), to_tpl,
+                             shape).cpu().numpy() > 0.5
+    paths = [os.path.join(out_dir, n) for n in ("subject_T1w.nii",
+                                                "subject_lesion.nii")]
+    save_nifti(paths[0], data, tpl_affine @ shift)
+    save_nifti(paths[1], mask.astype(np.uint8), tpl_affine @ shift)
+    template = NiftiImage(t1, tpl_affine)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img, lesion = load_nifti(paths[0]), load_nifti(paths[1])
+    load_ms = (time.perf_counter() - t0) * 1e3
+    (warped, corrected, wmask, total), ms = _sync_ms(
+        lambda: register_img_and_mask(img, template, lesion))
+    t1_card = torch.from_numpy(t1).cuda()
+    q = {"load_ms": load_ms, "register_and_correct_ms": ms,
+         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "ncc_warped": ncc(warped, t1_card),
+         "ncc_corrected": ncc(corrected, t1_card),
+         "dice_lesion": _dice(wmask > 0.5, ball),
+         "lesion_voxels": int(ball.sum())}
+    res["from_files"] = q
+    for p in paths:
+        os.remove(p)
+    log(f"register_img_and_mask from files: {json.dumps(q)}")
+    if not q["dice_lesion"] > 0.93:
+        raise AssertionError(f"the lesion mask did not land: {q}")
+    _expect_counts("registration", launch_counts(), zero)
+    return res
+
+
+class _Patches:
+    """`examples/detection_pipeline.py`'s dataset: channels-last patches."""
+
+    def __init__(self, patches, labels):
+        self.patches = patches.astype(np.float32)
+        self.target = labels.astype(np.int64)
+
+    def __len__(self):
+        return len(self.patches)
+
+    def __getitem__(self, i):
+        return (np.moveaxis(self.patches[i], 0, -1), int(self.target[i]), 0)
+
+
+class _LossLog:
+    """The `experiment` of `train`: keeps the per-batch and per-epoch
+    train losses."""
+
+    def __init__(self):
+        self.batches, self.epochs = [], []
+
+    def log_metric(self, name, value):
+        if name == "train_loss":
+            self.batches.append(float(value))
+
+    def log_metrics(self, values, epoch=None):
+        if "mean_train_loss" in values:
+            self.epochs.append(float(values["mean_train_loss"]))
+
+
+def detection_phase(K, t1, gmpm, launch_counts, out_dir):
+    """Phase 10b: patches, PatchModel training and whole-brain inference of
+    a synthetic subject with a bright lesion, f32, the reference's
+    settings.  No kernel of the port runs (PatchModel is cuDNN's)."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.data import DataLoader
+    from mri_epilepsy_diagnosis_torch.data.patches import (
+        get_all_patches_and_labels, iter_band_patches)
+    from mri_epilepsy_diagnosis_torch.infer import FCDMaskGenerator
+    from mri_epilepsy_diagnosis_torch.metrics import roc_auc_score
+    from mri_epilepsy_diagnosis_torch.models import PatchModel
+    from mri_epilepsy_diagnosis_torch.train import (create_model_opt,
+                                                    train_classifier)
+    from mri_epilepsy_diagnosis_torch.train.classification import _class_step
+    from mri_epilepsy_diagnosis_torch.utils.nifti import (load_nifti,
+                                                         save_nifti)
+
+    zero = {k: 0 for k in launch_counts()}
+    K.reset_launch_counts()
+    soft, ball = lesion_ball(t1.shape)
+    img = t1 + LESION_CONTRAST * soft
+    img_n = (img - img.min()) / (img.max() - img.min())
+    res = {"shape": list(t1.shape), "lesion_voxels": int(ball.sum())}
+    t0 = time.perf_counter()
+    patches, labels = get_all_patches_and_labels(img_n, gmpm, ball)
+    res["patches"] = {"host_ms": (time.perf_counter() - t0) * 1e3,
+                      "count": len(patches), "positives": int(labels.sum())}
+    log(f"detection patches: {json.dumps(res['patches'])}")
+
+    state, _ = create_model_opt(PatchModel(device="cuda"), None, lr=DET_LR,
+                                weight_decay=0.0, seed=SEED, device="cuda")
+    cpu = PatchModel(device="cpu").eval()
+    cpu.load_state_dict(state.model.state_dict())
+    x = torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(patches[:DET_BATCH], 1, -1)))
+    with torch.no_grad():
+        got = state.model.eval()(x.cuda()).cpu()
+        ref = cpu(x)
+    err = (got - ref).abs().max().item() / ref.abs().max().item()
+    res["forward_rel_err"] = err
+    if not err <= DET_FORWARD_TOL:
+        raise AssertionError(f"PatchModel card vs CPU: {err}")
+
+    loader = DataLoader(_Patches(patches, labels), batch_size=DET_TRAIN_BATCH,
+                        shuffle=True, seed=SEED)
+    steps = [tuple(torch.as_tensor(a).cuda() for a in b[:2])
+             for _, b in zip(range(DET_TIMED_STEPS + 1), loader)]
+    _class_step(state, *steps[0], None, True)                # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for xb, yb in steps[1:]:
+        _class_step(state, xb, yb, None, True)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / DET_TIMED_STEPS
+    logbook = _LossLog()
+    t0 = time.perf_counter()
+    state, *_ = train_classifier(state, loader, None, roc_auc_score,
+                                 max_epoch=DET_EPOCHS, experiment=logbook)
+    torch.cuda.synchronize()
+    train = {"batch": DET_TRAIN_BATCH, "lr": DET_LR,
+             "ms_per_step": step_s * 1e3,
+             "patches_per_s": DET_TRAIN_BATCH / step_s,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "epochs_s": time.perf_counter() - t0,
+             "epoch_losses": logbook.epochs,
+             "f32_master_weights": all(p.dtype == torch.float32
+                                       for p in state.model.parameters())}
+    res["training"] = train
+    log(f"detection training: {json.dumps(train)}")
+    if not (np.isfinite(logbook.batches).all() and train["f32_master_weights"]
+            and logbook.epochs[-1] < logbook.epochs[0]):
+        raise AssertionError(f"PatchModel training: {train}")
+
+    paths = [os.path.join(out_dir, n) for n in (
+        "detection_T1w.nii", "detection_lesion.nii", "detection_pred.nii")]
+    save_nifti(paths[0], img.astype(np.float32), np.asarray(MNI_AFFINE))
+    save_nifti(paths[1], ball.astype(np.uint8), np.asarray(MNI_AFFINE))
+    gen = FCDMaskGenerator(state.model.eval(), gmpm, batch_size=DET_BATCH)
+    gen.get_mask(img_n)                                       # warm-up
+    (pred, iou), wall = _sync_ms(
+        lambda: gen.inference_pipeline(paths[0], paths[1],
+                                       out_name=paths[2]))
+    back = load_nifti(paths[2]).get_fdata()
+    t0 = time.perf_counter()
+    brain = load_nifti(paths[0]).get_fdata()
+    brain = (brain - brain.min()) / (brain.max() - brain.min())
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cut, dests = gen._collect_patches(brain)
+    collect_ms = (time.perf_counter() - t0) * 1e3
+    found, forward_ms = _sync_ms(lambda: gen._predict(cut))
+    t0 = time.perf_counter()
+    pmt = np.zeros((4, gmpm.shape[1] // gen.h, gmpm.shape[2]), np.int64)
+    pmt[dests[:, 0], dests[:, 1], dests[:, 2]] = found
+    gen._masking(brain, gen._postprocess(pmt))
+    post_ms = (time.perf_counter() - t0) * 1e3
+    # the patch grid's ceiling: the mask of the true patch labels
+    truth = np.zeros_like(pmt)
+    for i, band, kind, _, lab in iter_band_patches(brain, gmpm, ball, gen.h,
+                                                   gen.w):
+        truth[kind, band, i] = lab
+    ceiling = gen.get_iou(gen._masking(brain, gen._postprocess(truth)) > 0,
+                          ball)
+    prof = profile_batch(lambda: gen._predict(cut), host_ops=False)
+    brain_prof = profile_batch(lambda: gen.get_mask(brain), host_ops=False)
+    for p in paths:
+        os.remove(p)
+    inf = {"batch": DET_BATCH, "patches": len(cut),
+           "positives": int(found.sum()), "wall_ms_per_brain": wall,
+           "load_ms": load_ms, "collect_host_ms": collect_ms,
+           "forward_ms": forward_ms, "forward_device_ms": prof["device_ms"],
+           "forward_idle_share": prof["idle_share"],
+           "post_host_ms": post_ms, "iou": float(iou),
+           "iou_of_true_patch_labels": float(ceiling),
+           "brain_idle_share": brain_prof["idle_share"],
+           "brain_profile_wall_ms": brain_prof["wall_ms"],
+           "brain_device_ms": brain_prof["device_ms"],
+           "mask_voxels": int(pred.sum()),
+           "mask_read_back_equal": bool(np.array_equal(back, pred)),
+           "top_kernels": prof["top"]}
+    res["inference"] = inf
+    log(f"detection inference: {json.dumps(inf)}")
+    if not (iou > DET_IOU_GATE and inf["mask_read_back_equal"]):
+        raise AssertionError(f"detection inference: {inf}")
+    _expect_counts("detection", launch_counts(), zero)
+    return res
+
+
 def ae_entry(rows, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """The AE step's sums of a kernel's timed rows (one bf16 step)."""
     return {k: sum(r[k] for r in rows) for k in keys}
@@ -3709,6 +4182,21 @@ def main() -> int:
     phase9_s = time.perf_counter() - t9
     log(f"phase 9: {phase9_s:.1f} s")
 
+    # ---- 10. detection: registration to the MNI grid, patches, PatchModel
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    t1_tpl, gmpm = mni_template()
+    template_s = time.perf_counter() - t10
+    det_dir = os.path.join("chiprun_out", "chip_smoke_detection")
+    os.makedirs(det_dir, exist_ok=True)
+    registration = registration_phase(K, t1_tpl, gmpm, launch_counts,
+                                      det_dir)
+    torch.cuda.empty_cache()
+    detection = detection_phase(K, t1_tpl, gmpm, launch_counts, det_dir)
+    os.rmdir(det_dir)
+    phase10_s = time.perf_counter() - t10
+    log(f"phase 10: {phase10_s:.1f} s (template {template_s:.1f} s)")
+
     # the kernels of the served path, one entry per kernel instantiation:
     # launches from the timed ensemble run, times summed over the sites
     # each serves in bf16.  B1 and its B2-epilogue launches are counted
@@ -4041,6 +4529,8 @@ def main() -> int:
                    "b3_per_axis_serving_sites": {"rows": b3_rows,
                                                  "errs": b3_errs},
                    "classification": classification, "phase9_s": phase9_s,
+                   "registration": registration, "detection": detection,
+                   "phase10_s": phase10_s, "template_s": template_s,
                    "build_s": build_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -49,7 +49,7 @@ def _conv(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
 
 
 def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return TF.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+    return F.dense(x, lin.weight, lin.bias)
 
 
 def _flatten_torch_order(x: torch.Tensor) -> torch.Tensor:

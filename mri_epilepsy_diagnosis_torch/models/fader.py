@@ -284,7 +284,7 @@ def _head_layers(c_in, c_out, conv_k, conv_s, conv_pad, l_in, l_out,
 
 
 def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return TF.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+    return F.dense(x, lin.weight, lin.bias)
 
 
 def _conv_head_features(head: nn.ModuleDict,

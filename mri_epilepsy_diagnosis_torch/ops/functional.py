@@ -1,11 +1,14 @@
-"""Channels-last functional ops of the fine UNet3D and the fader family
-(counterpart of the JAX package's `ops/functional.py`: `prelu`,
-`batch_norm` with the train-mode statistics of `ops/layers.py::BatchNorm`,
-`maxpool3d`, `resize_linear`, `resize_nearest`, `module_batch_norm` and
-`dropout` (with `generator_on`) for the train-mode layers, the fader's
-`relu`/`l_relu` activations, and the shape utilities `pad_to` and
-`crop_or_pad`).  Every function takes and returns `(N, D, H, W, C)`
-tensors."""
+"""Channels-last functional ops of the fine UNet3D, the fader family and
+the detection PatchModel (counterpart of the JAX package's
+`ops/functional.py`: `prelu`, `batch_norm` with the train-mode statistics
+of `ops/layers.py::BatchNorm`, `maxpool3d` and `maxpool2d` with JAX's
+gradients at tied maxima, `conv2d` and `dense`, `resize_linear`,
+`resize_nearest`, `module_batch_norm` and `dropout` (with `generator_on`)
+for the train-mode layers, the fader's `relu`/`l_relu` activations, and
+the shape utilities `pad_to` and `crop_or_pad`).  Every function takes and
+returns channels-last tensors, `(N, D, H, W, C)` or, for the 2-D ops,
+`(N, H, W, C)`; weights keep torch's layouts (`(O, I, kH, kW)`,
+`(out, in)`), where JAX's are channels-last."""
 from __future__ import annotations
 
 import functools
@@ -124,20 +127,78 @@ def activation(name: str):
     return leaky_relu if name == "l_relu" else relu
 
 
+class _BlockMaxPool(torch.autograd.Function):
+    """Non-overlapping max pool (stride == kernel, every spatial extent
+    divisible by it): the forward is a reshape and a max; the gradient
+    goes in full to every tied maximum of a block, as the custom VJP of
+    the JAX package's `_maxpool3d_blocks` gives it."""
+
+    @staticmethod
+    def forward(ctx, x, k: int):
+        n, d, h, w, c = x.shape
+        y = x.reshape(n, d // k, k, h // k, k, w // k, k, c).amax(
+            dim=(2, 4, 6))
+        ctx.save_for_backward(x, y)
+        ctx.k = k
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        k = ctx.k
+        n, d, h, w, c = x.shape
+        xr = x.reshape(n, d // k, k, h // k, k, w // k, k, c)
+        at = (slice(None),) + (slice(None), None) * 3 + (slice(None),)
+        return torch.where(xr == y[at], g[at], 0).reshape(x.shape), None
+
+
 def maxpool3d(x: torch.Tensor, kernel: int = 2,
               stride: Optional[int] = None) -> torch.Tensor:
     """`kernel`^3 max pool with torch `nn.MaxPool3d(kernel, stride)`
-    semantics (no padding, floor mode: a ragged edge is dropped).  The
-    non-overlapping case (stride == kernel) is a reshape and a max."""
+    values (no padding, floor mode: a ragged edge is dropped) and the
+    JAX package's gradients:
+    - stride == kernel with every extent divisible: `_BlockMaxPool`, the
+      full cotangent to every tied maximum;
+    - kernel 4, stride 2: the pool of 2 and stride 2, then a pool of 2
+      and stride 1, composed as JAX composes them (the same values);
+    - anything else: torch's pool, whose gradient goes to the first
+      maximum of each window, as XLA's `select_and_scatter` does for
+      JAX's `reduce_window`."""
     k = kernel
     s = k if stride is None else stride
-    if s != k:
-        y = TF.max_pool3d(x.permute(0, 4, 1, 2, 3), k, s)
-        return y.permute(0, 2, 3, 4, 1)
-    n, d, h, w, c = x.shape
-    x = x[:, :d - d % k, :h - h % k, :w - w % k]
-    xr = x.reshape(n, d // k, k, h // k, k, w // k, k, c)
-    return xr.amax(dim=(2, 4, 6))
+    if s == k and all(n % k == 0 for n in x.shape[1:4]):
+        return _BlockMaxPool.apply(x, k)
+    if (k, s) == (4, 2):
+        return maxpool3d(maxpool3d(x, 2, 2), 2, 1)
+    y = TF.max_pool3d(x.permute(0, 4, 1, 2, 3), k, s)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def maxpool2d(x: torch.Tensor, kernel: int = 2, stride: Optional[int] = None,
+              padding: int = 0) -> torch.Tensor:
+    """torch `nn.MaxPool2d(kernel, stride, padding)` on channels-last
+    `(N, H, W, C)`; the gradient goes to the first maximum of each window,
+    as JAX's `reduce_window` gives it."""
+    y = TF.max_pool2d(x.permute(0, 3, 1, 2), kernel,
+                      kernel if stride is None else stride, padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, *, stride=1, padding=0,
+           dilation=1, groups: int = 1) -> torch.Tensor:
+    """torch `F.conv2d` on channels-last `(N, H, W, C)` with a weight in
+    torch's `(O, I / groups, kH, kW)` layout; the weight and bias are cast
+    to x's dtype, as JAX casts them."""
+    y = TF.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype),
+                  None if b is None else b.to(x.dtype), stride=stride,
+                  padding=padding, dilation=dilation, groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
+    """`x @ w.T (+ b)`, torch `nn.Linear` with its `(out, in)` weight (JAX
+    stores `(in, out)`), the weight and bias cast to x's dtype."""
+    return TF.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
 
 
 @functools.lru_cache(maxsize=None)

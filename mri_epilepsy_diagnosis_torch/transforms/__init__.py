@@ -6,7 +6,10 @@ from .labels import LIST_FCD, binarize_segmentation
 from .augment import (random_flip, random_noise, random_bias_field,
                       random_affine, random_elastic_deformation, random_motion,
                       Compose, OneOf)
-from .preprocessing import preprocess_volume
+from .preprocessing import (preprocess_volume, register_img,
+                            register_img_and_mask)
+from .registration import (apply_transform, bias_field_correction,
+                           coarse_search, params_to_affine, register_affine)
 
 __all__ = [
     "znormalization", "rescale_intensity", "minmax_norm",
@@ -16,5 +19,7 @@ __all__ = [
     "LIST_FCD", "binarize_segmentation",
     "random_flip", "random_noise", "random_bias_field", "random_affine",
     "random_elastic_deformation", "random_motion", "Compose", "OneOf",
-    "preprocess_volume",
+    "preprocess_volume", "register_img", "register_img_and_mask",
+    "apply_transform", "bias_field_correction", "coarse_search",
+    "params_to_affine", "register_affine",
 ]

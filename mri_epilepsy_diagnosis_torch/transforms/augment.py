@@ -84,17 +84,26 @@ def random_bias_field(gen, vol, coefficients: float = 0.5, order: int = 3):
     return _apply_bias_field(vol, coeffs, order)
 
 
+def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched (..., 3, 3) @ (..., 3, k) in float32 by explicit products
+    and sums, so that no TF32 matmul on the card can round it."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
+
+
 def _rotation_matrix(angles_rad: torch.Tensor) -> torch.Tensor:
-    cx, cy, cz = torch.cos(angles_rad)
-    sx, sy, sz = torch.sin(angles_rad)
-    one, zero = torch.ones(()), torch.zeros(())
-    rx = torch.stack([torch.stack(r) for r in (
-        (one, zero, zero), (zero, cx, -sx), (zero, sx, cx))])
-    ry = torch.stack([torch.stack(r) for r in (
-        (cy, zero, sy), (zero, one, zero), (-sy, zero, cy))])
-    rz = torch.stack([torch.stack(r) for r in (
-        (cz, -sz, zero), (sz, cz, zero), (zero, zero, one))])
-    return rx @ ry @ rz
+    """R = Rx @ Ry @ Rz of angles (..., 3) in radians about x, y, z: a
+    (..., 3, 3) tensor on the angles' device, differentiable."""
+    cx, cy, cz = torch.cos(angles_rad).unbind(-1)
+    sx, sy, sz = torch.sin(angles_rad).unbind(-1)
+    one, zero = torch.ones_like(cx), torch.zeros_like(cx)
+
+    def mat(*rows):
+        return torch.stack(rows, -1).reshape(*cx.shape, 3, 3)
+
+    rx = mat(one, zero, zero, zero, cx, -sx, zero, sx, cx)
+    ry = mat(cy, zero, sy, zero, one, zero, -sy, zero, cy)
+    rz = mat(cz, -sz, zero, sz, cz, zero, zero, zero, one)
+    return _matmul3(_matmul3(rx, ry), rz)
 
 
 def _affine_from_params(shape, scales, degrees, translation

@@ -75,16 +75,19 @@ def _output_grid(shape: Sequence[int], device) -> torch.Tensor:
 def affine_resample(vol: torch.Tensor, affine_vox, out_shape=None,
                     fill_value: float = 0.0) -> torch.Tensor:
     """Resample (D, H, W) `vol` onto `out_shape` through a 4x4 voxel->voxel
-    affine mapping *output* voxel coordinates to *input* ones.  The
+    affine mapping *output* voxel coordinates to *input* ones, or through
+    each of a batch (..., 4, 4) of them: (..., *out_shape).  The
     coordinates are formed in float32 by explicit products and sums, not
     a matmul, so that TF32 cannot round them (JAX forms them with a
-    `Precision.HIGHEST` matmul)."""
+    `Precision.HIGHEST` matmul); a tensor affine stays differentiable."""
     out_shape = tuple(vol.shape if out_shape is None else out_shape)
     g = _output_grid(out_shape, vol.device)
     a = torch.as_tensor(affine_vox, dtype=torch.float32).to(vol.device)
-    src = torch.stack([a[i, 0] * g[0] + a[i, 1] * g[1] + a[i, 2] * g[2]
-                       + a[i, 3] for i in range(3)])
-    return trilinear_sample(vol, src, fill_value)
+    batch = a.shape[:-2]
+    a = a.reshape(-1, 4, 4)[..., None, None, None]
+    src = torch.stack([a[:, i, 0] * g[0] + a[:, i, 1] * g[1]
+                       + a[:, i, 2] * g[2] + a[:, i, 3] for i in range(3)])
+    return trilinear_sample(vol, src, fill_value).reshape(*batch, *out_shape)
 
 
 def warp_dense(vol: torch.Tensor, displacement: torch.Tensor,

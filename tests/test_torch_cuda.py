@@ -917,3 +917,133 @@ def test_axis_fwd_tensor_cores_refuse_what_they_do_not_serve(cuda_device):
     with pytest.raises(ValueError):
         K.conv_axis(x, w, axis=1)
     assert K.conv_axis.launches == 0
+
+
+def _registration_pair(seed, shape=(48, 56, 40)):
+    """A blob volume and the same volume under a small rigid motion."""
+    import numpy as np
+
+    from mri_epilepsy_diagnosis_torch.transforms import registration as TR
+
+    rng = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(*[np.arange(s, dtype=np.float32)
+                               for s in shape], indexing="ij"))
+    vol = np.zeros(shape, np.float32)
+    for _ in range(6):
+        mu = rng.uniform(0.3, 0.7, 3) * np.array(shape)
+        sd = rng.uniform(3.0, 6.0, 3)
+        vol += np.exp(-np.square((g - mu[:, None, None, None])
+                                 / sd[:, None, None, None]).sum(0))
+    params = torch.tensor([2.0, -1.5, 1.0, 0.08, -0.06, 0.05]
+                          + [0.0] * 6)
+    moved = TR.apply_transform(vol, TR.params_to_affine(params, shape),
+                               shape, device="cpu")
+    return torch.from_numpy(vol), moved
+
+
+@pytest.mark.cuda
+def test_register_level_on_the_card_matches_cpu(cuda_device):
+    """20 Adam steps of `_register_level` (the 12-parameter descent) on the
+    card against the CPU: parameters 1e-4, loss 1e-5 at this size
+    (chip_smoke.py's phase 10a holds 182 x 218 x 182 to 1e-3 and 1e-4:
+    there Adam amplifies the two devices' float32 noise further)."""
+    from mri_epilepsy_diagnosis_torch.transforms import registration as TR
+
+    fixed, moving = _registration_pair(30)
+    args = (torch.zeros(12), torch.ones(12), 20, 0.03)
+    p_ref, loss_ref = TR._register_level(moving, fixed, *args)
+    p, loss = TR._register_level(moving.to(cuda_device),
+                                 fixed.to(cuda_device),
+                                 *(a.to(cuda_device) for a in args[:2]),
+                                 *args[2:])
+    assert p.device.type == "cuda"
+    assert (p.cpu() - p_ref).abs().max().item() <= 1e-4
+    assert abs(loss.item() - loss_ref.item()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_bias_correction_on_the_card_matches_cpu(cuda_device):
+    """`bias_field_correction` on the card (float64 normal equations; no
+    TF32 matmul even when TF32 is on) against the CPU: 1e-4 x max|ref|."""
+    from mri_epilepsy_diagnosis_torch.transforms import registration as TR
+
+    vol, _ = _registration_pair(31)
+    g = torch.meshgrid(*[torch.linspace(-1, 1, s) for s in vol.shape],
+                       indexing="ij")
+    corrupted = (vol + 0.1) * torch.exp(0.4 * g[0] - 0.2 * g[1] * g[2])
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got, bias = TR.bias_field_correction(corrupted.to(cuda_device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    ref, ref_bias = TR.bias_field_correction(corrupted)
+    assert got.device.type == "cuda"
+    assert (got.cpu() - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert (bias.cpu() - ref_bias).abs().max() <= 1e-4 * ref_bias.abs().max()
+
+
+@pytest.mark.cuda
+def test_patch_model_on_the_card_matches_cpu(cuda_device, no_tf32):
+    """PatchModel's eval forward on 512 patches on the card against the CPU
+    port with the same weights: 1e-4 x max|ref|; its default device is
+    the card."""
+    from mri_epilepsy_diagnosis_torch.models import PatchModel
+
+    torch.manual_seed(32)
+    cpu = PatchModel(device="cpu").eval()
+    card = PatchModel().eval()
+    assert next(card.parameters()).device.type == "cuda"
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(512, 16, 32, 2, generator=torch.Generator().manual_seed(
+        33))
+    with torch.no_grad():
+        got = card(x.to(cuda_device))
+        ref = cpu(x)
+    assert (got.cpu() - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_detection_entry_points_default_to_the_card(cuda_device):
+    """Without `device`, registration takes an array to the card and the
+    mask generator sends its patches there."""
+    import numpy as np
+
+    from mri_epilepsy_diagnosis_torch.infer import FCDMaskGenerator
+    from mri_epilepsy_diagnosis_torch.transforms import registration as TR
+
+    fixed, moving = _registration_pair(34, (24, 24, 24))
+    aff, warped = TR.register_affine(moving.numpy(), fixed.numpy(),
+                                     levels=(2, 1), iters=(5, 5),
+                                     search=False)
+    assert warped.device.type == "cuda" and aff.shape == (4, 4)
+    seen = []
+
+    def model(x):
+        seen.append(x.device.type)
+        return torch.zeros(x.shape[0], 2, device=x.device)
+
+    gmpm = np.zeros((96, 96, 2), np.float32)
+    gmpm[10:86, 20:76] = 1.0
+    mask = FCDMaskGenerator(model, gmpm, batch_size=64).get_mask(
+        np.random.default_rng(0).random((96, 96, 2)))
+    assert seen and set(seen) == {"cuda"} and mask.shape == (96, 96, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,stride", [(2, None), (4, 2), (3, None)])
+def test_maxpool3d_grad_on_the_card_matches_cpu(cuda_device, kernel, stride):
+    """The max-pool gradients at tied maxima (block, composed k=4 s=2 and
+    ragged cases) are the same on the card as on the CPU."""
+    from mri_epilepsy_diagnosis_torch.ops import functional as F
+
+    x = torch.randint(0, 3, (2, 8, 10, 9, 3),
+                      generator=torch.Generator().manual_seed(35)).float()
+    grads = []
+    for dev in ("cpu", cuda_device):
+        xd = x.to(dev).clone().requires_grad_(True)
+        y = F.maxpool3d(xd, kernel, stride)
+        y.backward(torch.arange(y.numel(), dtype=torch.float32).reshape(
+            y.shape).to(dev) % 5)
+        grads.append(xd.grad.cpu())
+    assert torch.equal(grads[0], grads[1])

@@ -35,11 +35,14 @@ def test_port_sources_found():
             "surface.py", "nifti.py", "spatial.py", "intensity.py",
             "preprocessing.py", "augment.py", "data.py", "pipeline.py",
             "collate.py", "sliding_window.py", "cnn.py",
-            "classification.py"} <= names
+            "classification.py", "registration.py", "patches.py",
+            "detection.py", "patch_model.py"} <= names
     port = ROOT / "mri_epilepsy_diagnosis_torch"
     for path in ("native/__init__.py", "train/fader.py",
                  "train/classification.py", "metrics/classification.py",
-                 "models/cnn.py"):
+                 "models/cnn.py", "transforms/registration.py",
+                 "data/patches.py", "infer/detection.py",
+                 "models/patch_model.py"):
         assert port / path in SOURCES
 
 
