@@ -171,6 +171,27 @@ Phases (each raises on failure, so the script exits nonzero):
       losses), then `FCDMaskGenerator.inference_pipeline` from NIfTI
       files at batch 512 (host and device ms, idle share, IoU against the
       lesion and the mask read back from disk).
+11. int8 serving and the composed decoder:
+   a. the phase-4 UNet calibrated on 2 of its volumes and quantized
+      (`models/unet_packed_q.py::quantize_inference`); every K1
+      (`conv2_packed_s8`, `csrc/conv2_packed_s8.cu`: 10 sites) and K2
+      (`upconv_packed_s8`, `csrc/upconv_packed_s8.cu`: d0 and d1) launch
+      of its 192^3 int8 trunk, recorded at batch 1, against its plain
+      version (float64 sums): int32 and fused-epilogue int8 outputs equal
+      exactly; ms at batch 8, the plain ms at batch 1, the bound (int8
+      operations at 1,979 TOP/s or bytes at 3.35 TB/s) and the bf16 B1
+      launch at the same site (for K2 also `upsample2_packed` and the
+      float composed up-conv, one cuDNN transposed conv);
+   b. the 16 volumes served through `segment_volumes(mask_fn=
+      packed_unet_mask_v2_int8)` at batch 8: masks against phase 4's f32
+      fine masks (agreement >= 0.995, JAX's gate; foreground Dice >= 0.9),
+      exact launch counts per batch (K1 10, all with the epilogue fused,
+      K2 2, no other kernel of the port), vol/s, batch latency, a
+      profiled batch beside phase 4's bf16 numbers;
+   c. the packed train step with `dec_up="composed"` and `"hybrid"`
+      against `"explicit"` in f32 at 64^3 (phase 6b's tolerances), then
+      ms per 192^3 batch-2 bf16 step of each form and the up branch's
+      forward and backward alone (CUDA events).
 
 It prints one line per check, then `{"kernels": [...]}` (the kernels of
 the served path: B1 on tensor cores, B2 fused into B1 on either route,
@@ -178,7 +199,7 @@ fused B3; of the training path: B1's forward on tensor cores, the
 stem's forward on CUDA cores, B1 as input gradient; of f32 validation;
 of phase 8's sliding window and patch training; of phase 9's fader
 training: fused B3, B3's dx and dw and the `conv_axis` recomputes on
-tensor cores; the standalone
+tensor cores; of phase 11's int8 serving: K1 and K2; the standalone
 B2, off every path, goes to the JSON file with its numbers, as does dw
 of the packed UNet, which is cuBLAS and no kernel of the port), the card's
 `nvidia-smi` name and power limit, and last
@@ -200,7 +221,7 @@ import numpy as np
 # kernel is the larger of its bytes over HBM bandwidth and its operations
 # over the peak rate of their type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 SIZE = 192
 BATCH = 8
@@ -484,6 +505,21 @@ DET_EPOCHS = 5
 DET_TIMED_STEPS = 10
 DET_FORWARD_TOL = 1e-4         # x max|ref|, card vs CPU, 512 patches
 DET_IOU_GATE = 0.1             # tests/test_infer.py's gate
+
+# int8 serving (phase 11): the K1 sites of the 192^3 int8 trunk in call
+# order, and the K2 sites
+Q_SITES = ("e0c1", "e0c2", "e1c1", "e1c2", "bc1", "bc2", "d0c1", "d0c2",
+           "d1c1", "d1c2")
+Q_UP_SITES = ("d0", "d1")
+Q_TIMED_BATCH = BATCH
+Q_CALIB_VOLUMES = 2
+Q_MASK_AGREEMENT = 0.995       # tests/test_quant.py:72
+Q_DICE_GATE = 0.9              # foreground Dice, int8 vs f32 masks
+# per served batch: K1 at every k=2 packed conv (all with the epilogue
+# fused), K2 at both up branches, no other kernel of the port
+Q_PER_BATCH = {"conv2_packed_s8": len(Q_SITES),
+               "conv2_packed_s8_fused": len(Q_SITES),
+               "upconv_packed_s8": len(Q_UP_SITES), "other_kernels": 0}
 
 
 def log(*args):
@@ -1205,7 +1241,8 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True):
                       "separable_conv3d_kernel", "conv_axis_dx_kernel",
                       "conv_axis_dw_partial_kernel",
                       "conv_axis_dw_finish_kernel", "axis_dx_tc_kernel",
-                      "axis_dw_tc_kernel", "axis_dw_tc_finish_kernel")}
+                      "axis_dw_tc_kernel", "axis_dw_tc_finish_kernel",
+                      "conv2_packed_s8_kernel", "upconv_packed_s8_kernel")}
     # the epilogue instantiations carry `true>` in their template arguments
     fused_tc = sum(r[1] for r in rows if "conv2_packed_tc_kernel" in r[0]
                    and "true>" in r[0])
@@ -1240,6 +1277,8 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True):
             "conv_axis_dw_ms": ours["conv_axis_dw_partial_kernel"]
             + ours["conv_axis_dw_finish_kernel"] + ours["axis_dw_tc_kernel"]
             + ours["axis_dw_tc_finish_kernel"],
+            "conv2_packed_s8_ms": ours["conv2_packed_s8_kernel"],
+            "upconv_packed_s8_ms": ours["upconv_packed_s8_kernel"],
             "other_kernels_ms": device_ms - copy_ms - sum(ours.values()),
             "top": [{"name": k[:90], "ms": ms, "calls": n}
                     for k, ms, n in rows[:top]]}
@@ -3733,6 +3772,381 @@ def detection_phase(K, t1, gmpm, launch_counts, out_dir):
     return res
 
 
+def record_s8_sites(Q, K, fn):
+    """The K1 (`conv2_packed_s8`) and K2 (`upconv_packed_s8`) calls of one
+    int8 forward `fn()`, in call order, with their arguments (the int8
+    activations, weights and epilogue vectors as the path gives them).
+    Patches the int8 model module's `K`, not the kernels module."""
+    import types
+
+    calls = {"conv2_packed_s8": [], "upconv_packed_s8": []}
+
+    def recorder(name):
+        real = getattr(K, name)
+
+        def run(*args, **kw):
+            calls[name].append((args, kw))
+            return real(*args, **kw)
+        return run
+
+    proxy = types.SimpleNamespace(**{k: getattr(K, k) for k in dir(K)
+                                     if not k.startswith("__")})
+    for name in calls:
+        setattr(proxy, name, recorder(name))
+    Q.K = proxy
+    try:
+        out = fn()
+    finally:
+        Q.K = K
+    return out, calls
+
+
+def _batched_like(t, batch):
+    """t (batch 1) repeated to `batch` items, contiguous."""
+    return None if t is None else t.expand(batch, *t.shape[1:]).contiguous()
+
+
+def _bound_row(ops, nbytes, peak):
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": ops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def s8_kernel_phase(K, P, calls):
+    """Phase 11a: every K1 and K2 launch of the 192^3 int8 trunk (recorded
+    at batch 1): the kernel against its plain version on the path's own
+    tensors at batch 1, int32 (raw) and int8 (fused) equal exactly; then
+    ms at batch Q_TIMED_BATCH (the batch-1 tensors repeated), the plain
+    version's ms at batch 1, the bound (operations at the int8 peak or
+    bytes at HBM rate, the larger) and, as a yardstick, the bf16 B1
+    launch at the same site (for K2, the explicit up branch's aligned->
+    shifted launch on the upsampled input, beside `upsample2_packed`) and
+    the float composed up-conv (`upconv_packed`, one cuDNN transposed
+    conv, bf16).  No library int8 conv exists to compare with."""
+    import torch
+
+    b = Q_TIMED_BATCH
+    k1_rows, k2_rows, errs = [], [], {"k1_raw": 0, "k1_fused": 0, "k2": 0}
+    for site, (args, kw) in zip(Q_SITES, calls["conv2_packed_s8"]):
+        x8, w8 = args
+        pad = kw["pad"]
+        ep = {k: v for k, v in kw.items() if k != "pad"}
+        raw = K.conv2_packed_s8(x8, w8, pad=pad)
+        raw_ref = K.conv2_packed_s8_plain(x8, w8, pad=pad)
+        fused = K.conv2_packed_s8(x8, w8, pad=pad, **ep)
+        t0 = time.perf_counter()
+        fused_ref = K.conv2_packed_s8_plain(x8, w8, pad=pad, **ep)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        e_raw = (raw.long() - raw_ref.long()).abs().max().item()
+        e_fused = (fused.int() - fused_ref.int()).abs().max().item()
+        errs["k1_raw"] = max(errs["k1_raw"], e_raw)
+        errs["k1_fused"] = max(errs["k1_fused"], e_fused)
+        xb = _batched_like(x8, b)
+        add = _batched_like(ep.get("addend"), b)
+        epb = {**ep, "addend": add}
+        ms = time_ms(lambda: K.conv2_packed_s8(xb, w8, pad=pad, **epb), 5)
+        raw_ms = time_ms(lambda: K.conv2_packed_s8(xb, w8, pad=pad), 3)
+        xh = torch.randn(xb.shape, device="cuda").to(torch.bfloat16)
+        wh = (torch.randn(w8.shape, device="cuda")
+              / (8 * w8.shape[3]) ** 0.5).to(torch.bfloat16)
+        b1_ms = time_ms(lambda: K.conv2_packed(xh, wh, pad=pad), 5)
+        n, di, hi, wi, c8i = xb.shape
+        c8o = w8.shape[4]
+        step = 1 if pad else -1
+        cells = n * (di + step) * (hi + step) * (wi + step)
+        nbytes = (xb.numel() + w8.numel() + cells * c8o
+                  + (4 * add.numel() if add is not None else 0)
+                  + 4 * 4 * c8o)
+        row = {"site": site, "pad": pad, "x": list(xb.shape),
+               "w": list(w8.shape), "addend": add is not None, "ms": ms,
+               "raw_int32_ms": raw_ms, "plain_ms": plain_ms,
+               "plain_batch": int(x8.shape[0]), "bf16_b1_ms": b1_ms,
+               "max_abs_err_raw": e_raw, "max_abs_err_fused": e_fused,
+               **_bound_row(2.0 * cells * 8 * c8i * c8o, nbytes,
+                            PEAK_OPS_PER_S["int8"])}
+        row["tops"] = row["flops"] / ms / 1e9
+        k1_rows.append(row)
+        log(f"K1 {site}: {json.dumps(row)}")
+        del xb, add, epb, xh, wh, raw, raw_ref, fused, fused_ref
+    for site, (args, _) in zip(Q_UP_SITES, calls["upconv_packed_s8"]):
+        xe8, wk8 = args
+        got = K.upconv_packed_s8(xe8, wk8)
+        t0 = time.perf_counter()
+        ref = K.upconv_packed_s8_plain(xe8, wk8)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = (got.long() - ref.long()).abs().max().item()
+        errs["k2"] = max(errs["k2"], err)
+        del got, ref
+        xeb = _batched_like(xe8, b)
+        ms = time_ms(lambda: K.upconv_packed_s8(xeb, wk8), 3)
+        n, dp, hp, wp, c8i = xeb.shape
+        c8o = wk8.shape[4]
+        plan = K.upconv_s8_plan((dp, hp, wp), c8i, c8o)
+        ops = 2.0 * n * c8o * sum(int(np.prod(c.cells)) * c.k for c in plan)
+        out_cells = n * (2 * dp - 3) * (2 * hp - 3) * (2 * wp - 3)
+        nbytes = xeb.numel() + wk8.numel() + 4 * out_cells * c8o
+        # the explicit bf16 up branch at this site: the coarse aligned
+        # cells upsampled, then an aligned->shifted B1 launch
+        sc = (dp - 2, hp - 2, wp - 2)
+        xa = torch.randn((n, *sc, c8i), device="cuda").to(torch.bfloat16)
+        wa = (torch.randn((2, 2, 2, c8i, c8o), device="cuda")
+              / (8 * c8i) ** 0.5).to(torch.bfloat16)
+        up = P.upsample2_packed(xa)
+        b1_ms = time_ms(lambda: K.conv2_packed(up, wa, pad=1), 3)
+        up_ms = time_ms(lambda: P.upsample2_packed(xa), 3)
+        wk = torch.randn(wk8.shape, device="cuda").to(torch.bfloat16) / (
+            125 * c8i) ** 0.5
+        composed_ms = time_ms(lambda: P.upconv_packed(xa, wk), 3)
+        # the float composed conv's own bound: the same parity-class work
+        # at the bf16 peak, bf16 input, kernel and output moved once
+        composed_bound = _bound_row(
+            ops, 2 * (xa.numel() + wk.numel() + out_cells * c8o),
+            PEAK_OPS_PER_S["bf16"])["bound_ms"]
+        row = {"site": site, "x_padded": list(xeb.shape),
+               "w": list(wk8.shape), "ms": ms, "plain_ms": plain_ms,
+               "plain_batch": int(xe8.shape[0]), "bf16_b1_ms": b1_ms,
+               "bf16_upsample_ms": up_ms,
+               "bf16_composed_cudnn_ms": composed_ms,
+               "bf16_composed_bound_ms": composed_bound,
+               "taps_per_cell": sum(int(np.prod(c.cells)) * int(
+                   np.prod(c.taps)) for c in plan) / (out_cells / n),
+               "max_abs_err": err,
+               **_bound_row(ops, nbytes, PEAK_OPS_PER_S["int8"])}
+        row["tops"] = row["flops"] / ms / 1e9
+        k2_rows.append(row)
+        log(f"K2 {site}: {json.dumps(row)}")
+        del xeb, xa, wa, up, wk
+    torch.cuda.empty_cache()
+    log(f"K1/K2 max |kernel - plain|: {json.dumps(errs)} (must be 0)")
+    if any(errs.values()):
+        raise AssertionError(f"int8 kernels differ from their plain "
+                             f"versions: {errs}")
+    return k1_rows, k2_rows, errs
+
+
+def _s8_counts(K, launch_counts):
+    c = launch_counts()
+    return {"conv2_packed_s8": K.conv2_packed_s8.launches,
+            "conv2_packed_s8_fused": K.conv2_packed_s8.fused_launches,
+            "upconv_packed_s8": K.upconv_packed_s8.launches,
+            "other_kernels": sum(c.values())}
+
+
+def int8_serving_phase(K, Q, q, vols, fine_masks, znorm_batch,
+                       launch_counts, bf16):
+    """Phase 11b: serve phase 4's volumes with the quantized phase-4 UNet
+    `q` (He-scaled, 2% foreground; calibrated on Q_CALIB_VOLUMES of them)
+    through `segment_volumes(mask_fn=packed_unet_mask_v2_int8)` at batch
+    BATCH, float32 input: masks against phase 4's f32 fine masks
+    (agreement >= Q_MASK_AGREEMENT, JAX's gate; foreground Dice >=
+    Q_DICE_GATE), exact launch counts per batch (K1 10, all fused, K2 2,
+    no other kernel of the port), vol/s, batch latency, peak memory and
+    one profiled batch beside phase 4's bf16 numbers.  Returns the
+    numbers and the gates that failed."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.infer.serving import segment_volumes
+
+    n_batches = -(-len(vols) // BATCH)
+
+    def serve(volumes):
+        t = time.perf_counter()
+        outs = list(segment_volumes(
+            None, q, volumes, batch_size=BATCH, dtype=torch.float32,
+            device="cuda", device_preprocess=znorm_batch,
+            transfer_dtype=np.int16, mask_fn=Q.packed_unet_mask_v2_int8,
+            pack_masks=True))
+        dt = time.perf_counter() - t
+        if (len(outs) != len(volumes)
+                or outs[0]["mask"].shape != (SIZE,) * 3):
+            raise AssertionError("int8 serving returned wrong masks")
+        return dt, np.stack([o["mask"] for o in outs])
+
+    serve(vols[:BATCH])                            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t_s, masks = serve(vols)
+    counts = _s8_counts(K, launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: v * n_batches for k, v in Q_PER_BATCH.items()}
+    profile = profile_batch(lambda: serve(vols[:BATCH]))
+    agree = float(np.mean(masks == fine_masks))
+    fg8, fgf = masks.astype(bool), fine_masks.astype(bool)
+    dice = float(2 * (fg8 & fgf).sum() / (fg8.sum() + fgf.sum()))
+    out = {"volumes": len(vols), "batch": BATCH, "size": SIZE,
+           "calibration_volumes": Q_CALIB_VOLUMES, "s": t_s, "vol_per_s": len(vols) / t_s,
+           "ms_per_batch": t_s / n_batches * 1e3, "peak_memory_gb": peak_gb,
+           "launches": counts, "launches_expected": want,
+           "foreground_share": float(masks.mean()),
+           "foreground_share_f32": float(fine_masks.mean()),
+           "mask_agreement_vs_f32": agree, "foreground_dice_vs_f32": dice,
+           "profile": profile,
+           "bf16_vol_per_s": bf16["serving"]["int16_vol_per_s"],
+           "bf16_ms_per_batch": bf16["serving"]["int16_ms_per_batch"],
+           "bf16_profile_device_ms": bf16["profile"]["device_ms"],
+           "bf16_profile_idle_share": bf16["profile"]["idle_share"]}
+    log(f"int8 serving: {json.dumps({k: v for k, v in out.items() if k != 'profile'})}")
+    log(f"int8 profile: {json.dumps(profile)}")
+    fails = []
+    if counts != want:
+        fails.append(f"launch counts {counts} != {want}")
+    if agree < Q_MASK_AGREEMENT:
+        fails.append(f"mask agreement {agree} < {Q_MASK_AGREEMENT}")
+    if dice < Q_DICE_GATE:
+        fails.append(f"foreground Dice {dice} < {Q_DICE_GATE}")
+    if not FG_GATE[0] <= out["foreground_share"] <= FG_GATE[1]:
+        fails.append(f"degenerate int8 masks: {out['foreground_share']}")
+    return out, fails
+
+
+def composed_training_phase(K, P, TS, UNet3D, gen):
+    """Phase 11c: the packed train step with `dec_up="composed"` and
+    `"hybrid"` against `"explicit"`: in f32 at PARITY_SIZE^3, batch 1, TF32
+    off, loss, gradients and running statistics at phase 6b's tolerances;
+    then at SIZE^3, batch TRAIN_BATCH, bf16, ms per step of each form (1
+    warm-up, TIMED_STEPS timed), one profiled step of each (device time,
+    idle share, the top kernels) and, from CUDA events, the up branch's
+    forward and backward alone at each decoder site's shapes, whose sum
+    over the two sites over the step's time is the branch's share."""
+    import copy
+
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.train.optim import torch_adamw
+    from mri_epilepsy_diagnosis_torch.train.state import TrainState
+
+    forms = ("explicit", "composed", "hybrid")
+    model = UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
+                   out_channels_first_layer=OCFL, device="cuda")
+    random_state_dict(model, gen)
+    x = torch.randn((1, PARITY_SIZE, PARITY_SIZE, PARITY_SIZE, 1),
+                    generator=gen, device="cuda")
+    _, labels = seg_batches(gen, 1, 1, PARITY_SIZE)[0]
+    labels = torch.from_numpy(labels).cuda()
+    models, losses = {}, {}
+    for form in forms:
+        m = copy.deepcopy(model)
+        state = TrainState(m, torch_adamw(1e-3)(m.parameters()))
+        _, loss = TS.packed_seg_train_step(state, x, labels, dec_up=form)
+        models[form], losses[form] = m, loss.item()
+    parity = {form: _grads_and_stats_agree(
+        f"f32 {form} vs explicit ({PARITY_SIZE}^3 b1)", models[form],
+        models["explicit"], losses[form], losses["explicit"])
+        for form in forms[1:]}
+    del models, model
+    torch.cuda.empty_cache()
+
+    model = UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
+                   out_channels_first_layer=OCFL, device="cuda")
+    random_state_dict(model, gen)
+    xb, lb = seg_batches(gen, 1, TRAIN_BATCH, SIZE)[0]
+    xb = torch.from_numpy(xb).cuda().to(torch.bfloat16)
+    lb = torch.from_numpy(lb).cuda()
+    steps = {}
+    for form in forms:
+        m = copy.deepcopy(model)
+        state = TrainState(m, torch_adamw(1e-3)(m.parameters()))
+        TS.packed_seg_train_step(state, xb, lb, dec_up=form)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            _, loss = TS.packed_seg_train_step(state, xb, lb, dec_up=form)
+        torch.cuda.synchronize()
+        steps[form] = {"ms_per_step": (time.perf_counter() - t0) * 1e3
+                       / TIMED_STEPS, "loss": loss.item(),
+                       "peak_memory_gb":
+                           torch.cuda.max_memory_allocated() / 1e9}
+        if not np.isfinite(steps[form]["loss"]):
+            raise AssertionError(f"{form}: non-finite loss")
+        prof = profile_batch(lambda: TS.packed_seg_train_step(
+            state, xb, lb, dec_up=form), top=8, host_ops=False)
+        steps[form]["profile"] = {k: prof[k] for k in (
+            "wall_ms", "device_ms", "idle_share", "top")}
+        del m, state
+        torch.cuda.empty_cache()
+    # the up branch alone, forward + backward, at the step's decoder shapes
+    sd = model.state_dict()
+    up_ms = {form: 0.0 for form in forms}
+    for i, (cells, c_in) in enumerate(((SIZE // 8, 8 * OCFL),
+                                       (SIZE // 4, 4 * OCFL))):
+        w = sd[f"decoder.decoding_blocks.{i}.conv1.conv_layer.weight"]
+        w_u = w[:, w.shape[1] - c_in:].detach()
+        xa = torch.randn((TRAIN_BATCH, cells, cells, cells, 8 * c_in),
+                         device="cuda").to(torch.bfloat16)
+        for form in forms:
+            def run():
+                xx = xa.detach().requires_grad_()
+                ww = w_u.detach().requires_grad_()
+                if form == "explicit":
+                    y = P.conv3_packed_as(P.upsample2_packed(xx),
+                                          P.pack_weights2_as(ww))
+                else:
+                    core = (P.upconv_core_hybrid(xx, ww) if form == "hybrid"
+                            else P.upconv_packed(xx, P.pack_upconv_weights(
+                                ww)))
+                    y = P.upconv_fix_faces(core, xx, ww)
+                y.backward(torch.ones_like(y))
+            up_ms[form] += time_ms(run, 3)
+    for form in forms:
+        steps[form]["up_branch_fwd_bwd_ms"] = up_ms[form]
+        steps[form]["up_branch_share"] = (up_ms[form]
+                                          / steps[form]["ms_per_step"])
+    out = {"parity_f32": parity, "bf16_steps": steps,
+           "size": SIZE, "batch": TRAIN_BATCH}
+    log("composed/hybrid training: " + json.dumps(
+        {f: {k: v for k, v in st.items() if k != "profile"}
+         for f, st in steps.items()}))
+    log("composed/hybrid profiles: " + json.dumps(
+        {f: st["profile"] for f, st in steps.items()}))
+    return out
+
+
+def s8_kernel_entries(k1_rows, k2_rows, errs, counts, serving):
+    """The kernels-line entries of K1 and K2: launches from phase 11b's
+    served run, times summed over the sites of one batch-Q_TIMED_BATCH
+    forward (the plain versions' at batch 1)."""
+    src = "mri_epilepsy_diagnosis_torch/csrc/"
+    q = "mri_epilepsy_diagnosis_tpu/models/unet_packed_q.py:"
+    shapes = (f"sum over the sites of one batch-{Q_TIMED_BATCH} int8 "
+              f"forward at {SIZE}^3 (plain_ms at batch 1, float64); "
+              f"launches from the {serving['volumes']} served volumes")
+
+    def entry(name, source, replaces, rows, err, launches, per_batch,
+              **extra):
+        t_ops = sum(r["bound_ms"] for r in rows
+                    if r["bound_by"] == "operations")
+        t_bytes = sum(r["bound_ms"] for r in rows
+                      if r["bound_by"] == "bytes")
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "launches_per_batch": per_batch, "max_abs_err": err,
+                "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": t_ops + t_bytes,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": None, "shapes": shapes, "path": "int8_serving",
+                "bf16_b1_ms": sum(r["bf16_b1_ms"] for r in rows), **extra}
+
+    return [
+        entry("conv2_packed_s8", src + "conv2_packed_s8.cu", q + "68",
+              k1_rows, max(errs["k1_raw"], errs["k1_fused"]),
+              counts["conv2_packed_s8"], Q_PER_BATCH["conv2_packed_s8"],
+              fuses=q + "267 (_epilogue)",
+              raw_int32_ms=sum(r["raw_int32_ms"] for r in k1_rows)),
+        entry("upconv_packed_s8", src + "upconv_packed_s8.cu", q + "76",
+              k2_rows, errs["k2"], counts["upconv_packed_s8"],
+              Q_PER_BATCH["upconv_packed_s8"],
+              bf16_upsample_ms=sum(r["bf16_upsample_ms"] for r in k2_rows),
+              bf16_composed_cudnn_ms=sum(r["bf16_composed_cudnn_ms"]
+                                         for r in k2_rows),
+              bf16_composed_bound_ms=sum(r["bf16_composed_bound_ms"]
+                                         for r in k2_rows)),
+    ]
+
+
 def ae_entry(rows, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     """The AE step's sums of a kernel's timed rows (one bf16 step)."""
     return {k: sum(r[k] for r in rows) for k in keys}
@@ -4070,6 +4484,8 @@ def main() -> int:
     # ---- 6. training
     from mri_epilepsy_diagnosis_torch.train import seg as TS
 
+    # phase 11 quantizes the served UNet and serves the same volumes
+    int8_inputs = (vols, state, fine_masks)
     del vols, noise, model, params, ens_params, enc, clf
     torch.cuda.empty_cache()
     t_train = time.perf_counter()
@@ -4196,6 +4612,37 @@ def main() -> int:
     os.rmdir(det_dir)
     phase10_s = time.perf_counter() - t10
     log(f"phase 10: {phase10_s:.1f} s (template {template_s:.1f} s)")
+
+    # ---- 11. int8 serving (K1, K2) and the composed decoder in training
+    from mri_epilepsy_diagnosis_torch.models import unet_packed_q as Q
+
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    vols, state, fine_masks = int8_inputs
+    with torch.inference_mode():
+        # 11a: calibrate and quantize the phase-4 UNet, then every K1 and
+        # K2 site of its 192^3 trunk at batch 1
+        t0 = time.perf_counter()
+        q = Q.quantize_inference(state, normalized(vols[:Q_CALIB_VOLUMES]))
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        probe = normalized(vols[:1])
+        _, s8_calls = record_s8_sites(
+            Q, K, lambda: Q.packed_unet_mask_v2_int8(q, probe))
+        k1_rows, k2_rows, s8_errs = s8_kernel_phase(K, P, s8_calls)
+    del s8_calls, probe
+    torch.cuda.empty_cache()
+    # 11b: int8 serving of the 16 volumes
+    int8_serving, int8_fails = int8_serving_phase(
+        K, Q, q, vols, fine_masks, znorm_batch, launch_counts,
+        {"serving": serving, "profile": profile})
+    int8_serving["quantize_s"] = quantize_s
+    del q, vols, state, fine_masks, int8_inputs
+    torch.cuda.empty_cache()
+    # 11c: dec_up="composed" and "hybrid" against "explicit"
+    composed = composed_training_phase(K, P, TS, UNet3D, gen)
+    phase11_s = time.perf_counter() - t11
+    log(f"phase 11: {phase11_s:.1f} s")
 
     # the kernels of the served path, one entry per kernel instantiation:
     # launches from the timed ensemble run, times summed over the sites
@@ -4498,6 +4945,14 @@ def main() -> int:
             **{f"fader_parity_f32.{step}": r["launches"]["conv_axis"]
                for step, r in fader_parity.items()}},
         "max_abs_err_f32": fader_errs["axis"]["f32"]})
+    # phase 11: K1 and K2 on the int8 serving path (launches from 11b)
+    s8_entries = s8_kernel_entries(k1_rows, k2_rows, s8_errs,
+                                   int8_serving["launches"], int8_serving)
+    for entry in s8_entries:
+        if entry["launches"] <= 0:
+            raise AssertionError(f"{entry['name']} was not launched on its "
+                                 "path")
+    kernels += s8_entries
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "off_path_kernels": off_path,
@@ -4531,9 +4986,14 @@ def main() -> int:
                    "classification": classification, "phase9_s": phase9_s,
                    "registration": registration, "detection": detection,
                    "phase10_s": phase10_s, "template_s": template_s,
+                   "int8_k1_sites": k1_rows, "int8_k2_sites": k2_rows,
+                   "int8_serving": int8_serving,
+                   "composed_training": composed, "phase11_s": phase11_s,
                    "build_s": build_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
+    if int8_fails:
+        raise AssertionError(f"int8 serving: {int8_fails}")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

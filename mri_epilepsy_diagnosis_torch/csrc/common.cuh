@@ -1,6 +1,6 @@
 // Shared helpers of the port's hand-written Hopper kernels: scalar and
 // 4-wide vector loads/stores that widen bf16 to float and narrow it back
-// (round to nearest even).  Every kernel
+// (round to nearest even), and the shifted layout's pad-voxel mask.  Every kernel
 // computes in float32 and stores in its input dtype.
 #pragma once
 
@@ -60,6 +60,19 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   raw.x = *reinterpret_cast<uint32_t*>(&lo);
   raw.y = *reinterpret_cast<uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// the packed subs (bit s = sub s) that are pad voxels at output cell
+// (od, oh, ow) of a (Do, Ho, Wo) shifted tensor: on the last cell of an
+// axis the subs with that axis's bit set (D: bit 2, subs 4-7; H: bit 1;
+// W: bit 0), on the first cell (if it is not also the last) the others.
+// 0 for every interior cell.
+__device__ __forceinline__ unsigned shifted_drop(int od, int oh, int ow,
+                                                 int Do, int Ho, int Wo) {
+  const unsigned d = od == Do - 1 ? 0xF0u : od == 0 ? 0x0Fu : 0u;
+  const unsigned h = oh == Ho - 1 ? 0xCCu : oh == 0 ? 0x33u : 0u;
+  const unsigned w = ow == Wo - 1 ? 0xAAu : ow == 0 ? 0x55u : 0u;
+  return d | h | w;
 }
 
 // acc[c] += xv * wr[c] for c < COT: one input value into COT float32

@@ -57,19 +57,6 @@ struct Epi {
   const T* addend;
 };
 
-// the packed subs (bit s = sub s) that are pad voxels at output cell
-// (od, oh, ow) of a (Do, Ho, Wo) shifted tensor: on the last cell of an
-// axis the subs with that axis's bit set (D: bit 2, subs 4-7; H: bit 1;
-// W: bit 0), on the first cell (if it is not also the last) the others.
-// 0 for every interior cell.
-__device__ __forceinline__ unsigned shifted_drop(int od, int oh, int ow,
-                                                 int Do, int Ho, int Wo) {
-  const unsigned d = od == Do - 1 ? 0xF0u : od == 0 ? 0x0Fu : 0u;
-  const unsigned h = oh == Ho - 1 ? 0xCCu : oh == 0 ? 0x33u : 0u;
-  const unsigned w = ow == Wo - 1 ? 0xAAu : ow == 0 ? 0x55u : 0u;
-  return d | h | w;
-}
-
 template <typename T, int BN, bool EPI>
 __global__ void __launch_bounds__(kThreads)
 conv2_packed_kernel(const T* __restrict__ x, const T* __restrict__ w,

@@ -1,4 +1,5 @@
-"""Weight bridge: JAX `variables` pytrees <-> the port's torch `state_dict`.
+"""Weight bridge: JAX `variables` pytrees <-> the port's torch `state_dict`,
+and JAX's int8 inference pytree -> the port's (`quantized_to_torch`).
 
 The JAX package names its flax modules so that joining a parameter path
 with '.' and turning every `__` into '.' gives the torch key
@@ -73,4 +74,39 @@ def variables_to_state_dict(
             if collection == "batch_stats" and path[-1] == "running_mean":
                 out[_path_to_key(path[:-1] + ("num_batches_tracked",))] = (
                     torch.zeros((), dtype=torch.long, device=device))
+    return out
+
+
+def quantized_to_torch(q: Mapping[str, Any],
+                       device: Optional[Union[str, torch.device]] = None
+                       ) -> Dict[str, Any]:
+    """The JAX package's int8 inference pytree (`models/unet_packed_q.py::
+    quantize_inference`, leaves as numpy arrays or anything `np.asarray`
+    takes) -> the port's (`models.unet_packed_q`), on `device`.
+
+    Per site `w8`, `dq`, `b`, `alpha`, `rq`; at each decoder conv1 also
+    `w8_u`, `dq_u` and `w_u_fine`; then `in_rq`, `head` and `nb`.  The
+    packed int8 kernels ((2, 2, 2, 8Ci, 8Co), the composed (5, 5, 5, 8Ci,
+    8Co), the head's (8Ci, 8Co)) have the same layout in both packages and
+    keep their values and dtype; the fine `w_u_fine` goes from JAX's
+    (kD, kH, kW, Ci, Co) to torch's (Co, Ci, kD, kH, kW); `nb` becomes an
+    int and a None leaf stays None."""
+    device = resolve_device(device)
+
+    def leaf(key, v):
+        if v is None:
+            return None
+        arr = np.asarray(v)
+        if key == "w_u_fine":
+            arr = _to_torch_layout(arr.astype(np.float32))
+        return torch.tensor(np.ascontiguousarray(arr), device=device)
+
+    out: Dict[str, Any] = {}
+    for key, value in q.items():
+        if key == "nb":
+            out[key] = int(np.asarray(value))
+        elif isinstance(value, Mapping):
+            out[key] = {k: leaf(k, v) for k, v in value.items()}
+        else:
+            out[key] = leaf(key, value)
     return out

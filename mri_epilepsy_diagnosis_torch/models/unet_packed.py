@@ -1,7 +1,8 @@
 """Packed-layout (space-to-depth) inference and training paths of UNet3D:
 the served path and the trained one (counterpart of the JAX package's
-`models/unet_packed.py`: the v2 forward, `packed_unet_train_apply` with
-`dec_up="explicit"`, and `packed_dice_loss`).
+`models/unet_packed.py`: the v2 forward with its calibration `tap`,
+`packed_unet_train_apply` with the three `dec_up` forms, and
+`packed_dice_loss`).
 
 Runs the `UNet3D` eval forward on the packed `(N, S/2, S/2, S/2, 8C)`
 layout of `ops/packed.py`, from the same `state_dict`, alternating
@@ -15,8 +16,10 @@ The decoder's up branch is explicit: `upsample2_packed` followed by an
 aligned->shifted k=2 conv of the upsampled tensor with the up half of the
 first decoder conv's weights (the JAX package's `dec_up="explicit"` form of
 `packed_unet_train_apply`).  JAX's inference forward composes upsample and
-conv into one 5^3 kernel with face corrections instead; both compute the
-same function.
+conv into one 5^3 kernel with face corrections instead
+(`ops/packed.py::upconv_packed`, which training takes with
+`dec_up="composed"` or `"hybrid"` and the int8 path runs as kernel K2);
+both compute the same function.
 
 The train-mode forward (`packed_unet_train_apply`) runs the same 12 convs
 through B1 without the epilogue, since BatchNorm normalizes with the
@@ -133,25 +136,34 @@ def _decoder_conv1(xp, skip, sd: StateDict, block: str):
                      addend=partial)
 
 
-def _trunk_v2(sd: StateDict, x: torch.Tensor, num_encoding_blocks: int = 3):
-    """Fine (N, S, S, S, 1) input -> the head's ALIGNED packed output."""
+def _trunk_v2(sd: StateDict, x: torch.Tensor, num_encoding_blocks: int = 3,
+              tap=None):
+    """Fine (N, S, S, S, 1) input -> the head's ALIGNED packed output.
+
+    `tap(name, tensor) -> tensor` is an optional identity hook called at
+    every conv-input site (the int8 calibration of `models/unet_packed_q.py`
+    records each site's absolute maxima through it), as in JAX's
+    `_trunk_v2`.  The sites here are those of the explicit decoder, which
+    equal JAX's composed ones up to float rounding."""
     nb = num_encoding_blocks
-    xp = P.pack2(x)
+    t = (lambda name, v: v) if tap is None else tap
+    xp = t("in", P.pack2(x))
     skips = []
     for i in range(nb - 1):
         blk = f"encoder.encoding_blocks.{i}"
-        xs = _block_as(xp, sd, f"{blk}.conv1")
-        xp = _block_sa(xs, sd, f"{blk}.conv2")
+        xs = t(f"e{i}c1", _block_as(xp, sd, f"{blk}.conv1"))
+        xp = t(f"e{i}c2", _block_sa(xs, sd, f"{blk}.conv2"))
         skips.append(xp)
         xp = P.maxpool2_packed(xp)
 
-    xs = _block_as(xp, sd, "bottom_block.conv1")
-    xp = _block_sa(xs, sd, "bottom_block.conv2")
+    xs = t("bc1", _block_as(xp, sd, "bottom_block.conv1"))
+    xp = t("bc2", _block_sa(xs, sd, "bottom_block.conv2"))
 
     for i in range(nb - 1):
         blk = f"decoder.decoding_blocks.{i}"
-        xs = _decoder_conv1(xp, skips[-(i + 1)], sd, f"{blk}.conv1")
-        xp = _block_sa(xs, sd, f"{blk}.conv2")
+        xs = t(f"d{i}c1", _decoder_conv1(xp, skips[-(i + 1)], sd,
+                                         f"{blk}.conv1"))
+        xp = t(f"d{i}c2", _block_sa(xs, sd, f"{blk}.conv2"))
 
     return P.conv1_packed_blockdiag(xp, sd["classifier.conv_layer.weight"],
                                     sd.get("classifier.conv_layer.bias"))
@@ -248,16 +260,22 @@ def packed_unet_train_apply(state_dict: StateDict, x: torch.Tensor,
     with the B2 epilogue: BN needs the batch statistics of the conv's
     output), every input gradient but the stem's another (11).  The
     decoder's first conv is the sum of an aligned->shifted conv of the
-    skip and one of the explicitly upsampled input (JAX's
-    `dec_up="explicit"`, its training default); "composed" and "hybrid"
-    need the composed decoder, which the port does not have yet.
+    skip and the up branch, which `dec_up` picks as JAX's does:
+    - "explicit" (the default): `upsample2_packed`, then an
+      aligned->shifted B1 conv;
+    - "composed": `upconv_packed` over `pack_upconv_weights`, one cuDNN
+      transposed conv, then `upconv_fix_faces`, differentiated by
+      autograd;
+    - "hybrid": the same forward with `upconv_core_hybrid`'s gradient (dw
+      by the packed-conv GEMMs over the upsampled input).
+    With "composed" or "hybrid" the two up convs leave B1: 10 forward
+    launches and 9 input gradients.
     `remat=True` recomputes each two-conv block in the backward
     (`torch.utils.checkpoint`, non-reentrant) instead of keeping its
     activations."""
-    if dec_up != "explicit":
-        raise NotImplementedError(
-            f'dec_up="{dec_up}" needs the composed decoder (ROADMAP A3b); '
-            'the port trains with dec_up="explicit"')
+    if dec_up not in ("explicit", "composed", "hybrid"):
+        raise ValueError(f"dec_up must be 'explicit', 'composed' or "
+                         f"'hybrid', not {dec_up!r}")
     sd = state_dict
     nb = num_encoding_blocks
     n, s = x.shape[0], x.shape[1]
@@ -287,8 +305,14 @@ def packed_unet_train_apply(state_dict: StateDict, x: torch.Tensor,
         w = sd[f"{blk}.conv1.conv_layer.weight"]
         c_skip = skip.shape[-1] // 8
         y_s = conv_as(skip, f"{blk}.conv1", w[:, :c_skip])
-        y_u = conv_as(P.upsample2_packed(xp), f"{blk}.conv1", w[:, c_skip:],
-                      bias=False)
+        w_u = w[:, c_skip:]
+        if dec_up == "explicit":
+            y_u = conv_as(P.upsample2_packed(xp), f"{blk}.conv1", w_u,
+                          bias=False)
+        else:
+            y_u = (P.upconv_core_hybrid(xp, w_u) if dec_up == "hybrid"
+                   else P.upconv_packed(xp, P.pack_upconv_weights(w_u)))
+            y_u = P.upconv_fix_faces(y_u, xp, w_u)
         return tail(y_s + y_u, blk, s)
 
     def run(fn, *args):

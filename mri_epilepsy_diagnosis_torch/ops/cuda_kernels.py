@@ -11,6 +11,8 @@ launch counters and build.
 | `separable_conv3d`  | `csrc/separable_conv3d.cu` (the three axes in one launch) | `ops/pallas_kernels.py::separable_conv3d` |
 | `conv_axis_dx`      | `csrc/conv_axis_bwd_tc.cu` (bf16: mma.sync), `csrc/conv_axis_bwd.cu` (f32: CUDA cores) | the input gradient of `conv_axis_last` (XLA's in JAX) |
 | `conv_axis_dw`      | the same two sources (two passes each, no atomics) | the weight and bias gradients of `conv_axis_last` |
+| `conv2_packed_s8` (K1) | `csrc/conv2_packed_s8.cu` (int8 mma.sync, `s8_igemm.cuh`; int32 out, or JAX's `_epilogue` fused to int8) | `models/unet_packed_q.py::conv_int8` (XLA in JAX) |
+| `upconv_packed_s8` (K2) | `csrc/upconv_packed_s8.cu` (the same GEMM per output parity class) | `models/unet_packed_q.py::upconv_int8` (XLA in JAX) |
 
 `conv_one_axis` and `separable_conv3d` keep the signatures of their JAX
 namesakes (without the Mosaic workarounds `interpret` and `max_taps`).
@@ -35,7 +37,9 @@ the tensor-core route; `conv2_packed_as_bn_act.launches` (and
 input gradient; `conv_axis.tc_launches` the one-axis launches on the
 tensor-core route (`_axis_fwd_route`), `conv_axis_dx.tc_launches` and
 `conv_axis_dw.tc_launches` the backward launches on theirs
-(`_axis_bwd_route`).
+(`_axis_bwd_route`); `conv2_packed_s8.launches` the int8 packed convs
+(`.fused_launches` those with the epilogue), `upconv_packed_s8.launches`
+the int8 composed up-convs.
 
 The kernels are CUDA C++ for `sm_90a` with a plain C interface, compiled
 by `nvcc` at first use (one process per source, all started together) and
@@ -63,8 +67,9 @@ SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("conv2_packed.cu", "conv2_packed_tc.cu", "bn_act_zero_pads.cu",
            "conv_axis.cu", "separable_conv3d.cu", "conv_axis_bwd.cu",
-           "conv_axis_bwd_tc.cu", "conv_axis_tc.cu")
-HEADERS = ("common.cuh", "tc_common.cuh")
+           "conv_axis_bwd_tc.cu", "conv_axis_tc.cu", "conv2_packed_s8.cu",
+           "upconv_packed_s8.cu")
+HEADERS = ("common.cuh", "tc_common.cuh", "s8_igemm.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libmri_torch_kernels.so"
@@ -166,6 +171,11 @@ def load() -> ctypes.CDLL:
     lib.mri_conv_axis_dx_tc.restype = i
     lib.mri_conv_axis_tc.argtypes = [vp] * 5 + [i, vp]
     lib.mri_conv_axis_tc.restype = i
+    lib.mri_conv2_packed_s8.argtypes = [vp, vp, vp, ll, i, i, i, i, i, i,
+                                        vp, vp, vp, vp, vp, vp]
+    lib.mri_conv2_packed_s8.restype = i
+    lib.mri_upconv_packed_s8.argtypes = [vp, vp, vp, ll, i, i, i, i, i, vp]
+    lib.mri_upconv_packed_s8.restype = i
     return lib
 
 
@@ -1840,8 +1850,299 @@ class SeparableConv3dFn(torch.autograd.Function):
         return tuple(grads)
 
 
+# ---------------------------------------------------------------------------
+# K1 and K2: the int8 packed conv and the int8 composed up-conv of the int8
+# serving path (`models/unet_packed_q.py`)
+# ---------------------------------------------------------------------------
+
+S8_QMAX = 127.0
+_S8_K_STEP = 32               # bytes of K per m16n8k32 step
+_S8_GROUP = 8                 # bytes of K per staged load
+
+
+def s8_kmajor_weights(wp8: torch.Tensor) -> torch.Tensor:
+    """(2, 2, 2, 8Ci, 8Co) int8 packed weights -> K1's (8Co, 8 x 8Ci)
+    K-major B operand, k = (4 qd + 2 qh + qw) x 8Ci + ci."""
+    c8o = wp8.shape[4]
+    return wp8.permute(4, 0, 1, 2, 3).reshape(c8o, -1).contiguous()
+
+
+class S8Class(NamedTuple):
+    """One output parity class of a K2 launch (`upconv_s8_plan`)."""
+    r: Tuple[int, int, int]       # output cell = 2 p + r per axis
+    cells: Tuple[int, int, int]   # rows p per axis (per item)
+    taps: Tuple[int, int, int]    # taps j per axis: input cell p + j
+    kernel_index: Tuple[Tuple[int, int, int], ...]  # composed tap per j
+    k: int                        # taps x 8Ci
+    w_offset: int                 # int8 entries before this class's weights
+
+
+def upconv_s8_plan(padded_cells: Sequence[int], c8i: int,
+                   c8o: int) -> Tuple[S8Class, ...]:
+    """K2's split of the lhs-dilated 5^3 conv over (Dp, Hp, Wp) edge-padded
+    cells into the 8 output parity classes c = 4 rd + 2 rh + rw: an even
+    output cell 2p meets the kernel taps 1 + 2j (j = 0, 1), an odd one
+    2p + 1 the taps 2j (j = 0, 1, 2), each reading input cell p + j.
+    Class weights are concatenated in class order, each (8Co, k)."""
+    classes, offset = [], 0
+    for c in range(8):
+        r = ((c >> 2) & 1, (c >> 1) & 1, c & 1)
+        taps = tuple(2 + ri for ri in r)
+        cells = tuple(n - 1 - ri for n, ri in zip(padded_cells, r))
+        kidx = tuple((2 * jd + 1 - r[0], 2 * jh + 1 - r[1], 2 * jw + 1 - r[2])
+                     for jd in range(taps[0]) for jh in range(taps[1])
+                     for jw in range(taps[2]))
+        k = len(kidx) * c8i
+        classes.append(S8Class(r, cells, taps, kidx, k, offset))
+        offset += c8o * k
+    return tuple(classes)
+
+
+def upconv_s8_weights(wk8: torch.Tensor,
+                      plan: Sequence[S8Class]) -> torch.Tensor:
+    """(5, 5, 5, 8Ci, 8Co) composed int8 kernel -> K2's weights: each
+    class's taps gathered as its (8Co, taps x 8Ci) K-major matrix, the
+    classes concatenated (one flat int8 tensor)."""
+    c8o = wk8.shape[4]
+    parts = []
+    for cls in plan:
+        idx = torch.as_tensor(cls.kernel_index, device=wk8.device)
+        taps = wk8[idx[:, 0], idx[:, 1], idx[:, 2]]       # (t, 8Ci, 8Co)
+        parts.append(taps.permute(2, 0, 1).reshape(c8o, -1).reshape(-1))
+    return torch.cat(parts).contiguous()
+
+
+def _conv2_s8_sum(x8: torch.Tensor, wp8: torch.Tensor,
+                  pad: int) -> torch.Tensor:
+    """The int32 sums of the k=2 packed conv of int8 x and w, through the
+    8 shifted-slice products in float64."""
+    x = x8.double()
+    if pad:
+        x = TF.pad(x, (0, 0) + (1, 1) * 3)
+    d, h, w = (s - 1 for s in x.shape[1:4])
+    wd = wp8.double()
+    out = None
+    for qd, qh, qw in _TAPS:
+        part = torch.matmul(x[:, qd:qd + d, qh:qh + h, qw:qw + w],
+                            wd[qd, qh, qw])
+        out = part if out is None else out.add_(part)
+    # exact: every partial sum is an integer below 127^2 x 8 x 8Ci < 2^53
+    return out.to(torch.int32)
+
+
+def s8_epilogue_plain(y32: torch.Tensor, dq: torch.Tensor,
+                      bias: Optional[torch.Tensor],
+                      alpha: Optional[torch.Tensor], rq: torch.Tensor,
+                      addend: Optional[torch.Tensor] = None, *,
+                      zero_pads: bool) -> torch.Tensor:
+    """JAX's `models/unet_packed_q.py::_epilogue` (with the decoder's
+    float32 addend) on int32 sums: `(y32 * dq (+ addend)) + bias`, PReLU,
+    the shifted pad voxels zeroed, then `clip(round(y * rq), -127, 127)`
+    as int8 (round half to even, the clip before the cast)."""
+    y = y32.float() * dq.float()
+    if addend is not None:
+        y = y + addend.float()
+    if bias is not None:
+        y = y + bias.float()
+    if alpha is not None:
+        y = torch.where(y >= 0, y, y * alpha.float())
+    if zero_pads:
+        kd, kh, kw = (shifted_pad_keep(a, y.shape[1 + a], y.shape[4],
+                                       y.device) for a in range(3))
+        keep = (kd[:, None, None, :] & kh[None, :, None, :]
+                & kw[None, None, :, :])
+        y = torch.where(keep, y, 0.0)
+    return torch.clamp(torch.round(y * rq.float()), -S8_QMAX,
+                       S8_QMAX).to(torch.int8)
+
+
+def conv2_packed_s8_plain(x8: torch.Tensor, wp8: torch.Tensor, *, pad: int,
+                          dq=None, bias=None, alpha=None, rq=None,
+                          addend=None) -> torch.Tensor:
+    """Plain version of `conv2_packed_s8`: the int32 sums from float64
+    products (exact), then, with `dq`, `s8_epilogue_plain` to int8."""
+    y32 = _conv2_s8_sum(x8, wp8, pad)
+    if dq is None:
+        return y32
+    return s8_epilogue_plain(y32, dq, bias, alpha, rq, addend,
+                             zero_pads=pad == 1)
+
+
+def _epilogue_vector(name: str, t, c8o: int, device) -> Optional[torch.Tensor]:
+    if t is None:
+        return None
+    t = torch.as_tensor(t, dtype=torch.float32, device=device)
+    if t.numel() == 1:
+        t = t.reshape(1).expand(c8o)
+    if tuple(t.shape) != (c8o,):
+        raise ValueError(f"{name} must have shape ({c8o},), got "
+                         f"{tuple(t.shape)}")
+    return t.contiguous()
+
+
+def conv2_packed_s8(x8: torch.Tensor, wp8: torch.Tensor, *, pad: int,
+                    dq=None, bias=None, alpha=None, rq=None,
+                    addend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1: the k=2 packed conv in int8 (B1's function), int32 sums:
+
+        y32[n, z, y, x] = sum_q xin[n, z+qd-pad, y+qh-pad, x+qw-pad] @ wp8[q]
+
+    x8: (N, Di, Hi, Wi, 8Ci) int8; wp8: (2, 2, 2, 8Ci, 8Co) int8; pad 0:
+    shifted -> aligned, pad 1: aligned -> shifted.  Returns y32 (int32),
+    or with `dq` given, JAX's `_epilogue` fused: `(y32 * dq (+ addend)) +
+    bias`, PReLU(alpha), the pad voxels of a shifted (pad 1) output
+    zeroed, requantized by `rq` to int8.  dq, bias, alpha, rq: packed
+    (8Co,) float32 (alpha may be one shared slope); addend: None or a
+    float32 tensor shaped like the output (the decoder's dequantized,
+    face-fixed up branch).  A CPU tensor takes `conv2_packed_s8_plain`;
+    on the card the kernel of `csrc/conv2_packed_s8.cu` runs, or the call
+    raises.  `conv2_packed_s8.launches` counts its launches,
+    `.fused_launches` those with the epilogue."""
+    _check_conv2_args(x8, wp8, pad)
+    n, di, hi, wi, c8i = x8.shape
+    c8o = wp8.shape[4]
+    if x8.dtype != torch.int8 or wp8.dtype != torch.int8:
+        raise TypeError(f"conv2_packed_s8 takes int8 x and w, got "
+                        f"{x8.dtype}, {wp8.dtype}")
+    if dq is not None and rq is None:
+        raise ValueError("the fused epilogue needs rq")
+    step = 1 if pad else -1
+    out_shape = (n, di + step, hi + step, wi + step, c8o)
+    if addend is not None and (tuple(addend.shape) != out_shape
+                               or addend.dtype != torch.float32):
+        raise ValueError(f"addend must be float32 of shape {out_shape}, "
+                         f"got {addend.dtype} {tuple(addend.shape)}")
+    vecs = [_epilogue_vector(nm, t, c8o, x8.device) for nm, t in
+            (("dq", dq), ("bias", bias), ("alpha", alpha), ("rq", rq))]
+    if x8.device.type == "cpu":
+        return conv2_packed_s8_plain(x8, wp8, pad=pad, dq=vecs[0],
+                                     bias=vecs[1], alpha=vecs[2],
+                                     rq=vecs[3], addend=addend)
+    if x8.device.type != "cuda":
+        raise ValueError(f"conv2_packed_s8 runs on cpu or cuda, not "
+                         f"{x8.device}")
+    if c8i % 8 or c8o % 8:
+        raise ValueError(f"conv2_packed_s8 needs 8Ci % 8 == 0 and 8Co % 8 "
+                         f"== 0; got {c8i}, {c8o}")
+    x8 = x8.contiguous()
+    _check_cuda("x8", x8, torch.int8, x8.device)
+    wk = s8_kmajor_weights(wp8.to(x8.device))
+    _check_cuda("w", wk, torch.int8, x8.device)
+    fused = vecs[0] is not None
+    out = torch.empty(out_shape, device=x8.device,
+                      dtype=torch.int8 if fused else torch.int32)
+    if out.numel() == 0:
+        return out
+    ptrs = [None if t is None else t.data_ptr() for t in vecs]
+    if addend is not None:
+        addend = addend.contiguous()
+        _check_cuda("addend", addend, torch.float32, x8.device)
+        ptrs.append(addend.data_ptr())
+    else:
+        ptrs.append(None)
+    with torch.cuda.device(x8.device):
+        rc = load().mri_conv2_packed_s8(
+            x8.data_ptr(), wk.data_ptr(), out.data_ptr(), n, di, hi, wi,
+            c8i, c8o, pad, *ptrs,
+            torch.cuda.current_stream(x8.device).cuda_stream)
+    _raise_on(rc, "conv2_packed_s8")
+    conv2_packed_s8.launches += 1
+    conv2_packed_s8.fused_launches += fused
+    return out
+
+
+conv2_packed_s8.launches = 0
+conv2_packed_s8.fused_launches = 0
+
+
+def upconv_packed_s8_plain(xe8: torch.Tensor,
+                           wk8: torch.Tensor) -> torch.Tensor:
+    """Plain version of `upconv_packed_s8`: per output parity class
+    (rd, rh, rw), the float64 products of the input slices at offsets j
+    with the composed taps 2j + 1 - r, summed exactly and cast to int32,
+    written to the output cells 2p + r."""
+    n, dp, hp, wp = xe8.shape[:4]
+    c8o = wk8.shape[4]
+    out = torch.empty((n, 2 * dp - 3, 2 * hp - 3, 2 * wp - 3, c8o),
+                      dtype=torch.int32, device=xe8.device)
+    x = xe8.double()
+    wd = wk8.double()
+    for rd in range(2):
+        for rh in range(2):
+            for rw in range(2):
+                cd, ch, cw = dp - 1 - rd, hp - 1 - rh, wp - 1 - rw
+                acc = None
+                for jd in range(2 + rd):
+                    for jh in range(2 + rh):
+                        for jw in range(2 + rw):
+                            part = torch.matmul(
+                                x[:, jd:jd + cd, jh:jh + ch, jw:jw + cw],
+                                wd[2 * jd + 1 - rd, 2 * jh + 1 - rh,
+                                   2 * jw + 1 - rw])
+                            acc = part if acc is None else acc.add_(part)
+                # exact: partial sums below 127^2 x 27 x 8Ci < 2^53
+                out[:, rd::2, rh::2, rw::2] = acc.to(torch.int32)
+    return out
+
+
+def upconv_packed_s8(xe8: torch.Tensor, wk8: torch.Tensor) -> torch.Tensor:
+    """K2: the composed lhs-dilated 5^3 up-conv in int8 (JAX's
+    `upconv_int8` over `edge_pad_cells`), int32 sums:
+
+        out[o] = sum_k [o + k - 1 even] xe8[(o + k - 1) / 2] @ wk8[k]
+
+    per axis, o in [0, 2Dp - 4].  xe8: the edge-padded coarse cells (N,
+    Dp, Hp, Wp, 8Ci) int8 (`ops.packed.edge_pad_cells`); wk8: (5, 5, 5,
+    8Ci, 8Co) int8.  Returns (N, 2Dp-3, 2Hp-3, 2Wp-3, 8Co) int32.  A CPU
+    tensor takes `upconv_packed_s8_plain`; on the card the kernel of
+    `csrc/upconv_packed_s8.cu` runs all 8 parity classes in one launch
+    (`upconv_s8_plan`), or the call raises.  `upconv_packed_s8.launches`
+    counts its launches."""
+    if xe8.ndim != 5 or tuple(wk8.shape[:3]) != (5, 5, 5) \
+            or wk8.shape[3] != xe8.shape[4]:
+        raise ValueError(f"upconv_packed_s8 needs xe8 (N,Dp,Hp,Wp,C8i) and "
+                         f"wk8 (5,5,5,C8i,C8o); got {tuple(xe8.shape)}, "
+                         f"{tuple(wk8.shape)}")
+    if xe8.dtype != torch.int8 or wk8.dtype != torch.int8:
+        raise TypeError(f"upconv_packed_s8 takes int8 x and w, got "
+                        f"{xe8.dtype}, {wk8.dtype}")
+    if min(xe8.shape[1:4]) < 3:
+        raise ValueError("upconv_packed_s8 needs at least 3 padded cells "
+                         "per axis")
+    if xe8.device.type == "cpu":
+        return upconv_packed_s8_plain(xe8, wk8)
+    if xe8.device.type != "cuda":
+        raise ValueError(f"upconv_packed_s8 runs on cpu or cuda, not "
+                         f"{xe8.device}")
+    n, dp, hp, wp, c8i = xe8.shape
+    c8o = wk8.shape[4]
+    if c8i % 8 or c8o % 8:
+        raise ValueError(f"upconv_packed_s8 needs 8Ci % 8 == 0 and 8Co % 8 "
+                         f"== 0; got {c8i}, {c8o}")
+    xe8 = xe8.contiguous()
+    _check_cuda("xe8", xe8, torch.int8, xe8.device)
+    w = upconv_s8_weights(wk8.to(xe8.device), upconv_s8_plan(
+        (dp, hp, wp), c8i, c8o))
+    _check_cuda("w", w, torch.int8, xe8.device)
+    out = torch.empty((n, 2 * dp - 3, 2 * hp - 3, 2 * wp - 3, c8o),
+                      dtype=torch.int32, device=xe8.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(xe8.device):
+        rc = load().mri_upconv_packed_s8(
+            xe8.data_ptr(), w.data_ptr(), out.data_ptr(), n, dp, hp, wp,
+            c8i, c8o, torch.cuda.current_stream(xe8.device).cuda_stream)
+    _raise_on(rc, "upconv_packed_s8")
+    upconv_packed_s8.launches += 1
+    return out
+
+
+upconv_packed_s8.launches = 0
+
+
 KERNELS = (conv2_packed, bn_act_zero_pads, conv_axis, conv2_packed_as_bn_act,
-           conv2_packed_dx, separable_conv3d, conv_axis_dx, conv_axis_dw)
+           conv2_packed_dx, separable_conv3d, conv_axis_dx, conv_axis_dw,
+           conv2_packed_s8, upconv_packed_s8)
 
 
 def reset_launch_counts():
@@ -1853,3 +2154,4 @@ def reset_launch_counts():
     conv_axis.tc_launches = 0
     conv_axis_dx.tc_launches = 0
     conv_axis_dw.tc_launches = 0
+    conv2_packed_s8.fused_launches = 0

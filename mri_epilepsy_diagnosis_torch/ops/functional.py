@@ -152,24 +152,44 @@ class _BlockMaxPool(torch.autograd.Function):
         return torch.where(xr == y[at], g[at], 0).reshape(x.shape), None
 
 
+def _pool_padding_value(dtype: torch.dtype):
+    """What `reduce_window` pads a max pool with: -inf, or the dtype's
+    minimum for integers."""
+    if dtype.is_floating_point:
+        return float("-inf")
+    return torch.iinfo(dtype).min
+
+
 def maxpool3d(x: torch.Tensor, kernel: int = 2,
-              stride: Optional[int] = None) -> torch.Tensor:
-    """`kernel`^3 max pool with torch `nn.MaxPool3d(kernel, stride)`
-    values (no padding, floor mode: a ragged edge is dropped) and the
-    JAX package's gradients:
-    - stride == kernel with every extent divisible: `_BlockMaxPool`, the
-      full cotangent to every tied maximum;
-    - kernel 4, stride 2: the pool of 2 and stride 2, then a pool of 2
-      and stride 1, composed as JAX composes them (the same values);
+              stride: Optional[int] = None, padding: int = 0
+              ) -> torch.Tensor:
+    """`kernel`^3 max pool with torch `nn.MaxPool3d(kernel, stride,
+    padding)` values (floor mode: a ragged edge is dropped) and the JAX
+    package's gradients:
+    - stride == kernel, no padding, every extent divisible:
+      `_BlockMaxPool`, the full cotangent to every tied maximum;
+    - kernel 4, stride 2, no padding: the pool of 2 and stride 2, then a
+      pool of 2 and stride 1, composed as JAX composes them (the same
+      values);
     - anything else: torch's pool, whose gradient goes to the first
       maximum of each window, as XLA's `select_and_scatter` does for
-      JAX's `reduce_window`."""
+      JAX's `reduce_window`.  `padding` pads each spatial side with -inf,
+      or with the dtype's minimum for integers, as `reduce_window` does
+      (and, unlike torch, for any padding); integer inputs, which torch's
+      pool refuses, take the max of the unfolded windows."""
     k = kernel
     s = k if stride is None else stride
-    if s == k and all(n % k == 0 for n in x.shape[1:4]):
-        return _BlockMaxPool.apply(x, k)
-    if (k, s) == (4, 2):
-        return maxpool3d(maxpool3d(x, 2, 2), 2, 1)
+    if padding == 0:
+        if s == k and all(n % k == 0 for n in x.shape[1:4]):
+            return _BlockMaxPool.apply(x, k)
+        if (k, s) == (4, 2):
+            return maxpool3d(maxpool3d(x, 2, 2), 2, 1)
+    if padding:
+        x = TF.pad(x, (0, 0) + (padding, padding) * 3,
+                   value=_pool_padding_value(x.dtype))
+    if not x.dtype.is_floating_point:
+        win = x.unfold(1, k, s).unfold(2, k, s).unfold(3, k, s)
+        return win.amax(dim=(-3, -2, -1))
     y = TF.max_pool3d(x.permute(0, 4, 1, 2, 3), k, s)
     return y.permute(0, 2, 3, 4, 1)
 
@@ -264,15 +284,32 @@ def resize_nearest(x: torch.Tensor,
     return x
 
 
+# jnp.pad's modes that torch's constant pad does not cover, by the index
+# map np.pad gives them (an exact gather along each padded axis)
+_INDEX_PAD_MODES = ("edge", "reflect", "symmetric", "wrap")
+
+
 def pad_to(x: torch.Tensor, target_spatial: Sequence[int],
-           value: float = 0.0) -> torch.Tensor:
-    """Pad the spatial axes of `(N, *spatial, C)` up to `target_spatial`
-    with `value`, symmetrically; an odd voxel goes to the far side."""
+           mode: str = "constant", value: float = 0.0) -> torch.Tensor:
+    """Pad the spatial axes of `(N, *spatial, C)` up to `target_spatial`,
+    symmetrically (an odd voxel goes to the far side), as `jnp.pad` does
+    in `mode`: "constant" with `value`, or "edge", "reflect",
+    "symmetric" and "wrap", each as one gather along each padded axis
+    whose indices are `np.pad`'s own (any dtype, differentiable)."""
+    if mode != "constant" and mode not in _INDEX_PAD_MODES:
+        raise ValueError(f"pad_to: unsupported mode {mode!r}")
     pads = []
     for ax, tgt in zip(range(1, x.ndim - 1), target_spatial):
         extra = max(0, int(tgt) - x.shape[ax])
         pads.append((extra // 2, extra - extra // 2))
     if not any(lo or hi for lo, hi in pads):
+        return x
+    if mode != "constant":
+        for ax, (lo, hi) in enumerate(pads, start=1):
+            if lo or hi:
+                idx = np.pad(np.arange(x.shape[ax]), (lo, hi), mode=mode)
+                x = torch.index_select(
+                    x, ax, torch.as_tensor(idx, device=x.device))
         return x
     # F.pad lists the last axis first: channels (unpadded), then spatial
     flat = [0, 0]

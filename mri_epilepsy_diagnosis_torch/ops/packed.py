@@ -27,6 +27,7 @@ weights are `(2, 2, 2, 8Ci, 8Co)`, as in JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional
 
@@ -432,3 +433,323 @@ def bn_act_zero_pads(xs, scale, shift, alpha) -> torch.Tensor:
     (8C,) scale, shift and alpha: kernel B2 on CUDA tensors."""
     return K.bn_act_zero_pads(xs.contiguous(), scale, shift, alpha,
                               shifted_pad_mask_tensors(xs))
+
+
+# ---------------------------------------------------------------------------
+# the composed decoder up branch (JAX's `ops/packed.py` "v2: fused decoder
+# upsample+conv")
+#
+# The decoder's `conv3(cat(skip, up(x)), w)` splits over w's input
+# channels into conv_s(skip) + conv_u(up(x)); conv_u o up composes into ONE
+# lhs-dilated (stride-1/2) 5^3 convolution on the packed coarse cells.
+# align_corners=False clamping is reproduced by edge-padding the coarse
+# cells (`edge_pad_cells`); the taps that read up[-1] / up[S], which the
+# fine conv zero-pads but the composed kernel extrapolates, touch exactly
+# one fine output plane per face, which `upconv_fix_faces` overwrites with
+# values computed directly.  In float the composed conv is one cuDNN
+# transposed convolution (JAX leaves it to XLA too, outside any Pallas
+# kernel); the int8 serving path runs it as kernel K2
+# (`cuda_kernels.upconv_packed_s8`).
+# ---------------------------------------------------------------------------
+
+_UP_TAPS = np.asarray([0.25, 0.75, 0.75, 0.25])  # fine 2x, half-pixel
+
+
+@functools.lru_cache(maxsize=None)
+def _upconv_axis_table() -> np.ndarray:
+    """C1[k, q, r, t]: per-axis coefficient of fine tap t for the dilated
+    kernel's index k (of 5), input sub q and output sub r: v[j] with
+    j = 5 - 2k + r + t - 2q when 0 <= j <= 3."""
+    c1 = np.zeros((5, 2, 2, 3), np.float32)
+    for k in range(5):
+        for q in range(2):
+            for r in range(2):
+                for t in range(3):
+                    j = 5 - 2 * k + r + t - 2 * q
+                    if 0 <= j <= 3:
+                        c1[k, q, r, t] = _UP_TAPS[j]
+    return c1
+
+
+def pack_upconv_weights(w_u: torch.Tensor) -> torch.Tensor:
+    """Fine (Co, Ci, 3, 3, 3) kernel acting on the upsampled input -> the
+    composed packed kernel (5, 5, 5, 8Ci, 8Co) of `upconv_packed`
+    (lhs-dilation 2 over edge-padded coarse cells), summed in float32 and
+    cast back to w_u's dtype."""
+    co, ci = w_u.shape[:2]
+    c1 = torch.as_tensor(_upconv_axis_table(), device=w_u.device)
+    w = w_u.float().permute(2, 3, 4, 1, 0)          # (t, u, w, ci, co)
+    k = torch.einsum("aqrt,bsmu,cvnw,tuwio->abcqsviormn", c1, c1, c1, w)
+    # (kd, kh, kw, qd, qh, qw, ci, co, rd, rh, rw) -> channels sub-major
+    k = k.permute(0, 1, 2, 3, 4, 5, 6, 8, 9, 10, 7)
+    return k.reshape(5, 5, 5, 8 * ci, 8 * co).to(w_u.dtype)
+
+
+def _broadcast_sub_plane(plane: torch.Tensor, axis: int,
+                         sub: int) -> torch.Tensor:
+    """On a boundary cell plane (one cell thick along `axis`), set BOTH sub
+    slots of that axis to the values of slot `sub` (fine edge replication
+    at cell granularity).  The sub slots of axis a are contiguous channel
+    runs of 8C >> (a + 1), repeated 2^a times."""
+    block = plane.shape[-1] >> (axis + 1)
+    parts = []
+    for j in range(1 << axis):
+        src = plane[..., (2 * j + sub) * block:(2 * j + sub + 1) * block]
+        parts += [src, src]
+    return torch.cat(parts, dim=-1)
+
+
+def edge_pad_cells(xp: torch.Tensor) -> torch.Tensor:
+    """Append one edge-replicating cell per side per axis: both subs of a
+    padded cell hold the boundary fine voxel (the clamped interpolation).
+    Any dtype: int8 goes through unchanged.  Each axis's planes are taken
+    from the already padded tensor, so the later axes' corners replicate
+    transitively, as in JAX."""
+    pad = TF.pad(xp, (0, 0) + (1, 1) * 3)
+    for axis in range(3):
+        dim = 1 + axis
+        n_ax = pad.shape[dim]
+        lo = _broadcast_sub_plane(pad.narrow(dim, 1, 1), axis, 0)
+        hi = _broadcast_sub_plane(pad.narrow(dim, n_ax - 2, 1), axis, 1)
+        pad = torch.cat([lo, pad.narrow(dim, 1, n_ax - 2), hi], dim=dim)
+    return pad
+
+
+def _composed_conv_weight(wk: torch.Tensor) -> torch.Tensor:
+    """(5, 5, 5, 8Ci, 8Co) composed kernel -> the flipped (8Ci, 8Co, 5, 5,
+    5) weight of the transposed convolution that computes it."""
+    return wk.permute(3, 4, 0, 1, 2).flip(2, 3, 4)
+
+
+@contextlib.contextmanager
+def _exact_f32_convs(dtype: torch.dtype):
+    """cuDNN convolutions without TF32 for float32 operands (torch's
+    default lets cuDNN round them to TF32), as the port's other float32
+    paths are held to float32 references."""
+    if dtype != torch.float32:
+        yield
+        return
+    with torch.backends.cudnn.flags(
+            enabled=torch.backends.cudnn.enabled,
+            benchmark=torch.backends.cudnn.benchmark,
+            deterministic=torch.backends.cudnn.deterministic,
+            allow_tf32=False):
+        yield
+
+
+def upconv_packed(x_aligned: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
+    """Composed trilinear-2x-upsample + fine k=3/pad=1 conv: packed aligned
+    coarse cells (N, Sc, Sc, Sc, 8Ci) -> SHIFTED packed output at the
+    doubled fine resolution (N, 2Sc+1, ..., 8Co); wk from
+    `pack_upconv_weights`, cast to x's dtype; a new contiguous tensor
+    (`upconv_fix_faces` updates it in place).  The lhs-dilated conv (pad
+    1, kernel 5) over the edge-padded cells is the transposed convolution
+    of stride 2 and padding 3 with the flipped kernel: one cuDNN call,
+    TF32 off for float32.  Exact inside; one fine plane per face needs
+    `upconv_fix_faces`."""
+    xe = edge_pad_cells(x_aligned).permute(0, 4, 1, 2, 3)
+    w = _composed_conv_weight(wk.to(x_aligned.dtype))
+    with _exact_f32_convs(x_aligned.dtype):
+        y = TF.conv_transpose3d(xe, w, stride=2, padding=3)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _coarse_fine_plane(xp: torch.Tensor, axis: int,
+                       fine_idx: int) -> torch.Tensor:
+    """Fine plane `fine_idx` (0, 1, -2 or -1) of `axis` from packed cells,
+    still packed over the other two axes: (N, A, B, 4C) in (sub_b, sub_c,
+    c) channel order."""
+    cells = xp.shape[1 + axis]
+    cell, sub = divmod(fine_idx % (2 * cells), 2)
+    plane = xp.select(1 + axis, cell)
+    block = xp.shape[-1] >> (axis + 1)
+    parts = [plane[..., (2 * j + sub) * block:(2 * j + sub + 1) * block]
+             for j in range(1 << axis)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def _unpack2_2d(p2: torch.Tensor) -> torch.Tensor:
+    """(N, A, B, 4C) packed 2-D plane -> fine (N, 2A, 2B, C)."""
+    n, a, b, c4 = p2.shape
+    p = p2.reshape(n, a, b, 2, 2, c4 // 4).permute(0, 1, 3, 2, 4, 5)
+    return p.reshape(n, 2 * a, 2 * b, c4 // 4)
+
+
+def _pack2_2d_shifted(x2: torch.Tensor) -> torch.Tensor:
+    """Fine 2-D plane (N, Sf, Sf, C) -> SHIFTED packed (N, Sf/2+1, Sf/2+1,
+    4C), sub-major over the two axes, zero pads at fine -1 and Sf."""
+    x2 = TF.pad(x2, (0, 0, 1, 1, 1, 1))
+    n, a2, b2, c = x2.shape
+    p = x2.reshape(n, a2 // 2, 2, b2 // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return p.reshape(n, a2 // 2, b2 // 2, 4 * c)
+
+
+def _conv2d_pad1(x2: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Channels-last 2-D conv, pad 1, torch (O, I, 3, 3) weight in x's
+    dtype; TF32 off for float32."""
+    with _exact_f32_convs(x2.dtype):
+        return F.conv2d(x2, w2, padding=1)
+
+
+def _upconv_face(x_aligned: torch.Tensor, w_u: torch.Tensor, axis: int,
+                 side: int, dequant_scale=None) -> torch.Tensor:
+    """Exact up-branch output on the fine boundary plane of `axis` (side 0:
+    fine 0; side 1: fine Sf-1), as a SHIFTED packed 2-D plane (N, Sf/2+1,
+    Sf/2+1, 4Co) over the other two axes: one 2-D conv over the two
+    upsampled planes the plane's taps read, concatenated over channels.
+    `dequant_scale`: for int8 `x_aligned` (the int8 serving path), its
+    boundary planes are dequantized to w_u's dtype after slicing."""
+    dt = w_u.dtype if dequant_scale is not None else x_aligned.dtype
+
+    def plane(idx):
+        p = _unpack2_2d(_coarse_fine_plane(x_aligned, axis, idx))
+        if dequant_scale is not None:
+            p = p.to(dt) * dequant_scale
+        return p
+
+    if side == 0:
+        planes, taps = (plane(0), plane(1)), (1, 2)
+        # up[g=0] = p0 (clamped); up[g=1] = .75 p0 + .25 p1
+        mix = ((1.0, 0.0), (0.75, 0.25))
+    else:
+        planes, taps = (plane(-2), plane(-1)), (0, 1)
+        # up[Sf-2] = .25 p[-2] + .75 p[-1]; up[Sf-1] = p[-1] (clamped)
+        mix = ((0.25, 0.75), (0.0, 1.0))
+    out_2d = tuple(2 * s for s in planes[0].shape[1:3])
+    r = [F.resize_linear(p, out_2d).to(dt) for p in planes]
+    ups = [a * r[0] + b * r[1] if b else a * r[0] for a, b in mix]
+    # the fine kernel at the axis's tap: (Co, Ci, 3, 3) over the other two
+    w_cat = torch.cat([w_u.select(2 + axis, t) for t in taps], dim=1)
+    return _pack2_2d_shifted(_conv2d_pad1(torch.cat(ups, dim=-1),
+                                          w_cat.to(dt)))
+
+
+@functools.lru_cache(maxsize=None)
+def _face_keep_mask(cells: int, ch: int, nbits: int, bit: int) -> np.ndarray:
+    """(cells, ch) keep mask zeroing exactly the entries a face pair writes
+    along one axis of a shifted tensor: the first cell's sub 1 and the
+    last cell's sub 0 of the packed sub bit `bit` of `nbits`."""
+    sub = np.arange(ch) // (ch >> nbits)
+    b = (sub >> (nbits - 1 - bit)) & 1
+    m = np.ones((cells, ch), np.float32)
+    m[0, b == 1] = 0.0
+    m[-1, b == 0] = 0.0
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def _device_face_mask(cells: int, ch: int, nbits: int, bit: int, dtype,
+                      device: torch.device) -> torch.Tensor:
+    return _device_constant(_face_keep_mask(cells, ch, nbits, bit),
+                            dtype=dtype, device=device)
+
+
+def _embed_face(face: torch.Tensor, axis: int, side: int) -> torch.Tensor:
+    """A face plane (N, A, B, 4C) embedded in the boundary cell plane it
+    writes along `axis` (N, A, B, 8C; JAX's `_embed_face` also pads the
+    cell axis to a full tensor, which the in-place update of
+    `upconv_fix_faces` does not need): the written sub bit of `axis`
+    (r = 1 for side 0, 0 for side 1) inserted into the channels, the other
+    sub zero."""
+    n, a_sz, b_sz, c4 = face.shape
+    r = 1 if side == 0 else 0
+    pre = 1 << axis              # face sub bits ordered before the new one
+    f = face.reshape(n, a_sz, b_sz, pre, 1, c4 // pre)
+    return TF.pad(f, (0, 0, r, 1 - r)).reshape(n, a_sz, b_sz, 2 * c4)
+
+
+def upconv_fix_faces(ys: torch.Tensor, x_aligned: torch.Tensor,
+                     w_u: torch.Tensor, dequant_scale=None) -> torch.Tensor:
+    """Overwrite the six boundary fine planes of `upconv_packed`'s output
+    with values computed directly (the fine conv's zero padding), as JAX's
+    `upconv_fix_faces` does: ys times keep masks that zero every entry a
+    face writes, plus the faces embedded.  Where faces overlap (edges,
+    corners) the face of the highest axis wins: each lower-axis face is
+    masked where a higher axis's faces cover.  Only the boundary cell
+    planes change (the masks are 1 and the faces 0 elsewhere), so they
+    are updated IN PLACE in ys, which is returned; autograd records the
+    updates.  w_u: the fine (Co, Ci, 3, 3, 3) kernel; `dequant_scale` as
+    for `_upconv_face` (int8 x_aligned)."""
+    c8 = ys.shape[-1]
+    dtype = ys.dtype
+    for a in range(3):
+        cells = ys.shape[1 + a]
+        m = _device_face_mask(cells, c8, 3, a, dtype, ys.device)
+        for idx in (0, cells - 1):
+            ys.select(1 + a, idx).mul_(m[idx])
+    for a in range(3):
+        others = [ax for ax in range(3) if ax != a]
+        for side in (0, 1):
+            face = _upconv_face(x_aligned, w_u, a, side,
+                                dequant_scale).to(dtype)
+            for k, ax in enumerate(others):
+                if ax > a:
+                    shape = [1, 1, 1, face.shape[-1]]
+                    shape[1 + k] = face.shape[1 + k]
+                    face = face * _device_face_mask(
+                        face.shape[1 + k], face.shape[-1], 2, k, dtype,
+                        face.device).reshape(shape)
+            idx = 0 if side == 0 else ys.shape[1 + a] - 1
+            ys.select(1 + a, idx).add_(_embed_face(face, a, side))
+    return ys
+
+
+def _unpack_weights2_as_transpose(dwp: torch.Tensor, ci: int,
+                                  co: int) -> torch.Tensor:
+    """Adjoint of `pack_weights2_as`: packed-kernel cotangent (2, 2, 2,
+    8Ci, 8Co) -> fine (Co, Ci, 3, 3, 3)."""
+    a = torch.as_tensor(_axis_table_as(), dtype=dwp.dtype, device=dwp.device)
+    d6 = dwp.reshape(2, 2, 2, 2, 2, 2, ci, 2, 2, 2, co)
+    # (p_d, p_h, p_w, q_d, q_h, q_w, ci, r_d, r_h, r_w, co)
+    w = torch.einsum("adef,bghi,cjkl,dgjehkmfiln->abcmn", a, a, a, d6)
+    return w.permute(4, 3, 0, 1, 2)
+
+
+class UpconvCoreHybrid(torch.autograd.Function):
+    """The composed up branch (`upconv_packed` over `pack_upconv_weights`)
+    with the hand-rolled gradient of JAX's `upconv_core_hybrid`:
+    dx is the adjoint of the composed conv over `edge_pad_cells` (a
+    stride-2 cuDNN conv, then the edge planes added back into the boundary
+    cells); dw is `_dw_packed_qgroup` over the one-cell-padded
+    `upsample2_packed(x)`, unpacked by `_unpack_weights2_as_transpose`.
+
+    CONTRACT: valid only beneath `upconv_fix_faces`, whose keep masks zero
+    the incoming gradient on the six face planes; there the composed
+    forward equals the fine conv over the clamped upsample, whose weight
+    gradient dw is."""
+
+    @staticmethod
+    def forward(ctx, x_aligned, w_u):
+        ctx.save_for_backward(x_aligned, w_u)
+        return upconv_packed(x_aligned, pack_upconv_weights(w_u))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_u = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            w = _composed_conv_weight(pack_upconv_weights(w_u).to(g.dtype))
+            with _exact_f32_convs(g.dtype):
+                dxe = TF.conv3d(g.permute(0, 4, 1, 2, 3), w, stride=2,
+                                padding=3).permute(0, 2, 3, 4, 1)
+            with torch.enable_grad():
+                xx = x.detach().requires_grad_()
+                (dx,) = torch.autograd.grad(edge_pad_cells(xx), xx, dxe)
+        if ctx.needs_input_grad[1]:
+            up = TF.pad(upsample2_packed(x), (0, 0) + (1, 1) * 3)
+            co, ci = w_u.shape[:2]
+            dw = _unpack_weights2_as_transpose(
+                _dw_packed_qgroup(up, g), ci, co).to(w_u.dtype)
+        return dx, dw
+
+
+def upconv_core_hybrid(x_aligned: torch.Tensor,
+                       w_u: torch.Tensor) -> torch.Tensor:
+    """`upconv_packed(x_aligned, pack_upconv_weights(w_u))` with the hybrid
+    gradient (`UpconvCoreHybrid`); only valid beneath
+    `upconv_fix_faces`.  Under autograd the Function's output is cloned,
+    since `upconv_fix_faces` updates its boundary planes in place, which
+    autograd forbids on a custom Function's own output."""
+    y = UpconvCoreHybrid.apply(x_aligned, w_u)
+    return y.clone() if y.requires_grad else y

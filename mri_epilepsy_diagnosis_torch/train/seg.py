@@ -123,8 +123,8 @@ def packed_seg_train_step(state: TrainState, inputs, raw_labels,
     batch statistics, dice over the sub-position-folded voxel set), with
     the convs on kernel B1 forward and backward.  UNet3D (out_classes 2)
     only.  `remat=True` recomputes each two-conv block in the backward;
-    `dec_up` must be "explicit" (the others need the composed decoder,
-    ROADMAP A3b)."""
+    `dec_up` picks the decoder's up branch ("explicit", the default,
+    "composed" or "hybrid": `packed_unet_train_apply`)."""
     loss, stats = packed_seg_loss(state.model, inputs,
                                   binarize_segmentation(raw_labels), remat,
                                   dec_up)

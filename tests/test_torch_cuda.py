@@ -1047,3 +1047,164 @@ def test_maxpool3d_grad_on_the_card_matches_cpu(cuda_device, kernel, stride):
             y.shape).to(dev) % 5)
         grads.append(xd.grad.cpu())
     assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,stride,padding", [(3, 2, 1), (2, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_maxpool3d_padding_on_the_card_matches_cpu(cuda_device, kernel,
+                                                   stride, padding, dtype):
+    """Padded pools (-inf, or the integer minimum, as JAX's
+    `reduce_window`) give the CPU's values on the card."""
+    from mri_epilepsy_diagnosis_torch.ops import functional as F
+
+    x = torch.randint(-100, 100, (2, 7, 6, 9, 3),
+                      generator=torch.Generator().manual_seed(36)).to(dtype)
+    ref = F.maxpool3d(x, kernel, stride, padding)
+    got = F.maxpool3d(x.to(cuda_device), kernel, stride, padding)
+    assert got.dtype == dtype and torch.equal(got.cpu(), ref)
+
+
+def _int8(shape, g, dev):
+    return torch.randint(-127, 128, shape, generator=g, device=dev,
+                         dtype=torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c8i,c8o", [(8, 64), (64, 128), (256, 256),
+                                     (40, 24), (512, 512)])
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("shape", [(2, 7, 6, 9), (1, 3, 2, 17)])
+def test_conv2_packed_s8_raw_matches_plain(cuda_device, shape, pad, c8i, c8o):
+    """K1's int32 sums equal the plain version's exactly, at extents that
+    no 128-row tile divides, the 8Ci = 8 stem and 8Co below the 64-wide
+    tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(c8i + pad)
+    x8 = _int8((*shape, c8i), g, cuda_device)
+    w8 = _int8((2, 2, 2, c8i, c8o), g, cuda_device)
+    before = (K.conv2_packed_s8.launches, K.conv2_packed_s8.fused_launches)
+    got = K.conv2_packed_s8(x8, w8, pad=pad)
+    torch.cuda.synchronize()
+    assert (K.conv2_packed_s8.launches,
+            K.conv2_packed_s8.fused_launches) == (before[0] + 1, before[1])
+    ref = K.conv2_packed_s8_plain(x8, w8, pad=pad)
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("addend", [False, True])
+@pytest.mark.parametrize("c8i,c8o", [(8, 64), (128, 256), (16, 24)])
+@pytest.mark.parametrize("pad", [0, 1])
+def test_conv2_packed_s8_fused_matches_plain(cuda_device, pad, c8i, c8o,
+                                             addend):
+    """K1 with JAX's `_epilogue` fused: int8 equal to the plain version's
+    float32 operations in the same order (rint ties to even, no FMA), one
+    shared PReLU slope or one per channel, saturating values clipped."""
+    g = torch.Generator(device=cuda_device).manual_seed(7 + c8i)
+    x8 = _int8((2, 5, 4, 7, c8i), g, cuda_device)
+    w8 = _int8((2, 2, 2, c8i, c8o), g, cuda_device)
+    dq = torch.rand(c8o, generator=g, device=cuda_device) * 1e-4
+    b = torch.randn(c8o, generator=g, device=cuda_device)
+    alpha = (torch.tensor([0.25], device=cuda_device) if c8o % 16
+             else torch.rand(c8o, generator=g, device=cuda_device))
+    rq = 10 + 50 * torch.rand(c8o, generator=g, device=cuda_device)
+    step = 1 if pad else -1
+    add = (torch.randn((2, 5 + step, 4 + step, 7 + step, c8o), generator=g,
+                       device=cuda_device) if addend else None)
+    kw = dict(pad=pad, dq=dq, bias=b, alpha=alpha, rq=rq, addend=add)
+    got = K.conv2_packed_s8(x8, w8, **kw)
+    torch.cuda.synchronize()
+    ref = K.conv2_packed_s8_plain(
+        x8, w8, pad=pad, dq=dq, bias=b, alpha=alpha.expand(c8o), rq=rq,
+        addend=add)
+    assert got.dtype == torch.int8 and torch.equal(got, ref)
+    assert (ref.abs() == 127).any() and (ref != 0).float().mean() > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c8i,c8o", [(8, 64), (256, 128), (512, 256),
+                                     (24, 40)])
+@pytest.mark.parametrize("cells", [(3, 4, 2), (6, 6, 6), (1, 5, 3)])
+def test_upconv_packed_s8_matches_plain(cuda_device, cells, c8i, c8o):
+    """K2's 8 parity classes in one launch: int32 equal to the plain
+    version (and so to JAX's `upconv_int8`, tests/test_torch_quant.py)."""
+    from mri_epilepsy_diagnosis_torch.ops import packed as P
+
+    g = torch.Generator(device=cuda_device).manual_seed(c8i)
+    xe = P.edge_pad_cells(_int8((2, *cells, c8i), g, cuda_device))
+    wk8 = _int8((5, 5, 5, c8i, c8o), g, cuda_device)
+    before = K.upconv_packed_s8.launches
+    got = K.upconv_packed_s8(xe, wk8)
+    torch.cuda.synchronize()
+    assert K.upconv_packed_s8.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, K.upconv_packed_s8_plain(xe, wk8))
+
+
+def _int8_unet(dev, size=32):
+    """A seeded UNet3D (out_channels_first_layer 8), quantized on two
+    volumes, and a batch of inputs."""
+    from mri_epilepsy_diagnosis_torch.models import UNet3D
+    from mri_epilepsy_diagnosis_torch.models import unet_packed_q as Q
+
+    torch.manual_seed(37)
+    model = UNet3D(out_channels_first_layer=8, device="cpu").eval()
+    x = torch.randn((2, size, size, size, 1),
+                    generator=torch.Generator().manual_seed(38))
+    q = Q.quantize_inference(model.state_dict(), x)
+    return q, x
+
+
+@pytest.mark.cuda
+def test_int8_unet_on_the_card_matches_cpu(cuda_device):
+    """`packed_unet_mask_v2_int8` and its logits on the card (K1 10
+    launches, all with the epilogue fused, K2 2, no B1) against the CPU's plain
+    versions: int8 activations equal except where the float32 face fixes
+    round differently, masks agreeing >= 0.999."""
+    from mri_epilepsy_diagnosis_torch.models import unet_packed_q as Q
+
+    q, x = _int8_unet("cpu")
+    with torch.no_grad():
+        ref = Q.packed_unet_apply_v2_int8(q, x)
+        ref_mask = Q.packed_unet_mask_v2_int8(q, x)
+    qd = {k: ({kk: None if vv is None else vv.to(cuda_device)
+               for kk, vv in v.items()} if isinstance(v, dict)
+              else v.to(cuda_device) if torch.is_tensor(v) else v)
+          for k, v in q.items()}
+    K.reset_launch_counts()
+    with torch.no_grad():
+        mask = Q.packed_unet_mask_v2_int8(qd, x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (K.conv2_packed_s8.launches, K.conv2_packed_s8.fused_launches,
+            K.upconv_packed_s8.launches, K.conv2_packed.launches) == (
+        10, 10, 2, 0)
+    with torch.no_grad():
+        got = Q.packed_unet_apply_v2_int8(qd, x.to(cuda_device)).cpu()
+    assert (got - ref).abs().max() <= 1e-2 * ref.abs().max()
+    assert (mask.cpu() == ref_mask).float().mean() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["composed", "hybrid"])
+def test_composed_up_branch_on_the_card_matches_cpu(cuda_device, no_tf32,
+                                                    form):
+    """The float composed up branch (one cuDNN transposed conv, the face
+    fixes through 2-D cuDNN convs, TF32 off) and its gradients, card
+    against CPU in f32: 1e-5 x max."""
+    from mri_epilepsy_diagnosis_torch.ops import packed as P
+
+    gen = torch.Generator().manual_seed(39)
+    x = torch.randn((2, 6, 5, 6, 64), generator=gen)
+    w = torch.randn((16, 8, 3, 3, 3), generator=gen)
+    gy = torch.randn((2, 13, 11, 13, 128), generator=gen)
+    out = []
+    for dev in ("cpu", cuda_device):
+        xd = x.detach().to(dev).requires_grad_()
+        wd = w.detach().to(dev).requires_grad_()
+        core = (P.upconv_core_hybrid(xd, wd) if form == "hybrid"
+                else P.upconv_packed(xd, P.pack_upconv_weights(wd)))
+        y = P.upconv_fix_faces(core, xd, wd)
+        y.backward(gy.to(dev))
+        out.append([t.detach().cpu() for t in (y, xd.grad, wd.grad)])
+    for a, b in zip(*out):
+        assert (b - a).abs().max() <= 1e-5 * a.abs().max()

@@ -36,13 +36,13 @@ def test_port_sources_found():
             "preprocessing.py", "augment.py", "data.py", "pipeline.py",
             "collate.py", "sliding_window.py", "cnn.py",
             "classification.py", "registration.py", "patches.py",
-            "detection.py", "patch_model.py"} <= names
+            "detection.py", "patch_model.py", "unet_packed_q.py"} <= names
     port = ROOT / "mri_epilepsy_diagnosis_torch"
     for path in ("native/__init__.py", "train/fader.py",
                  "train/classification.py", "metrics/classification.py",
                  "models/cnn.py", "transforms/registration.py",
                  "data/patches.py", "infer/detection.py",
-                 "models/patch_model.py"):
+                 "models/patch_model.py", "models/unet_packed_q.py"):
         assert port / path in SOURCES
 
 

@@ -107,3 +107,42 @@ def test_block_pool_keeps_dtype_and_forward(dtype):
     y.sum().backward()
     assert x.grad.dtype == dtype
     assert x.grad.sum().item() == y.numel()
+
+
+POOL3D_PADDED = {"k2s2p1": ((2, 5, 6, 7, 3), 2, 2, 1),
+                 "k3s2p1": ((1, 7, 6, 5, 2), 3, 2, 1),
+                 "k3s1p1": ((1, 5, 4, 6, 2), 3, 1, 1),
+                 "k4s2p2": ((1, 6, 7, 5, 2), 4, 2, 2)}
+
+
+@pytest.mark.parametrize("case", list(POOL3D_PADDED))
+def test_maxpool3d_padding_matches_jax_at_ties(case):
+    """`maxpool3d(..., padding)`: values and `jax.grad` of JAX's
+    `maxpool3d` (a -inf-padded `reduce_window`) on tied integer inputs,
+    exactly; the gradient goes to the first maximum of each window."""
+    shape, k, s, p = POOL3D_PADDED[case]
+    x = _tied(shape, len(case))
+    y_ref = np.asarray(JF.maxpool3d(jnp.asarray(x), k, s, p))
+    g = np.random.default_rng(9).integers(
+        -3, 4, size=y_ref.shape).astype(np.float32)
+    y_ref, dx_ref = _jax_vjp(lambda v: JF.maxpool3d(v, k, s, p), x, g)
+    y, dx = _port_vjp(lambda v: TF.maxpool3d(v, k, s, p), x, g)
+    np.testing.assert_array_equal(y, y_ref)
+    np.testing.assert_array_equal(dx, dx_ref)
+
+
+@pytest.mark.parametrize("case", list(POOL3D_PADDED))
+def test_maxpool3d_padding_keeps_integer_dtypes(case):
+    """An integer pool pads with the dtype's minimum, as `reduce_window`
+    does, and stays in its dtype (int8: the quantized path's packed
+    activations); its values are JAX's float pool's.  JAX's own int8
+    padded pool refuses its int32 init value, hence the float
+    reference."""
+    shape, k, s, p = POOL3D_PADDED[case]
+    x = np.random.default_rng(10).integers(-128, 128,
+                                           size=shape).astype(np.int8)
+    got = TF.maxpool3d(torch.from_numpy(x), k, s, p)
+    ref = np.asarray(JF.maxpool3d(jnp.asarray(x.astype(np.float32)), k, s,
+                                  p))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), ref.astype(np.int8))

@@ -263,10 +263,19 @@ def test_remat_equals_no_remat(case):
 
 @pytest.mark.parametrize("dec_up", ["composed", "hybrid"])
 def test_composed_decoder_is_not_ported(case, dec_up):
+    """`dec_up="composed"` and `"hybrid"` no longer raise: both give the
+    explicit form's logits and running statistics (the same function,
+    f32 summation order; JAX parity in tests/test_torch_upconv.py)."""
     _, variables, x, _ = case
-    with pytest.raises(NotImplementedError, match="A3b"):
-        TU.packed_unet_train_apply(_torch_model(variables).state_dict(),
-                                   torch.from_numpy(x), dec_up=dec_up)
+    sd = _torch_model(variables).state_dict()
+    with torch.no_grad():
+        ref, stats_ref = TU.packed_unet_train_apply(sd, torch.from_numpy(x))
+        got, stats = TU.packed_unet_train_apply(sd, torch.from_numpy(x),
+                                                dec_up=dec_up)
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
+    for k in stats_ref:
+        torch.testing.assert_close(stats[k], stats_ref[k], rtol=1e-4,
+                                   atol=1e-5)
 
 
 def test_packed_dice_loss_matches_jax_multiclass():

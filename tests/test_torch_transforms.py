@@ -72,6 +72,37 @@ def test_pad_to_matches_jax(target):
         got, np.asarray(JF.pad_to(jnp.asarray(v), target, value=0.5)))
 
 
+@pytest.mark.parametrize("mode", ["edge", "reflect", "symmetric", "wrap"])
+@pytest.mark.parametrize("dtype", [np.float32, np.int16])
+def test_pad_to_modes_match_jnp_pad(mode, dtype):
+    """`pad_to(mode=...)` pads as `jnp.pad` does in that mode, with the
+    same symmetric split (the odd voxel on the far side), any dtype.
+    JAX's own `pad_to` passes `constant_values` to every mode, which
+    `jnp.pad` refuses for all but "constant", so its symmetric pads are
+    taken as JAX's `pad_to` computes them."""
+    v = (_vol(2)[None, ..., None] * 100).astype(dtype)
+    target = (21, 17, 26)
+    got = TF.pad_to(torch.from_numpy(v), target, mode=mode)
+    pads = [(0, 0)] + [((t - n) // 2, t - n - (t - n) // 2)
+                       for n, t in zip(v.shape[1:4], target)] + [(0, 0)]
+    ref = np.asarray(jnp.pad(jnp.asarray(v), pads, mode=mode))
+    assert got.dtype == torch.from_numpy(v).dtype
+    np.testing.assert_array_equal(got.numpy(), ref)
+    with pytest.raises(ValueError):
+        JF.pad_to(jnp.asarray(v), target, mode=mode)
+
+
+def test_pad_to_edge_mode_gradient_sums_into_the_edge():
+    """The gather of a non-constant mode is differentiable: each padded
+    voxel's gradient goes back to the voxel it copies."""
+    v = torch.from_numpy(_vol(3)[None, :4, :3, :5, None]).requires_grad_()
+    TF.pad_to(v, (6, 3, 5), mode="edge").sum().backward()
+    want = np.ones(v.shape, np.float32)
+    want[:, 0] += 1
+    want[:, -1] += 1
+    np.testing.assert_array_equal(v.grad.numpy(), want)
+
+
 @pytest.mark.parametrize("axes", [(0,), (1, 2), (0, 1, 2)])
 def test_flip_matches_jax(axes):
     v = _vol(2)
