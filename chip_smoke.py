@@ -174,19 +174,21 @@ Phases (each raises on failure, so the script exits nonzero):
 11. int8 serving and the composed decoder:
    a. the phase-4 UNet calibrated on 2 of its volumes and quantized
       (`models/unet_packed_q.py::quantize_inference`); every K1
-      (`conv2_packed_s8`, `csrc/conv2_packed_s8.cu`: 10 sites) and K2
-      (`upconv_packed_s8`, `csrc/upconv_packed_s8.cu`: d0 and d1) launch
-      of its 192^3 int8 trunk, recorded at batch 1, against its plain
-      version (float64 sums): int32 and fused-epilogue int8 outputs equal
-      exactly; ms at batch 8, the plain ms at batch 1, the bound (int8
-      operations at 1,979 TOP/s or bytes at 3.35 TB/s) and the bf16 B1
-      launch at the same site (for K2 also `upsample2_packed` and the
-      float composed up-conv, one cuDNN transposed conv);
+      (`conv2_packed_s8`: `csrc/conv2_packed_s8_tc.cu`, wgmma, at 9
+      sites, `csrc/conv2_packed_s8.cu`, mma.sync, at the stem) and K2
+      (`upconv_packed_s8`, `csrc/upconv_packed_s8.cu`, wgmma: d0 and d1)
+      launch of its 192^3 int8 trunk, recorded at batch 1, against its
+      plain version (float64 sums): int32 and fused-epilogue int8 outputs
+      equal exactly, each site on its route; ms at batch 8, the plain ms
+      at batch 1, the bound (int8 operations at 1,979 TOP/s or bytes at
+      3.35 TB/s), the share of the int8 peak, and the bf16 B1 launch at
+      the same site (for K2 also `upsample2_packed` and the float
+      composed up-conv, one cuDNN transposed conv);
    b. the 16 volumes served through `segment_volumes(mask_fn=
       packed_unet_mask_v2_int8)` at batch 8: masks against phase 4's f32
       fine masks (agreement >= 0.995, JAX's gate; foreground Dice >= 0.9),
       exact launch counts per batch (K1 10, all with the epilogue fused,
-      K2 2, no other kernel of the port), vol/s, batch latency, a
+      9 on wgmma, K2 2, no other kernel of the port), vol/s, batch latency, a
       profiled batch beside phase 4's bf16 numbers;
    c. the packed train step with `dec_up="composed"` and `"hybrid"`
       against `"explicit"` in f32 at 64^3 (phase 6b's tolerances), then
@@ -199,7 +201,8 @@ fused B3; of the training path: B1's forward on tensor cores, the
 stem's forward on CUDA cores, B1 as input gradient; of f32 validation;
 of phase 8's sliding window and patch training; of phase 9's fader
 training: fused B3, B3's dx and dw and the `conv_axis` recomputes on
-tensor cores; of phase 11's int8 serving: K1 and K2; the standalone
+tensor cores; of phase 11's int8 serving: K1 on its wgmma route and on
+the stem's mma.sync route, and K2; the standalone
 B2, off every path, goes to the JSON file with its numbers, as does dw
 of the packed UNet, which is cuBLAS and no kernel of the port), the card's
 `nvidia-smi` name and power limit, and last
@@ -520,6 +523,10 @@ Q_DICE_GATE = 0.9              # foreground Dice, int8 vs f32 masks
 Q_PER_BATCH = {"conv2_packed_s8": len(Q_SITES),
                "conv2_packed_s8_fused": len(Q_SITES),
                "upconv_packed_s8": len(Q_UP_SITES), "other_kernels": 0}
+# K1's route at each site (`_conv2_s8_route`): the 8Ci = 8 stem on
+# mma.sync, the others on wgmma; K2 always on wgmma
+Q_ROUTES = ("mma_sync",) + ("wgmma",) * (len(Q_SITES) - 1)
+Q_WGMMA_PER_BATCH = Q_ROUTES.count("wgmma")
 
 
 def log(*args):
@@ -1242,7 +1249,8 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True):
                       "conv_axis_dw_partial_kernel",
                       "conv_axis_dw_finish_kernel", "axis_dx_tc_kernel",
                       "axis_dw_tc_kernel", "axis_dw_tc_finish_kernel",
-                      "conv2_packed_s8_kernel", "upconv_packed_s8_kernel")}
+                      "conv2_packed_s8_kernel", "conv2_packed_s8_tc_kernel",
+                      "upconv_packed_s8_kernel")}
     # the epilogue instantiations carry `true>` in their template arguments
     fused_tc = sum(r[1] for r in rows if "conv2_packed_tc_kernel" in r[0]
                    and "true>" in r[0])
@@ -1277,7 +1285,9 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True):
             "conv_axis_dw_ms": ours["conv_axis_dw_partial_kernel"]
             + ours["conv_axis_dw_finish_kernel"] + ours["axis_dw_tc_kernel"]
             + ours["axis_dw_tc_finish_kernel"],
-            "conv2_packed_s8_ms": ours["conv2_packed_s8_kernel"],
+            "conv2_packed_s8_ms": ours["conv2_packed_s8_kernel"]
+            + ours["conv2_packed_s8_tc_kernel"],
+            "conv2_packed_s8_tc_ms": ours["conv2_packed_s8_tc_kernel"],
             "upconv_packed_s8_ms": ours["upconv_packed_s8_kernel"],
             "other_kernels_ms": device_ms - copy_ms - sum(ours.values()),
             "top": [{"name": k[:90], "ms": ms, "calls": n}
@@ -3818,22 +3828,30 @@ def s8_kernel_phase(K, P, calls):
     tensors at batch 1, int32 (raw) and int8 (fused) equal exactly; then
     ms at batch Q_TIMED_BATCH (the batch-1 tensors repeated), the plain
     version's ms at batch 1, the bound (operations at the int8 peak or
-    bytes at HBM rate, the larger) and, as a yardstick, the bf16 B1
-    launch at the same site (for K2, the explicit up branch's aligned->
-    shifted launch on the upsampled input, beside `upsample2_packed`) and
-    the float composed up-conv (`upconv_packed`, one cuDNN transposed
-    conv, bf16).  No library int8 conv exists to compare with."""
+    bytes at HBM rate, the larger) and its share of the int8 peak, the
+    route each launch took (`conv2_packed_s8.wgmma_launches`; gated
+    against Q_ROUTES: no site may fall back to the mma.sync kernel) and,
+    as a yardstick, the bf16 B1 launch at the same site (for K2, the
+    explicit up branch's aligned->shifted launch on the upsampled input,
+    beside `upsample2_packed`) and the float composed up-conv
+    (`upconv_packed`, one cuDNN transposed conv, bf16).  No library int8
+    conv exists to compare with."""
     import torch
 
     b = Q_TIMED_BATCH
     k1_rows, k2_rows, errs = [], [], {"k1_raw": 0, "k1_fused": 0, "k2": 0}
+    routes = []
     for site, (args, kw) in zip(Q_SITES, calls["conv2_packed_s8"]):
         x8, w8 = args
         pad = kw["pad"]
         ep = {k: v for k, v in kw.items() if k != "pad"}
+        before = K.conv2_packed_s8.wgmma_launches
         raw = K.conv2_packed_s8(x8, w8, pad=pad)
         raw_ref = K.conv2_packed_s8_plain(x8, w8, pad=pad)
         fused = K.conv2_packed_s8(x8, w8, pad=pad, **ep)
+        wgmma = K.conv2_packed_s8.wgmma_launches - before
+        route = {2: "wgmma", 0: "mma_sync"}.get(wgmma, f"mixed ({wgmma})")
+        routes.append(route)
         t0 = time.perf_counter()
         fused_ref = K.conv2_packed_s8_plain(x8, w8, pad=pad, **ep)
         torch.cuda.synchronize()
@@ -3859,13 +3877,16 @@ def s8_kernel_phase(K, P, calls):
                   + (4 * add.numel() if add is not None else 0)
                   + 4 * 4 * c8o)
         row = {"site": site, "pad": pad, "x": list(xb.shape),
-               "w": list(w8.shape), "addend": add is not None, "ms": ms,
+               "w": list(w8.shape), "addend": add is not None,
+               "route": route, "ms": ms,
                "raw_int32_ms": raw_ms, "plain_ms": plain_ms,
                "plain_batch": int(x8.shape[0]), "bf16_b1_ms": b1_ms,
                "max_abs_err_raw": e_raw, "max_abs_err_fused": e_fused,
                **_bound_row(2.0 * cells * 8 * c8i * c8o, nbytes,
                             PEAK_OPS_PER_S["int8"])}
         row["tops"] = row["flops"] / ms / 1e9
+        row["pct_int8_peak"] = 100 * row["flops"] / (
+            ms * 1e-3 * PEAK_OPS_PER_S["int8"])
         k1_rows.append(row)
         log(f"K1 {site}: {json.dumps(row)}")
         del xb, add, epb, xh, wh, raw, raw_ref, fused, fused_ref
@@ -3905,7 +3926,8 @@ def s8_kernel_phase(K, P, calls):
             ops, 2 * (xa.numel() + wk.numel() + out_cells * c8o),
             PEAK_OPS_PER_S["bf16"])["bound_ms"]
         row = {"site": site, "x_padded": list(xeb.shape),
-               "w": list(wk8.shape), "ms": ms, "plain_ms": plain_ms,
+               "w": list(wk8.shape), "route": "wgmma", "ms": ms,
+               "plain_ms": plain_ms,
                "plain_batch": int(xe8.shape[0]), "bf16_b1_ms": b1_ms,
                "bf16_upsample_ms": up_ms,
                "bf16_composed_cudnn_ms": composed_ms,
@@ -3915,6 +3937,8 @@ def s8_kernel_phase(K, P, calls):
                "max_abs_err": err,
                **_bound_row(ops, nbytes, PEAK_OPS_PER_S["int8"])}
         row["tops"] = row["flops"] / ms / 1e9
+        row["pct_int8_peak"] = 100 * row["flops"] / (
+            ms * 1e-3 * PEAK_OPS_PER_S["int8"])
         k2_rows.append(row)
         log(f"K2 {site}: {json.dumps(row)}")
         del xeb, xa, wa, up, wk
@@ -3923,6 +3947,9 @@ def s8_kernel_phase(K, P, calls):
     if any(errs.values()):
         raise AssertionError(f"int8 kernels differ from their plain "
                              f"versions: {errs}")
+    log(f"K1 routes: {json.dumps(dict(zip(Q_SITES, routes)))}")
+    if tuple(routes) != Q_ROUTES:
+        raise AssertionError(f"K1 routes {routes} != {list(Q_ROUTES)}")
     return k1_rows, k2_rows, errs
 
 
@@ -3941,8 +3968,8 @@ def int8_serving_phase(K, Q, q, vols, fine_masks, znorm_batch,
     through `segment_volumes(mask_fn=packed_unet_mask_v2_int8)` at batch
     BATCH, float32 input: masks against phase 4's f32 fine masks
     (agreement >= Q_MASK_AGREEMENT, JAX's gate; foreground Dice >=
-    Q_DICE_GATE), exact launch counts per batch (K1 10, all fused, K2 2,
-    no other kernel of the port), vol/s, batch latency, peak memory and
+    Q_DICE_GATE), exact launch counts per batch (K1 10, all fused, 9 of
+    them on the wgmma route, K2 2, no other kernel of the port), vol/s, batch latency, peak memory and
     one profiled batch beside phase 4's bf16 numbers.  Returns the
     numbers and the gates that failed."""
     import torch
@@ -3969,6 +3996,7 @@ def int8_serving_phase(K, Q, q, vols, fine_masks, znorm_batch,
     K.reset_launch_counts()
     t_s, masks = serve(vols)
     counts = _s8_counts(K, launch_counts)
+    wgmma = K.conv2_packed_s8.wgmma_launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {k: v * n_batches for k, v in Q_PER_BATCH.items()}
     profile = profile_batch(lambda: serve(vols[:BATCH]))
@@ -3979,6 +4007,8 @@ def int8_serving_phase(K, Q, q, vols, fine_masks, znorm_batch,
            "calibration_volumes": Q_CALIB_VOLUMES, "s": t_s, "vol_per_s": len(vols) / t_s,
            "ms_per_batch": t_s / n_batches * 1e3, "peak_memory_gb": peak_gb,
            "launches": counts, "launches_expected": want,
+           "k1_wgmma_launches": wgmma,
+           "k1_wgmma_launches_expected": Q_WGMMA_PER_BATCH * n_batches,
            "foreground_share": float(masks.mean()),
            "foreground_share_f32": float(fine_masks.mean()),
            "mask_agreement_vs_f32": agree, "foreground_dice_vs_f32": dice,
@@ -3992,6 +4022,9 @@ def int8_serving_phase(K, Q, q, vols, fine_masks, znorm_batch,
     fails = []
     if counts != want:
         fails.append(f"launch counts {counts} != {want}")
+    if wgmma != Q_WGMMA_PER_BATCH * n_batches:
+        fails.append(f"K1 wgmma launches {wgmma} != "
+                     f"{Q_WGMMA_PER_BATCH * n_batches}")
     if agree < Q_MASK_AGREEMENT:
         fails.append(f"mask agreement {agree} < {Q_MASK_AGREEMENT}")
     if dice < Q_DICE_GATE:
@@ -4105,9 +4138,10 @@ def composed_training_phase(K, P, TS, UNet3D, gen):
 
 
 def s8_kernel_entries(k1_rows, k2_rows, errs, counts, serving):
-    """The kernels-line entries of K1 and K2: launches from phase 11b's
-    served run, times summed over the sites of one batch-Q_TIMED_BATCH
-    forward (the plain versions' at batch 1)."""
+    """The kernels-line entries of K1 (its wgmma route at 9 sites, its
+    mma.sync route at the stem) and K2: launches from phase 11b's served
+    run, times summed over the sites of one batch-Q_TIMED_BATCH forward
+    (the plain versions' at batch 1)."""
     src = "mri_epilepsy_diagnosis_torch/csrc/"
     q = "mri_epilepsy_diagnosis_tpu/models/unet_packed_q.py:"
     shapes = (f"sum over the sites of one batch-{Q_TIMED_BATCH} int8 "
@@ -4130,12 +4164,21 @@ def s8_kernel_entries(k1_rows, k2_rows, errs, counts, serving):
                 "library_ms": None, "shapes": shapes, "path": "int8_serving",
                 "bf16_b1_ms": sum(r["bf16_b1_ms"] for r in rows), **extra}
 
+    tc_rows = [r for r in k1_rows if r["route"] == "wgmma"]
+    mma_rows = [r for r in k1_rows if r["route"] == "mma_sync"]
+    wgmma = serving["k1_wgmma_launches"]
     return [
+        entry("conv2_packed_s8_tc", src + "conv2_packed_s8_tc.cu", q + "68",
+              tc_rows, max(errs["k1_raw"], errs["k1_fused"]), wgmma,
+              Q_WGMMA_PER_BATCH, fuses=q + "267 (_epilogue)",
+              raw_int32_ms=sum(r["raw_int32_ms"] for r in tc_rows),
+              k1_ms_all_sites=sum(r["ms"] for r in k1_rows)),
         entry("conv2_packed_s8", src + "conv2_packed_s8.cu", q + "68",
-              k1_rows, max(errs["k1_raw"], errs["k1_fused"]),
-              counts["conv2_packed_s8"], Q_PER_BATCH["conv2_packed_s8"],
+              mma_rows, max(errs["k1_raw"], errs["k1_fused"]),
+              counts["conv2_packed_s8"] - wgmma,
+              Q_PER_BATCH["conv2_packed_s8"] - Q_WGMMA_PER_BATCH,
               fuses=q + "267 (_epilogue)",
-              raw_int32_ms=sum(r["raw_int32_ms"] for r in k1_rows)),
+              raw_int32_ms=sum(r["raw_int32_ms"] for r in mma_rows)),
         entry("upconv_packed_s8", src + "upconv_packed_s8.cu", q + "76",
               k2_rows, errs["k2"], counts["upconv_packed_s8"],
               Q_PER_BATCH["upconv_packed_s8"],

@@ -38,11 +38,20 @@ def _kernel(data, name, key="ms", sub=None):
     return None
 
 
+def _sites(rows, key="ms"):
+    return {r["site"]: r.get(key) for r in rows or []}
+
+
 def summary(data: dict) -> dict:
-    """The end-to-end numbers of one `chip_smoke.json`, and the B3
-    recompute row (the `conv_axis` entry of the kernels line, under
-    either of its names)."""
+    """The end-to-end numbers of one `chip_smoke.json`, the B3 recompute
+    row (the `conv_axis` entry of the kernels line, under either of its
+    names), B1's phase-3 serving times, and int8 serving: K1 and K2 summed
+    over their sites of one batch-8 forward and per site, their bf16
+    yardsticks, vol/s and device ms of a served batch."""
     fader = data.get("fader", {})
+    k1 = data.get("int8_k1_sites") or []
+    k2 = data.get("int8_k2_sites") or []
+    int8 = data.get("int8_serving", {})
     recompute = {}
     for name in ("conv_axis_tc", "conv_axis"):
         if _kernel(data, name) is not None:
@@ -59,6 +68,20 @@ def summary(data: dict) -> dict:
         "alternation_conv_axis_ms": _get(fader, "profile_device_only",
                                          "conv_axis_ms"),
         "recompute_row": recompute,
+        "b1_tc_serving_ms": _kernel(data, "conv2_packed_tc"),
+        "b1_tc_bn_act_serving_ms": _kernel(data, "conv2_packed_tc_bn_act"),
+        "k1_ms": sum(r["ms"] for r in k1) if k1 else None,
+        "k1_raw_int32_ms": sum(r["raw_int32_ms"] for r in k1) if k1 else None,
+        "k1_sites_ms": _sites(k1),
+        "k1_bf16_b1_ms": sum(r["bf16_b1_ms"] for r in k1) if k1 else None,
+        "k2_ms": sum(r["ms"] for r in k2) if k2 else None,
+        "k2_sites_ms": _sites(k2),
+        "k2_bf16_composed_cudnn_ms": (sum(r["bf16_composed_cudnn_ms"]
+                                          for r in k2) if k2 else None),
+        "int8_vol_per_s": int8.get("vol_per_s"),
+        "int8_ms_per_batch": int8.get("ms_per_batch"),
+        "int8_device_ms_per_batch": _get(int8, "profile", "device_ms"),
+        "int8_idle_share": _get(int8, "profile", "idle_share"),
         "ae_step_ms": _get(data, "ae_train", "ms_per_step"),
         "serving_int16_vol_per_s": _get(data, "serving", "int16_vol_per_s"),
         "serving_uint8_vol_per_s": _get(data, "serving", "uint8_vol_per_s"),

@@ -75,6 +75,29 @@ __device__ __forceinline__ unsigned shifted_drop(int od, int oh, int ow,
   return d | h | w;
 }
 
+// JAX's `_epilogue` (models/unet_packed_q.py:267) on one int32 sum of an
+// int8 conv, in float32, each operation rounded on its own (no FMA
+// contraction):
+//   y = f32(v) * dq + add + bias;  y = prelu(y, alpha);  0 if drop
+//   q = clip(rint(y * rq), -127, 127)
+// Returns a word whose low byte is q as int8.  Branch-free: an absent
+// addend or bias is 0 and an absent slope 1, which give the same q (an
+// add of 0 only turns -0 into +0, and both round to 0).  The clip comes
+// first and the rounding is the add of 1.5 x 2^23, which rounds to the
+// nearest even integer and leaves it in the low mantissa bits: rint and
+// the clip commute (the bounds are integers), and the result equals
+// JAX's round-then-clip, NaN and infinities included (both give the
+// bound).
+__device__ __forceinline__ uint32_t s8_requant(int v, float dq, float add,
+                                               float bias, float alpha,
+                                               bool drop, float rq) {
+  float y = __fadd_rn(__fadd_rn(__fmul_rn(__int2float_rn(v), dq), add), bias);
+  y = y >= 0.f ? y : __fmul_rn(y, alpha);
+  y = drop ? 0.f : y;
+  const float t = fminf(fmaxf(__fmul_rn(y, rq), -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(t, 12582912.f));
+}
+
 // acc[c] += xv * wr[c] for c < COT: one input value into COT float32
 // sums, the weights read 4-wide where COT allows (wr 16-byte aligned)
 template <int COT>

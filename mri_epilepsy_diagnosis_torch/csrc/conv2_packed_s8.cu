@@ -1,5 +1,8 @@
-// K1: the k=2 packed convolution in int8, for the int8 serving path of the
-// packed UNet3D (`models/unet_packed_q.py`).
+// K1's mma.sync route: the k=2 packed convolution in int8, for the int8
+// serving path of the packed UNet3D (`models/unet_packed_q.py`), where
+// 8Ci or 8Co is not a multiple of 64: the 8Ci = 8 stem (e0c1).  The other
+// sites take `conv2_packed_s8_tc.cu` (wgmma fed by TMA);
+// `ops/cuda_kernels.py::_conv2_s8_route` picks one.
 //
 // Replaces: mri_epilepsy_diagnosis_tpu/models/unet_packed_q.py `conv_int8`
 //   (:68, `lax.conv_general_dilated(int8, int8) -> int32` in XLA) and, in
@@ -19,18 +22,17 @@
 //       y = prelu(y, alpha[co]); pad voxels of a shifted output zeroed
 //       q = clip(rint(y * rq[co]), -127, 127) as int8
 //     in JAX's order of operations, each a separately rounded float32
-//     operation (__fmul_rn / __fadd_rn: no FMA contraction), rint rounding
-//     half to even as jnp.round and torch.round do, the clip before the
-//     cast.  The addend (float32, shaped like the output) lets the
+//     operation (__fmul_rn / __fadd_rn: no FMA contraction), rounding
+//     half to even as jnp.round and torch.round do (`common.cuh::
+//     s8_requant`, shared with the wgmma route).  The addend (float32, shaped like the output) lets the
 //     decoder's first conv take the dequantized, face-fixed up branch:
 //     (y_s * dq + y_u) + b.
 //
-// Bound on the H100: at 192^3 every site but the 8Ci = 8 stem does far
-// more than 590 int8 operations per byte it must move (the ridge of 1,979
-// TOP/s over 3.35 TB/s), so the bound is operations; the stem's K is 64
-// and its bound is bytes.  This first version is an mma.sync m16n8k32
-// implicit GEMM over tiles staged in shared memory (s8_igemm.cuh): right
-// and simple, not yet fed by TMA or wgmma.
+// Bound on the H100: the stem's K is 64, so it does fewer than the 590
+// int8 operations per byte it must move that the ridge of 1,979 TOP/s
+// over 3.35 TB/s needs, and its bound is bytes.  An mma.sync m16n8k32
+// implicit GEMM over tiles staged in shared memory (s8_igemm.cuh) serves
+// it; the sites bound by operations take the wgmma kernel.
 //
 // Requires 8Ci % 8 == 0 and 8Co % 8 == 0, contiguous tensors and
 // 16-byte-aligned base pointers (checked by the Python wrapper,
@@ -57,6 +59,23 @@ conv2_packed_s8_kernel(const int8_t* __restrict__ x, const Geometry g,
   int acc[2][4][4];
   mainloop(x, g, m0, n0, acc);
 
+  // the fused epilogue's per-column vectors of the thread's 4 column
+  // pairs, loaded once for its 4 rows (absent ones neutral: `s8_requant`)
+  float2 dq[4], rq[4], bs[4], al[4];
+  if constexpr (FUSED) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int co = min(n0 + acc_col(ni, 0), g.C8o - 2);
+      dq[ni] = __ldg(reinterpret_cast<const float2*>(epi.dq + co));
+      rq[ni] = __ldg(reinterpret_cast<const float2*>(epi.rq + co));
+      bs[ni] = epi.bias != nullptr
+                   ? __ldg(reinterpret_cast<const float2*>(epi.bias + co))
+                   : make_float2(0.f, 0.f);
+      al[ni] = epi.alpha != nullptr
+                   ? __ldg(reinterpret_cast<const float2*>(epi.alpha + co))
+                   : make_float2(1.f, 1.f);
+    }
+  }
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
@@ -65,7 +84,7 @@ conv2_packed_s8_kernel(const int8_t* __restrict__ x, const Geometry g,
       if (!r.ok) continue;
       unsigned drop = 0u;
       if (FUSED && g.pad == 1)
-        drop = shifted_drop(r.pz, r.py, r.px, g.Do, g.Ho, g.Wo);
+        drop = shifted_drop(r.pz, r.py, r.px, g.Pd, g.Ph, g.Pw);
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const int co = n0 + acc_col(ni, 2 * half);
@@ -75,27 +94,23 @@ conv2_packed_s8_kernel(const int8_t* __restrict__ x, const Geometry g,
           *reinterpret_cast<int2*>(static_cast<int*>(out) + r.out * g.C8o +
                                    co) = make_int2(v[0], v[1]);
         } else {
-          const int sub_block = g.C8o >> 3;
-          signed char q[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = co + e;
-            float y = __fmul_rn(__int2float_rn(v[e]), __ldg(epi.dq + c));
-            if (epi.addend != nullptr)
-              y = __fadd_rn(y, __ldg(epi.addend + r.out * g.C8o + c));
-            if (epi.bias != nullptr) y = __fadd_rn(y, __ldg(epi.bias + c));
-            if (epi.alpha != nullptr && !(y >= 0.f))
-              y = __fmul_rn(y, __ldg(epi.alpha + c));
-            if ((drop >> (c / sub_block)) & 1u) y = 0.f;
-            float t = rintf(__fmul_rn(y, __ldg(epi.rq + c)));
-            t = fminf(fmaxf(t, -127.f), 127.f);
-            q[e] = (signed char)(int)t;
-          }
-          char2 packed;
-          packed.x = q[0];
-          packed.y = q[1];
-          *reinterpret_cast<char2*>(static_cast<int8_t*>(out) +
-                                    r.out * g.C8o + co) = packed;
+          // JAX's `_epilogue` (`s8_requant`); the pad-drop sub of each
+          // column (8Co / 8 may be odd here) only on rows at a face
+          const int c_sub = g.C8o >> 3;
+          const bool d0 = drop != 0u && ((drop >> (co / c_sub)) & 1u);
+          const bool d1 = drop != 0u && ((drop >> ((co + 1) / c_sub)) & 1u);
+          const float2 ad =
+              epi.addend != nullptr
+                  ? __ldg(reinterpret_cast<const float2*>(
+                        epi.addend + r.out * g.C8o + co))
+                  : make_float2(0.f, 0.f);
+          const uint32_t q0 = s8_requant(v[0], dq[ni].x, ad.x, bs[ni].x,
+                                         al[ni].x, d0, rq[ni].x);
+          const uint32_t q1 = s8_requant(v[1], dq[ni].y, ad.y, bs[ni].y,
+                                         al[ni].y, d1, rq[ni].y);
+          *reinterpret_cast<unsigned short*>(static_cast<int8_t*>(out) +
+                                             r.out * g.C8o + co) =
+              (unsigned short)__byte_perm(q0, q1, 0x0040);
         }
       }
     }
@@ -122,14 +137,12 @@ extern "C" int mri_conv2_packed_s8(const void* x, const void* w, void* out,
     return (int)cudaErrorInvalidValue;
   const int step = pad ? 1 : -1;
   Geometry g;
-  g.Di = di; g.Hi = hi; g.Wi = wi; g.C8i = c8i;
-  g.Do = di + step; g.Ho = hi + step; g.Wo = wi + step; g.C8o = c8o;
-  g.Pd = g.Do; g.Ph = g.Ho; g.Pw = g.Wo;
+  g.Di = di; g.Hi = hi; g.Wi = wi; g.C8i = c8i; g.C8o = c8o;
+  g.Pd = di + step; g.Ph = hi + step; g.Pw = wi + step;
   g.M = n * g.Pd * g.Ph * (long long)g.Pw;
   g.td = g.th = g.tw = 2;
   g.pad = pad;
   g.K = 8 * c8i;
-  g.so = 1; g.rd = g.rh = g.rw = 0;
   g.w = static_cast<const int8_t*>(w);
   if (g.M <= 0) return (int)cudaSuccess;
   const Epilogue epi{(const float*)dq, (const float*)bias,

@@ -57,11 +57,12 @@
 //
 // A wait on an mbarrier that outlasts ~2^35 cycles (over 10 s) traps, so
 // a pipeline fault ends the launch with an error instead of hanging the
-// card.
-#include <cuda.h>
+// card.  The mbarrier, TMA and wgmma helpers are shared with K1 and K2
+// (`hopper_tma.cuh`).
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "common.cuh"
+#include "hopper_tma.cuh"
 
 namespace mri {
 namespace tc {
@@ -70,16 +71,7 @@ constexpr int kBM = 128;                 // output cells per tile
 constexpr int kBK = 64;                  // channels per K step
 constexpr int kRowBytes = kBK * 2;       // one swizzled 128-byte row
 constexpr int kABytes = kBM * kRowBytes; // 16 KB
-constexpr int kThreads = 384;            // 2 consumer + 1 producer warpgroup
-constexpr int kLaunchRegs = 168;         // 65536 / 384, rounded down to 8
 constexpr int kRingBytes = 192 * 1024;
-constexpr long long kWatchdogCycles = 1LL << 35;
-
-// host-side refusals, returned in place of a CUDA error code
-constexpr int kErrNoEncoder = -1;    // cuTensorMapEncodeTiled not found
-constexpr int kErrTensorMap = -2;    // a tensor map was refused
-constexpr int kErrRegisters = -3;    // not compiled to kLaunchRegs registers
-constexpr int kErrPlan = -4;         // tile plan or shape not served
 
 template <int BN>
 struct Cfg {
@@ -106,110 +98,6 @@ struct Epi {
   const float* alpha;
   const __nv_bfloat16* addend;
 };
-
-// the packed subs (bit s = sub s) that are pad voxels at output cell
-// (od, oh, ow) of a (Do, Ho, Wo) shifted tensor: on the last cell of an
-// axis the subs with that axis's bit set (D: bit 2, subs 4-7; H: bit 1;
-// W: bit 0), on the first cell (if it is not also the last) the others.
-// 0 for every interior cell.
-__device__ __forceinline__ unsigned shifted_drop(int od, int oh, int ow,
-                                                 int Do, int Ho, int Wo) {
-  const unsigned d = od == Do - 1 ? 0xF0u : od == 0 ? 0x0Fu : 0u;
-  const unsigned h = oh == Ho - 1 ? 0xCCu : oh == 0 ? 0x33u : 0u;
-  const unsigned w = ow == Wo - 1 ? 0xAAu : ow == 0 ? 0x55u : 0u;
-  return d | h | w;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// Wait until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > kWatchdogCycles) __trap();
-}
-
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3), "r"(c4)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with the 128-byte
-// swizzle: start address >> 4, leading byte offset 16 (unused by this
-// layout), stride byte offset 1024 between 8-row groups, layout B128.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(16 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads of the accumulators above the
-// wgmma wait: it does not know that wgmma writes them asynchronously.
-__device__ __forceinline__ void fence_operand(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
 
 // d[64 x BN] += A[64 x 16] B[16 x BN], both K-major in shared memory, f32
 // accumulators in the wgmma fragment layout (BN / 2 per thread).
@@ -530,52 +418,14 @@ conv2_packed_tc_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled looked up through the CUDA runtime, so the
-// library needs no -lcuda.
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                            cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
 template <int BN, bool EPI>
 static int launch(const CUtensorMap& xm, const CUtensorMap& wm,
                   const float* bias, __nv_bfloat16* out, const Plan& p,
                   const Epi& epi, unsigned grid, cudaStream_t stream) {
   auto kernel = conv2_packed_tc_kernel<BN, EPI>;
   static bool regs_checked = false;
-  if (!regs_checked) {
-    // setmaxnreg moves registers inside the launch's allocation: it needs
-    // all kLaunchRegs per thread, or the consumers' increase never returns
-    cudaFuncAttributes attr;
-    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-    if (e != cudaSuccess) return (int)e;
-    if (attr.numRegs != kLaunchRegs) return kErrRegisters;
-    regs_checked = true;
-  }
-  // per device, so set at every launch
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<BN>::kSmem);
-  if (e != cudaSuccess) return (int)e;
+  const int rc = prepare_launch(kernel, Cfg<BN>::kSmem, regs_checked);
+  if (rc != 0) return rc;
   kernel<<<grid, kThreads, Cfg<BN>::kSmem, stream>>>(xm, wm, bias, out, p,
                                                      epi);
   return (int)cudaGetLastError();

@@ -1,13 +1,13 @@
-// The int8 implicit GEMM shared by K1 (`conv2_packed_s8.cu`) and K2
-// (`upconv_packed_s8.cu`): int8 x int8 -> int32 on the tensor cores with
-// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, over tiles staged in
-// shared memory.
+// K1's mma.sync route (`conv2_packed_s8.cu`): the int8 implicit GEMM of
+// the k=2 packed conv where the wgmma route (`s8_wgmma.cuh`) does not
+// apply, the 8Ci = 8 stem of the served UNet above all: int8 x int8 ->
+// int32 on the tensor cores with mma.sync.aligned.m16n8k32.row.col.s32.s8
+// .s8.s32, over tiles staged in shared memory.
 //
-// One launch (or one parity class of K2) is a dense conv over packed
-// cells with a small tap box:
-//   out[n, so*p + r, :] = sum_{j in taps} x[n, p + j - pad, :] @ w_j
+// One launch is a dense conv over packed cells with a 2 x 2 x 2 tap box:
+//   out[n, p, :] = sum_{j in taps} x[n, p + j - pad, :] @ w_j
 // per axis, x zero outside its extent, w_j the (8Ci, 8Co) matrix of tap j.
-// GEMM view: M = the rows p (N x Pd x Ph x Pw cells), K = taps x 8Ci
+// GEMM view: M = the rows p (N x Do x Ho x Wo cells), K = 8 taps x 8Ci
 // (k = tap * 8Ci + ci, tap = (jd * th + jh) * tw + jw), N = 8Co.  The
 // weights arrive K-major, (8Co, K) row-major, so that each column of the
 // B operand is contiguous.
@@ -19,8 +19,8 @@
 // 8Ci = 8 stem packs 4 taps into one step); the next step's global loads
 // go into registers while the MMAs of this one run (two buffers, one
 // barrier a step).  Rows are 48 bytes apart in shared memory, which makes
-// the fragment reads free of bank conflicts.  A simple kernel: no
-// cp.async or TMA ring, no ldmatrix, no persistent tiles.
+// the fragment reads free of bank conflicts.  The stem's K is 64, so its
+// bound is bytes, and this simple kernel serves it.
 #pragma once
 
 #include "common.cuh"
@@ -34,23 +34,22 @@ constexpr int kBK = 32;
 constexpr int kThreads = 256;
 constexpr int kStride = 48;  // bytes between staged rows (32 used)
 
-// where the rows of one launch (or parity class) read and write
+// where the rows of one launch read and write
 struct Geometry {
   long long M;           // rows: N * Pd * Ph * Pw
-  int Pd, Ph, Pw;        // row grid per item
+  int Pd, Ph, Pw;        // row grid per item: the output extent
   int Di, Hi, Wi, C8i;   // input extent
   int td, th, tw;        // taps per axis
   int pad;               // input coordinate = p + j - pad
   int K;                 // td * th * tw * C8i
-  int Do, Ho, Wo, C8o;   // full output extent
-  int so, rd, rh, rw;    // output cell = so * p + r per axis
+  int C8o;
   const int8_t* w;       // (C8o, K) row-major
 };
 
 // a row's item base offset and cell, decoded once per thread
 struct Row {
   long long base;        // n * Di * Hi * Wi * C8i
-  long long out;         // output cell index (n, so*p + r)
+  long long out;         // output cell index: the row m itself
   int pz, py, px;
   bool ok;
 };
@@ -65,9 +64,7 @@ __device__ __forceinline__ Row decode_row(const Geometry& g, long long m) {
   r.pz = (int)(t % g.Pd);
   const long long n = t / g.Pd;
   r.base = n * g.Di * g.Hi * (long long)g.Wi * g.C8i;
-  r.out = ((n * g.Do + (g.so * r.pz + g.rd)) * g.Ho + (g.so * r.py + g.rh)) *
-              (long long)g.Wo +
-          (g.so * r.px + g.rw);
+  r.out = m;
   return r;
 }
 

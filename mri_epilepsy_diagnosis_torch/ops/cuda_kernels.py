@@ -11,8 +11,8 @@ launch counters and build.
 | `separable_conv3d`  | `csrc/separable_conv3d.cu` (the three axes in one launch) | `ops/pallas_kernels.py::separable_conv3d` |
 | `conv_axis_dx`      | `csrc/conv_axis_bwd_tc.cu` (bf16: mma.sync), `csrc/conv_axis_bwd.cu` (f32: CUDA cores) | the input gradient of `conv_axis_last` (XLA's in JAX) |
 | `conv_axis_dw`      | the same two sources (two passes each, no atomics) | the weight and bias gradients of `conv_axis_last` |
-| `conv2_packed_s8` (K1) | `csrc/conv2_packed_s8.cu` (int8 mma.sync, `s8_igemm.cuh`; int32 out, or JAX's `_epilogue` fused to int8) | `models/unet_packed_q.py::conv_int8` (XLA in JAX) |
-| `upconv_packed_s8` (K2) | `csrc/upconv_packed_s8.cu` (the same GEMM per output parity class) | `models/unet_packed_q.py::upconv_int8` (XLA in JAX) |
+| `conv2_packed_s8` (K1) | `csrc/conv2_packed_s8_tc.cu` (8Ci and 8Co multiples of 64: int8 wgmma + TMA, `s8_wgmma.cuh`), `csrc/conv2_packed_s8.cu` (the rest, the 8Ci = 8 stem: int8 mma.sync, `s8_igemm.cuh`); int32 out, or JAX's `_epilogue` fused to int8 | `models/unet_packed_q.py::conv_int8` (XLA in JAX) |
+| `upconv_packed_s8` (K2) | `csrc/upconv_packed_s8.cu` (the wgmma GEMM of `s8_wgmma.cuh` per output parity class, one persistent launch) | `models/unet_packed_q.py::upconv_int8` (XLA in JAX) |
 
 `conv_one_axis` and `separable_conv3d` keep the signatures of their JAX
 namesakes (without the Mosaic workarounds `interpret` and `max_taps`).
@@ -38,8 +38,9 @@ input gradient; `conv_axis.tc_launches` the one-axis launches on the
 tensor-core route (`_axis_fwd_route`), `conv_axis_dx.tc_launches` and
 `conv_axis_dw.tc_launches` the backward launches on theirs
 (`_axis_bwd_route`); `conv2_packed_s8.launches` the int8 packed convs
-(`.fused_launches` those with the epilogue), `upconv_packed_s8.launches`
-the int8 composed up-convs.
+(`.fused_launches` those with the epilogue, `.wgmma_launches` those on
+the wgmma route of `_conv2_s8_route`), `upconv_packed_s8.launches` the
+int8 composed up-convs.
 
 The kernels are CUDA C++ for `sm_90a` with a plain C interface, compiled
 by `nvcc` at first use (one process per source, all started together) and
@@ -68,8 +69,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("conv2_packed.cu", "conv2_packed_tc.cu", "bn_act_zero_pads.cu",
            "conv_axis.cu", "separable_conv3d.cu", "conv_axis_bwd.cu",
            "conv_axis_bwd_tc.cu", "conv_axis_tc.cu", "conv2_packed_s8.cu",
-           "upconv_packed_s8.cu")
-HEADERS = ("common.cuh", "tc_common.cuh", "s8_igemm.cuh")
+           "conv2_packed_s8_tc.cu", "upconv_packed_s8.cu")
+HEADERS = ("common.cuh", "tc_common.cuh", "hopper_tma.cuh", "s8_igemm.cuh",
+           "s8_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB_NAME = "libmri_torch_kernels.so"
@@ -174,7 +176,9 @@ def load() -> ctypes.CDLL:
     lib.mri_conv2_packed_s8.argtypes = [vp, vp, vp, ll, i, i, i, i, i, i,
                                         vp, vp, vp, vp, vp, vp]
     lib.mri_conv2_packed_s8.restype = i
-    lib.mri_upconv_packed_s8.argtypes = [vp, vp, vp, ll, i, i, i, i, i, vp]
+    lib.mri_conv2_packed_s8_tc.argtypes = [vp, vp, vp, ll] + [i] * 11 + [vp] * 6
+    lib.mri_conv2_packed_s8_tc.restype = i
+    lib.mri_upconv_packed_s8.argtypes = [vp, vp, vp, ll] + [i] * 10 + [vp]
     lib.mri_upconv_packed_s8.restype = i
     return lib
 
@@ -191,7 +195,8 @@ def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-# refusals of conv2_packed_tc.cu's host code (negative return codes)
+# refusals of the wgmma kernels' host code (`hopper_tma.cuh`; negative
+# return codes)
 _HOST_ERRORS = {-1: "cuTensorMapEncodeTiled is not available",
                 -2: "a TMA tensor map was refused",
                 -3: "the kernel was not compiled to 168 registers per "
@@ -284,6 +289,12 @@ def _tc_box(do: int, ho: int, wo: int) -> Tuple[int, int, int]:
     return best[1]
 
 
+def _tc_n_tile(c8o: int) -> int:
+    """Output channels per tile of the wgmma kernels: the whole 8Co up to
+    256, else the widest of 256, 128, 64 that divides it."""
+    return 256 if c8o % 256 == 0 else 128 if c8o % 128 == 0 else 64
+
+
 def conv2_tc_plan(n: int, do: int, ho: int, wo: int, c8o: int,
                   pad: int) -> TcPlan:
     """Box, tile counts, N tile and per-tap input offsets of the
@@ -293,7 +304,7 @@ def conv2_tc_plan(n: int, do: int, ho: int, wo: int, c8o: int,
     (qd - pad, qh - pad, qw - pad), zero outside the input."""
     bw, bh, bd = _tc_box(do, ho, wo)
     tiles = (-(-wo // bw), -(-ho // bh), -(-do // bd))
-    bn = 256 if c8o % 256 == 0 else 128 if c8o % 128 == 0 else 64
+    bn = _tc_n_tile(c8o)
     boxes = tiles[0] * tiles[1] * tiles[2]
     return TcPlan(box=(bw, bh, bd), tiles=tiles, bn=bn,
                   grid=n * boxes * (c8o // bn),
@@ -1856,13 +1867,35 @@ class SeparableConv3dFn(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 S8_QMAX = 127.0
-_S8_K_STEP = 32               # bytes of K per m16n8k32 step
-_S8_GROUP = 8                 # bytes of K per staged load
+# K1's mma.sync route (`s8_igemm.cuh`): 32-byte K steps staged in 8-byte
+# groups
+_S8_K_STEP = 32
+_S8_GROUP = 8
+# the wgmma route (`s8_wgmma.cuh`) takes 8Ci and 8Co multiples of this
+_S8_TC_ALIGN = 64
+
+
+def _conv2_s8_route(c8i: int, c8o: int) -> str:
+    """The kernel that serves a `conv2_packed_s8` call on the card:
+    "wgmma" (`conv2_packed_s8_tc.cu`: wgmma fed by TMA) for 8Ci and 8Co
+    multiples of 64, "mma_sync" (`conv2_packed_s8.cu`) for everything
+    else, which on the served path is the 8Ci = 8 stem."""
+    if c8i % _S8_TC_ALIGN == 0 and c8o % _S8_TC_ALIGN == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
+def s8_k_step(c8i: int) -> int:
+    """Bytes of K per step of the wgmma route: 128 channels of one tap
+    (one row with the 128-byte swizzle) where 8Ci % 128 == 0, else 64 with
+    the 64-byte swizzle (8Ci = 64: e0c2)."""
+    return 128 if c8i % 128 == 0 else 64
 
 
 def s8_kmajor_weights(wp8: torch.Tensor) -> torch.Tensor:
-    """(2, 2, 2, 8Ci, 8Co) int8 packed weights -> K1's (8Co, 8 x 8Ci)
-    K-major B operand, k = (4 qd + 2 qh + qw) x 8Ci + ci."""
+    """(2, 2, 2, 8Ci, 8Co) int8 packed weights -> the mma.sync route's
+    (8Co, 8 x 8Ci) K-major B operand, k = (4 qd + 2 qh + qw) x 8Ci + ci.
+    (The wgmma route takes `kmajor_weights`' (8 taps, 8Co, 8Ci).)"""
     c8o = wp8.shape[4]
     return wp8.permute(4, 0, 1, 2, 3).reshape(c8o, -1).contiguous()
 
@@ -1874,6 +1907,7 @@ class S8Class(NamedTuple):
     taps: Tuple[int, int, int]    # taps j per axis: input cell p + j
     kernel_index: Tuple[Tuple[int, int, int], ...]  # composed tap per j
     k: int                        # taps x 8Ci
+    tap0: int                     # the class's first weight tap
     w_offset: int                 # int8 entries before this class's weights
 
 
@@ -1883,8 +1917,9 @@ def upconv_s8_plan(padded_cells: Sequence[int], c8i: int,
     cells into the 8 output parity classes c = 4 rd + 2 rh + rw: an even
     output cell 2p meets the kernel taps 1 + 2j (j = 0, 1), an odd one
     2p + 1 the taps 2j (j = 0, 1, 2), each reading input cell p + j.
-    Class weights are concatenated in class order, each (8Co, k)."""
-    classes, offset = [], 0
+    Class weights are concatenated in class order, each (taps, 8Co, 8Ci)
+    with tap t = (jd th + jh) tw + jw."""
+    classes, tap0 = [], 0
     for c in range(8):
         r = ((c >> 2) & 1, (c >> 1) & 1, c & 1)
         taps = tuple(2 + ri for ri in r)
@@ -1892,24 +1927,71 @@ def upconv_s8_plan(padded_cells: Sequence[int], c8i: int,
         kidx = tuple((2 * jd + 1 - r[0], 2 * jh + 1 - r[1], 2 * jw + 1 - r[2])
                      for jd in range(taps[0]) for jh in range(taps[1])
                      for jw in range(taps[2]))
-        k = len(kidx) * c8i
-        classes.append(S8Class(r, cells, taps, kidx, k, offset))
-        offset += c8o * k
+        classes.append(S8Class(r, cells, taps, kidx, len(kidx) * c8i, tap0,
+                               tap0 * c8o * c8i))
+        tap0 += len(kidx)
     return tuple(classes)
 
 
 def upconv_s8_weights(wk8: torch.Tensor,
                       plan: Sequence[S8Class]) -> torch.Tensor:
     """(5, 5, 5, 8Ci, 8Co) composed int8 kernel -> K2's weights: each
-    class's taps gathered as its (8Co, taps x 8Ci) K-major matrix, the
-    classes concatenated (one flat int8 tensor)."""
-    c8o = wk8.shape[4]
+    class's taps gathered as (taps, 8Co, 8Ci), K-major, the classes
+    concatenated (one flat int8 tensor; viewed as (125 x 8Co, 8Ci), class
+    c's tap t is the row block (tap0 + t) x 8Co)."""
     parts = []
     for cls in plan:
         idx = torch.as_tensor(cls.kernel_index, device=wk8.device)
         taps = wk8[idx[:, 0], idx[:, 1], idx[:, 2]]       # (t, 8Ci, 8Co)
-        parts.append(taps.permute(2, 0, 1).reshape(c8o, -1).reshape(-1))
+        parts.append(taps.permute(0, 2, 1).reshape(-1))
     return torch.cat(parts).contiguous()
+
+
+class S8UpPlan(NamedTuple):
+    """Tile plan of one K2 launch (`upconv_s8_tc_plan`)."""
+    classes: Tuple[S8Class, ...]  # `upconv_s8_plan`, in class order
+    box: Tuple[int, int, int]     # (bw, bh, bd) rows per tile, every class
+    bn: int                       # output channels per tile
+    kb: int                       # bytes of K per step
+    order: Tuple[int, ...]        # classes in work order, heaviest first
+    tiles: Tuple[Tuple[int, int, int], ...]  # boxes along (W, H, D), per class
+    items: Tuple[int, ...]        # work items per class
+
+
+def upconv_s8_tc_plan(n: int, padded_cells: Sequence[int], c8i: int,
+                      c8o: int) -> S8UpPlan:
+    """K2's work: the 8 parity classes of `upconv_s8_plan`, each tiled by
+    one box of at most 128 rows (B1's `_tc_box` for the largest class grid,
+    (Dp - 1, Hp - 1, Wp - 1); rows past a smaller class's grid are
+    computed and never stored) and by N tiles of `_tc_n_tile(8Co)`.  Work
+    items (class, batch item, box, N tile) are numbered class by class,
+    heaviest class (most taps) first, then by class index."""
+    classes = upconv_s8_plan(padded_cells, c8i, c8o)
+    bw, bh, bd = _tc_box(*classes[0].cells)
+    bn = _tc_n_tile(c8o)
+    tiles = tuple((-(-c.cells[2] // bw), -(-c.cells[1] // bh),
+                   -(-c.cells[0] // bd)) for c in classes)
+    order = tuple(sorted(range(8), key=lambda c: (-math.prod(
+        classes[c].taps), c)))
+    items = tuple(n * math.prod(t) * (c8o // bn) for t in tiles)
+    return S8UpPlan(classes, (bw, bh, bd), bn, s8_k_step(c8i), order, tiles,
+                    items)
+
+
+def upconv_s8_work(plan: S8UpPlan, n: int):
+    """K2's work items in the kernel's numbering: (class, batch item,
+    (tz, ty, tx) box, first output channel), class by class in
+    `plan.order`; within a class the N tile varies fastest, then the box
+    along W, H, D, then the batch item."""
+    for c in plan.order:
+        tw, th, td = plan.tiles[c]
+        n_tiles = plan.items[c] // (n * tw * th * td)
+        for b in range(n):
+            for tz in range(td):
+                for ty in range(th):
+                    for tx in range(tw):
+                        for nt in range(n_tiles):
+                            yield c, b, (tz, ty, tx), nt * plan.bn
 
 
 def _conv2_s8_sum(x8: torch.Tensor, wp8: torch.Tensor,
@@ -1995,9 +2077,13 @@ def conv2_packed_s8(x8: torch.Tensor, wp8: torch.Tensor, *, pad: int,
     (8Co,) float32 (alpha may be one shared slope); addend: None or a
     float32 tensor shaped like the output (the decoder's dequantized,
     face-fixed up branch).  A CPU tensor takes `conv2_packed_s8_plain`;
-    on the card the kernel of `csrc/conv2_packed_s8.cu` runs, or the call
-    raises.  `conv2_packed_s8.launches` counts its launches,
-    `.fused_launches` those with the epilogue."""
+    on the card `_conv2_s8_route` picks the kernel of
+    `csrc/conv2_packed_s8_tc.cu` (wgmma, 8Ci and 8Co multiples of 64) or
+    of `csrc/conv2_packed_s8.cu` (mma.sync), which runs, or the call
+    raises; x8 and the addend must be contiguous and 16-byte aligned.
+    `conv2_packed_s8.launches` counts its launches, `.fused_launches`
+    those with the epilogue, `.wgmma_launches` those on the wgmma
+    route."""
     _check_conv2_args(x8, wp8, pad)
     n, di, hi, wi, c8i = x8.shape
     c8o = wp8.shape[4]
@@ -2024,35 +2110,42 @@ def conv2_packed_s8(x8: torch.Tensor, wp8: torch.Tensor, *, pad: int,
     if c8i % 8 or c8o % 8:
         raise ValueError(f"conv2_packed_s8 needs 8Ci % 8 == 0 and 8Co % 8 "
                          f"== 0; got {c8i}, {c8o}")
-    x8 = x8.contiguous()
     _check_cuda("x8", x8, torch.int8, x8.device)
-    wk = s8_kmajor_weights(wp8.to(x8.device))
+    if addend is not None:
+        _check_cuda("addend", addend, torch.float32, x8.device)
+    wgmma = _conv2_s8_route(c8i, c8o) == "wgmma"
+    wp8 = wp8.to(x8.device)
+    wk = kmajor_weights(wp8) if wgmma else s8_kmajor_weights(wp8)
     _check_cuda("w", wk, torch.int8, x8.device)
     fused = vecs[0] is not None
     out = torch.empty(out_shape, device=x8.device,
                       dtype=torch.int8 if fused else torch.int32)
     if out.numel() == 0:
         return out
-    ptrs = [None if t is None else t.data_ptr() for t in vecs]
-    if addend is not None:
-        addend = addend.contiguous()
-        _check_cuda("addend", addend, torch.float32, x8.device)
-        ptrs.append(addend.data_ptr())
-    else:
-        ptrs.append(None)
+    ptrs = [None if t is None else t.data_ptr() for t in vecs + [addend]]
+    lib = load()
+    stream = torch.cuda.current_stream(x8.device).cuda_stream
     with torch.cuda.device(x8.device):
-        rc = load().mri_conv2_packed_s8(
-            x8.data_ptr(), wk.data_ptr(), out.data_ptr(), n, di, hi, wi,
-            c8i, c8o, pad, *ptrs,
-            torch.cuda.current_stream(x8.device).cuda_stream)
-    _raise_on(rc, "conv2_packed_s8")
+        if wgmma:
+            plan = conv2_tc_plan(n, *out_shape[1:4], c8o, pad)
+            rc = lib.mri_conv2_packed_s8_tc(
+                x8.data_ptr(), wk.data_ptr(), out.data_ptr(), n, di, hi, wi,
+                c8i, c8o, pad, *plan.box, plan.bn, s8_k_step(c8i), *ptrs,
+                stream)
+        else:
+            rc = lib.mri_conv2_packed_s8(
+                x8.data_ptr(), wk.data_ptr(), out.data_ptr(), n, di, hi, wi,
+                c8i, c8o, pad, *ptrs, stream)
+    _raise_on(rc, "conv2_packed_s8_tc" if wgmma else "conv2_packed_s8")
     conv2_packed_s8.launches += 1
     conv2_packed_s8.fused_launches += fused
+    conv2_packed_s8.wgmma_launches += wgmma
     return out
 
 
 conv2_packed_s8.launches = 0
 conv2_packed_s8.fused_launches = 0
+conv2_packed_s8.wgmma_launches = 0
 
 
 def upconv_packed_s8_plain(xe8: torch.Tensor,
@@ -2094,10 +2187,11 @@ def upconv_packed_s8(xe8: torch.Tensor, wk8: torch.Tensor) -> torch.Tensor:
     per axis, o in [0, 2Dp - 4].  xe8: the edge-padded coarse cells (N,
     Dp, Hp, Wp, 8Ci) int8 (`ops.packed.edge_pad_cells`); wk8: (5, 5, 5,
     8Ci, 8Co) int8.  Returns (N, 2Dp-3, 2Hp-3, 2Wp-3, 8Co) int32.  A CPU
-    tensor takes `upconv_packed_s8_plain`; on the card the kernel of
-    `csrc/upconv_packed_s8.cu` runs all 8 parity classes in one launch
-    (`upconv_s8_plan`), or the call raises.  `upconv_packed_s8.launches`
-    counts its launches."""
+    tensor takes `upconv_packed_s8_plain`; on the card (8Ci and 8Co
+    multiples of 64; xe8 contiguous and 16-byte aligned) the kernel of
+    `csrc/upconv_packed_s8.cu` runs all 8 parity classes in one
+    persistent launch (`upconv_s8_tc_plan`), or the call raises.
+    `upconv_packed_s8.launches` counts its launches."""
     if xe8.ndim != 5 or tuple(wk8.shape[:3]) != (5, 5, 5) \
             or wk8.shape[3] != xe8.shape[4]:
         raise ValueError(f"upconv_packed_s8 needs xe8 (N,Dp,Hp,Wp,C8i) and "
@@ -2116,13 +2210,12 @@ def upconv_packed_s8(xe8: torch.Tensor, wk8: torch.Tensor) -> torch.Tensor:
                          f"{xe8.device}")
     n, dp, hp, wp, c8i = xe8.shape
     c8o = wk8.shape[4]
-    if c8i % 8 or c8o % 8:
-        raise ValueError(f"upconv_packed_s8 needs 8Ci % 8 == 0 and 8Co % 8 "
-                         f"== 0; got {c8i}, {c8o}")
-    xe8 = xe8.contiguous()
+    if c8i % _S8_TC_ALIGN or c8o % _S8_TC_ALIGN:
+        raise ValueError(f"upconv_packed_s8 needs 8Ci and 8Co multiples of "
+                         f"{_S8_TC_ALIGN} on the card; got {c8i}, {c8o}")
     _check_cuda("xe8", xe8, torch.int8, xe8.device)
-    w = upconv_s8_weights(wk8.to(xe8.device), upconv_s8_plan(
-        (dp, hp, wp), c8i, c8o))
+    plan = upconv_s8_tc_plan(n, (dp, hp, wp), c8i, c8o)
+    w = upconv_s8_weights(wk8.to(xe8.device), plan.classes)
     _check_cuda("w", w, torch.int8, xe8.device)
     out = torch.empty((n, 2 * dp - 3, 2 * hp - 3, 2 * wp - 3, c8o),
                       dtype=torch.int32, device=xe8.device)
@@ -2131,7 +2224,8 @@ def upconv_packed_s8(xe8: torch.Tensor, wk8: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(xe8.device):
         rc = load().mri_upconv_packed_s8(
             xe8.data_ptr(), w.data_ptr(), out.data_ptr(), n, dp, hp, wp,
-            c8i, c8o, torch.cuda.current_stream(xe8.device).cuda_stream)
+            c8i, c8o, *plan.box, plan.bn, plan.kb,
+            torch.cuda.current_stream(xe8.device).cuda_stream)
     _raise_on(rc, "upconv_packed_s8")
     upconv_packed_s8.launches += 1
     return out
@@ -2155,3 +2249,4 @@ def reset_launch_counts():
     conv_axis_dx.tc_launches = 0
     conv_axis_dw.tc_launches = 0
     conv2_packed_s8.fused_launches = 0
+    conv2_packed_s8.wgmma_launches = 0

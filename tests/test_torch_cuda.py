@@ -1072,34 +1072,40 @@ def _int8(shape, g, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c8i,c8o", [(8, 64), (64, 128), (256, 256),
-                                     (40, 24), (512, 512)])
+                                     (40, 24), (512, 512), (128, 192)])
 @pytest.mark.parametrize("pad", [0, 1])
 @pytest.mark.parametrize("shape", [(2, 7, 6, 9), (1, 3, 2, 17)])
 def test_conv2_packed_s8_raw_matches_plain(cuda_device, shape, pad, c8i, c8o):
     """K1's int32 sums equal the plain version's exactly, at extents that
-    no 128-row tile divides, the 8Ci = 8 stem and 8Co below the 64-wide
-    tile."""
+    no 128-row tile divides: the wgmma route (8Ci, 8Co multiples of 64;
+    64-byte K steps at 8Ci = 64, two N tiles at 8Co = 512, 8Co = 192 in
+    three) and the mma.sync route (the 8Ci = 8 stem, 8Co below 64)."""
     g = torch.Generator(device=cuda_device).manual_seed(c8i + pad)
     x8 = _int8((*shape, c8i), g, cuda_device)
     w8 = _int8((2, 2, 2, c8i, c8o), g, cuda_device)
-    before = (K.conv2_packed_s8.launches, K.conv2_packed_s8.fused_launches)
+    wgmma = K._conv2_s8_route(c8i, c8o) == "wgmma"
+    before = (K.conv2_packed_s8.launches, K.conv2_packed_s8.fused_launches,
+              K.conv2_packed_s8.wgmma_launches)
     got = K.conv2_packed_s8(x8, w8, pad=pad)
     torch.cuda.synchronize()
-    assert (K.conv2_packed_s8.launches,
-            K.conv2_packed_s8.fused_launches) == (before[0] + 1, before[1])
+    assert (K.conv2_packed_s8.launches, K.conv2_packed_s8.fused_launches,
+            K.conv2_packed_s8.wgmma_launches) == (
+        before[0] + 1, before[1], before[2] + wgmma)
     ref = K.conv2_packed_s8_plain(x8, w8, pad=pad)
     assert got.dtype == torch.int32 and torch.equal(got, ref)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("addend", [False, True])
-@pytest.mark.parametrize("c8i,c8o", [(8, 64), (128, 256), (16, 24)])
+@pytest.mark.parametrize("c8i,c8o", [(8, 64), (128, 256), (16, 24),
+                                     (64, 128), (256, 512)])
 @pytest.mark.parametrize("pad", [0, 1])
 def test_conv2_packed_s8_fused_matches_plain(cuda_device, pad, c8i, c8o,
                                              addend):
     """K1 with JAX's `_epilogue` fused: int8 equal to the plain version's
     float32 operations in the same order (rint ties to even, no FMA), one
-    shared PReLU slope or one per channel, saturating values clipped."""
+    shared PReLU slope or one per channel, saturating values clipped, on
+    both routes."""
     g = torch.Generator(device=cuda_device).manual_seed(7 + c8i)
     x8 = _int8((2, 5, 4, 7, c8i), g, cuda_device)
     w8 = _int8((2, 2, 2, c8i, c8o), g, cuda_device)
@@ -1122,12 +1128,14 @@ def test_conv2_packed_s8_fused_matches_plain(cuda_device, pad, c8i, c8o,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c8i,c8o", [(8, 64), (256, 128), (512, 256),
-                                     (24, 40)])
+@pytest.mark.parametrize("c8i,c8o", [(64, 64), (256, 128), (512, 256),
+                                     (128, 192), (256, 512)])
 @pytest.mark.parametrize("cells", [(3, 4, 2), (6, 6, 6), (1, 5, 3)])
 def test_upconv_packed_s8_matches_plain(cuda_device, cells, c8i, c8o):
-    """K2's 8 parity classes in one launch: int32 equal to the plain
-    version (and so to JAX's `upconv_int8`, tests/test_torch_quant.py)."""
+    """K2's 8 parity classes in one persistent wgmma launch: int32 equal
+    to the plain version (and so to JAX's `upconv_int8`,
+    tests/test_torch_quant.py), 64-byte K steps at 8Ci = 64, several N
+    tiles at 8Co = 192 and 512."""
     from mri_epilepsy_diagnosis_torch.ops import packed as P
 
     g = torch.Generator(device=cuda_device).manual_seed(c8i)
@@ -1139,6 +1147,102 @@ def test_upconv_packed_s8_matches_plain(cuda_device, cells, c8i, c8o):
     assert K.upconv_packed_s8.launches == before + 1
     assert got.dtype == torch.int32
     assert torch.equal(got, K.upconv_packed_s8_plain(xe, wk8))
+
+
+# the 10 K1 sites of the served int8 UNet3D at 192^3, batch 1: (input
+# cells, 8Ci, 8Co, pad, addend); the 2 K2 sites: (padded cells, 8Ci, 8Co)
+S8_SERVED_K1 = {"e0c1": (96, 8, 64, 1, False),
+                "e0c2": (97, 64, 128, 0, False),
+                "e1c1": (48, 128, 128, 1, False),
+                "e1c2": (49, 128, 256, 0, False),
+                "bc1": (24, 256, 256, 1, False),
+                "bc2": (25, 256, 512, 0, False),
+                "d0c1": (48, 256, 256, 1, True),
+                "d0c2": (49, 256, 256, 0, False),
+                "d1c1": (96, 128, 128, 1, True),
+                "d1c2": (97, 128, 128, 0, False)}
+S8_SERVED_K2 = {"d0": (26, 512, 256), "d1": (50, 256, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", list(S8_SERVED_K1))
+def test_conv2_packed_s8_served_site_matches_plain(cuda_device, site):
+    """K1 at every served site's shape, 192^3, batch 1: raw int32 and the
+    fused int8 epilogue (with the decoder's addend where it has one) equal
+    to the plain version, on the route the site takes."""
+    cells, c8i, c8o, pad, has_add = S8_SERVED_K1[site]
+    g = torch.Generator(device=cuda_device).manual_seed(len(site) + c8o)
+    x8 = _int8((1, cells, cells, cells, c8i), g, cuda_device)
+    w8 = _int8((2, 2, 2, c8i, c8o), g, cuda_device)
+    out = cells + (1 if pad else -1)
+    kw = dict(dq=torch.rand(c8o, generator=g, device=cuda_device) * 2e-5,
+              bias=torch.randn(c8o, generator=g, device=cuda_device),
+              alpha=torch.rand(c8o, generator=g, device=cuda_device),
+              rq=10 + 50 * torch.rand(c8o, generator=g, device=cuda_device),
+              addend=(torch.randn((1, out, out, out, c8o), generator=g,
+                                  device=cuda_device) if has_add else None))
+    before = K.conv2_packed_s8.wgmma_launches
+    raw = K.conv2_packed_s8(x8, w8, pad=pad)
+    fused = K.conv2_packed_s8(x8, w8, pad=pad, **kw)
+    torch.cuda.synchronize()
+    wgmma = K._conv2_s8_route(c8i, c8o) == "wgmma"
+    assert wgmma == (site != "e0c1")
+    assert K.conv2_packed_s8.wgmma_launches == before + 2 * wgmma
+    assert torch.equal(raw, K.conv2_packed_s8_plain(x8, w8, pad=pad))
+    del raw
+    assert torch.equal(fused, K.conv2_packed_s8_plain(x8, w8, pad=pad, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", list(S8_SERVED_K2))
+def test_upconv_packed_s8_served_site_matches_plain(cuda_device, site):
+    padded, c8i, c8o = S8_SERVED_K2[site]
+    g = torch.Generator(device=cuda_device).manual_seed(c8i)
+    xe = _int8((1, padded, padded, padded, c8i), g, cuda_device)
+    wk8 = _int8((5, 5, 5, c8i, c8o), g, cuda_device)
+    got = K.upconv_packed_s8(xe, wk8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.upconv_packed_s8_plain(xe, wk8))
+
+
+def _misaligned(t):
+    """t's values in a tensor whose data starts 1 byte past 16-byte
+    alignment (contiguous)."""
+    flat = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.int8,
+                       device=t.device)
+    off = (16 - flat.data_ptr() % 16) % 16 + 1
+    out = flat[off:off + t.numel() * t.element_size()].view(t.dtype)
+    return out.view(t.shape).copy_(t)
+
+
+@pytest.mark.cuda
+def test_s8_wrappers_raise_on_strided_or_misaligned_inputs(cuda_device):
+    """K1 and K2 take contiguous, 16-byte-aligned tensors and copy none:
+    a strided or misaligned input, a K2 width the wgmma kernel does not
+    serve, raise before any launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(40)
+    x8 = _int8((1, 4, 5, 6, 128), g, cuda_device)
+    w8 = _int8((2, 2, 2, 64, 64), g, cuda_device)
+    before = (K.conv2_packed_s8.launches, K.upconv_packed_s8.launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.conv2_packed_s8(x8[..., ::2], w8, pad=1)
+    with pytest.raises(ValueError, match="aligned"):
+        K.conv2_packed_s8(_misaligned(x8[..., :64].contiguous()), w8, pad=0)
+    add = torch.zeros((1, 5, 7, 6, 64), device=cuda_device).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.conv2_packed_s8(x8[..., :64].contiguous(), w8, pad=1,
+                          dq=torch.ones(64, device=cuda_device),
+                          rq=torch.ones(64, device=cuda_device), addend=add)
+    xe = _int8((1, 5, 5, 5, 64), g, cuda_device)
+    wk8 = _int8((5, 5, 5, 64, 64), g, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.upconv_packed_s8(xe.transpose(1, 2), wk8)
+    with pytest.raises(ValueError, match="aligned"):
+        K.upconv_packed_s8(_misaligned(xe), wk8)
+    with pytest.raises(ValueError, match="multiples"):
+        K.upconv_packed_s8(xe[..., :24].contiguous(), wk8[..., :24, :])
+    assert (K.conv2_packed_s8.launches,
+            K.upconv_packed_s8.launches) == before
 
 
 def _int8_unet(dev, size=32):

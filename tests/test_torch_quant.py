@@ -360,11 +360,12 @@ def test_conv2_s8_kernel_walk_matches_jax(pad, c8i):
 @pytest.mark.parametrize("shape,c8i", [((2, 3, 4, 2), 16), ((1, 2, 2, 2), 8),
                                        ((1, 3, 2, 3), 24)])
 def test_upconv_s8_plan_walk_matches_jax(shape, c8i):
-    """K2's parity classes walked with torch exactly as the kernel walks
-    them (`upconv_s8_plan`, the concatenated class weights of
-    `upconv_s8_weights`, 32-byte K steps of 8-byte groups, the tap decoded
-    from k), written to the output cells 2p + r; and the plain version:
-    both equal to JAX's `upconv_int8`."""
+    """K2's parity classes walked with torch (`upconv_s8_plan`, the
+    concatenated tap-major class weights of `upconv_s8_weights`, tap t of
+    class c at row block (tap0 + t) x 8Co, input cell p + j), written to
+    the output cells 2p + r; and the plain version: both equal to JAX's
+    `upconv_int8`.  (`tests/test_torch_s8_tc.py` walks the kernel's tiles
+    and K steps.)"""
     rng = np.random.default_rng(c8i)
     x8 = _int8(rng, shape + (c8i,))
     wk8 = _int8(rng, (5, 5, 5, c8i, 16))
@@ -373,22 +374,21 @@ def test_upconv_s8_plan_walk_matches_jax(shape, c8i):
     plan = K.upconv_s8_plan(tuple(xe.shape[1:4]), c8i, 16)
     w = K.upconv_s8_weights(torch.from_numpy(wk8), plan)
     assert w.numel() == sum(16 * c.k for c in plan)
+    w = w.reshape(-1, 16, c8i).long()
     out = torch.full(ref.shape, -2 ** 40, dtype=torch.int64)
     xl = xe.long()
     for cls in plan:
-        wc = w[cls.w_offset:cls.w_offset + 16 * cls.k].reshape(16, -1).long()
+        assert cls.w_offset == cls.tap0 * 16 * c8i
         cd, ch, cw = cls.cells
         acc = torch.zeros((xe.shape[0], cd, ch, cw, 16), dtype=torch.int64)
-        for step in range(-(-cls.k // K._S8_K_STEP)):
-            for grp in range(K._S8_K_STEP // K._S8_GROUP):
-                k = step * K._S8_K_STEP + grp * K._S8_GROUP
-                if k >= cls.k:
-                    continue
-                tap, ci = divmod(k, c8i)
-                jw, t2 = tap % cls.taps[2], tap // cls.taps[2]
-                jh, jd = t2 % cls.taps[1], t2 // cls.taps[1]
-                sl = xl[:, jd:jd + cd, jh:jh + ch, jw:jw + cw, ci:ci + 8]
-                acc += torch.einsum("ndhwc,oc->ndhwo", sl, wc[:, k:k + 8])
+        t = 0
+        for jd in range(cls.taps[0]):
+            for jh in range(cls.taps[1]):
+                for jw in range(cls.taps[2]):
+                    sl = xl[:, jd:jd + cd, jh:jh + ch, jw:jw + cw]
+                    acc += torch.einsum("ndhwc,oc->ndhwo", sl,
+                                        w[cls.tap0 + t])
+                    t += 1
         out[:, cls.r[0]::2, cls.r[1]::2, cls.r[2]::2] = acc
     np.testing.assert_array_equal(out.numpy(), ref)
     np.testing.assert_array_equal(
@@ -419,6 +419,8 @@ def test_upconv_s8_plan_partitions_the_output(sc):
     assert (seen == 1).all()
     offsets = [c.w_offset for c in plan]
     assert offsets == list(np.cumsum([0] + [128 * c.k for c in plan])[:-1])
+    assert [c.tap0 for c in plan] == list(
+        np.cumsum([0] + [np.prod(c.taps) for c in plan])[:-1])
 
 
 def test_s8_wrappers_refuse_wrong_inputs():
