@@ -194,6 +194,25 @@ Phases (each raises on failure, so the script exits nonzero):
       against `"explicit"` in f32 at 64^3 (phase 6b's tolerances), then
       ms per 192^3 batch-2 bf16 step of each form and the up branch's
       forward and backward alone (CUDA events).
+12. the segmentation model zoo (`ZOO`: ResidualUNet3D with and without
+   Bayesian convs, Modified3DUNet, BraTSUnet, at the JAX package's
+   default widths with one channel and two classes) through
+   `train/seg.py::seg_train_step`; cuDNN convs and plain torch, so no
+   kernel of the port launches (counts gated at 0 over the phase):
+   a. parity at 64^3, batch 1, TF32 off, card against the port on
+      the CPU with one host draw of noise and Dropout masks: train-mode
+      logits (1e-4 x max) and one step's loss (1e-5) in f32, every
+      gradient of that step in f64 (1e-10 x max|ref| per tensor; the f32
+      ones are recorded), and the card's AdamW step applied to the CPU's
+      gradients against the CPU's parameters (1e-6);
+   b. bf16 steps at 64^3 batch 16 (phase 8d's patches) and 192^3 batch
+      1 (a whole volume): ms per step, patches or volumes per second,
+      peak memory, finite and falling losses; `seg_eval_step` ms at
+      192^3;
+   c. one profiled 192^3 step: device time split into cuDNN conv, norm,
+      resize, copies, strided-tensor copies and elementwise
+      (`zoo_split`), and the idle share
+      (recorded, not gated).
 
 It prints one line per check, then `{"kernels": [...]}` (the kernels of
 the served path: B1 on tensor cores, B2 fused into B1 on either route,
@@ -212,6 +231,7 @@ when no CUDA device is available or the port's package is missing.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -527,6 +547,31 @@ Q_PER_BATCH = {"conv2_packed_s8": len(Q_SITES),
 # mma.sync, the others on wgmma; K2 always on wgmma
 Q_ROUTES = ("mma_sync",) + ("wgmma",) * (len(Q_SITES) - 1)
 Q_WGMMA_PER_BATCH = Q_ROUTES.count("wgmma")
+
+# the segmentation model zoo (phase 12): the JAX package's default widths
+# with one T1 channel and two classes (the seg dice loss is two-class).
+# Its convs, norms and resizes are cuDNN and plain torch: no kernel of
+# the port launches (counts gated at 0).
+ZOO = {
+    "residual_unet3d": ("ResidualUNet3D", dict(
+        n_classes=2, n_channels=(1, 16, 32, 64, 128))),
+    "residual_unet3d_bayes": ("ResidualUNet3D", dict(
+        n_classes=2, n_channels=(1, 16, 32, 64, 128), bayes=True)),
+    "modified_3dunet": ("Modified3DUNet", dict(
+        in_channels=1, n_classes=2, base_n_filter=8)),
+    "brats_unet": ("BraTSUnet", dict(
+        c=1, n=16, dropout=0.5, norm="gn", num_classes=2)),
+}
+ZOO_LOGIT_TOL = 1e-4           # x max|ref|, card vs CPU in f32
+ZOO_OPT_ATOL = 1e-6            # the card's AdamW step against the CPU's
+# float32 rounding alone can move a zoo gradient by more than 2e-2 of its
+# tensor's max (Modified3DUNet at 64^3: its chains of InstanceNorms cancel
+# most of each sum, and on some inputs the card's float32 step and the
+# CPU's each land that far from their float64 one), so the gradients are
+# held in float64, card against CPU, per tensor
+ZOO_GRAD64_RTOL = 1e-10        # x max|ref|
+ZOO_TIMED_STEPS = 4
+ZOO_EVAL_REPS = 3
 
 
 def log(*args):
@@ -1205,7 +1250,8 @@ def calibrate_fader(enc, clf, x_few, latents_fn):
                                    -d.mean() / d.std()]))
 
 
-def profile_batch(fn, top: int = 12, host_ops: bool = True):
+def profile_batch(fn, top: int = 12, host_ops: bool = True,
+                  name_len: int = 90):
     """torch.profiler over one served batch: device time by kernel name,
     the port's kernels (B1 on tensor cores split into its plain-store and
     B2-epilogue instantiations), everything else, and the device's idle share
@@ -1213,7 +1259,8 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True):
     at a time here, so their times add).  A first, tiny profiled op
     absorbs the profiler's own start-up.  `host_ops=False` traces the
     device alone: recording every host op slows the host threads, which
-    set the pace of an epoch from files."""
+    set the pace of an epoch from files.  `top` rows of kernel names cut
+    to `name_len` characters are returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1290,7 +1337,7 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True):
             "conv2_packed_s8_tc_ms": ours["conv2_packed_s8_tc_kernel"],
             "upconv_packed_s8_ms": ours["upconv_packed_s8_kernel"],
             "other_kernels_ms": device_ms - copy_ms - sum(ours.values()),
-            "top": [{"name": k[:90], "ms": ms, "calls": n}
+            "top": [{"name": k[:name_len], "ms": ms, "calls": n}
                     for k, ms, n in rows[:top]]}
 
 
@@ -4137,6 +4184,273 @@ def composed_training_phase(K, P, TS, UNet3D, gen):
     return out
 
 
+@contextlib.contextmanager
+def replaced_draws(eps, keep):
+    """The port's random draws from the given sources in place of its
+    generators: `eps(like)` for the Bayesian layers' noise
+    (`models.bayes.draw_eps`) and `keep(x, rate)`, a boolean keep mask,
+    for Dropout (`ops.functional.dropout`, still the identity in eval mode
+    or at rate 0).  The models call both through their modules."""
+    from mri_epilepsy_diagnosis_torch.models import bayes
+    from mri_epilepsy_diagnosis_torch.ops import functional as F
+
+    def draw_eps(like, generator=None):
+        return eps(like).to(like.device, like.dtype)
+
+    def dropout(x, rate, training, generator=None):
+        if not training or rate == 0.0:
+            return x
+        return F.dropout_core(x, keep(x, rate).to(x.device), rate)
+
+    saved = bayes.draw_eps, F.dropout
+    bayes.draw_eps, F.dropout = draw_eps, dropout
+    try:
+        yield
+    finally:
+        bayes.draw_eps, F.dropout = saved
+
+
+def host_draws(seed):
+    """`replaced_draws` from one host generator seeded with `seed`, in
+    call order, so that the card and the CPU see the same noise and masks
+    (phase 12a's parity check)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return replaced_draws(
+        lambda like: torch.randn(like.shape, generator=gen),
+        lambda x, rate: torch.rand(x.shape, generator=gen) < 1.0 - rate)
+
+
+def zoo_model(name, device, seed=SEED):
+    """The phase-12 configuration `name`, its weights drawn by torch's
+    default initialization from a generator seeded with `seed` (torch's
+    global generator is left as it was)."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch import models
+
+    cls, kw = ZOO[name]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = getattr(models, cls)(**kw, device="cpu")
+    return model.to(device)
+
+
+def adamw_step_on(model, grads, device):
+    """name -> parameter of a copy of `model` on `device` after one
+    `torch_adamw()` step from a fresh optimizer with the gradients `grads`
+    (name -> tensor), on the host."""
+    import copy
+
+    from mri_epilepsy_diagnosis_torch.train.optim import torch_adamw
+
+    m = copy.deepcopy(model).to(device)
+    for k, p in m.named_parameters():
+        p.grad = grads[k].to(device, p.dtype)
+    torch_adamw()(m.parameters()).step()
+    return {k: p.detach().cpu() for k, p in m.named_parameters()}
+
+
+def grads_of(model):
+    """name -> the gradient of each parameter of `model` on the host (zeros
+    where it has none), in float64."""
+    import torch
+
+    return {k: (torch.zeros_like(p) if p.grad is None else p.grad
+                ).detach().cpu().double()
+            for k, p in model.named_parameters()}
+
+
+def zoo_parity(name, gen):
+    """Phase 12a: the card against the port on the CPU at PARITY_SIZE^3,
+    batch 1, TF32 off, with one shared host draw of noise and masks.  In
+    float32: train-mode logits (ZOO_LOGIT_TOL x max), then one
+    `seg_train_step`'s loss (PARITY_LOSS_RTOL).  The gradients of that
+    step in float64 on both devices, every tensor within ZOO_GRAD64_RTOL
+    x its max|ref| (the float32 ones are recorded beside their float64
+    references).  The card's AdamW step applied to the CPU's float32
+    gradients from the same pre-step state gives the CPU's parameters
+    within ZOO_OPT_ATOL; the card's own parameters after its step are
+    recorded against the CPU's (Adam moves an element whose gradient is
+    float32 noise around 0 by up to lr either way)."""
+    import copy
+
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.train import seg as TS
+    from mri_epilepsy_diagnosis_torch.train.optim import torch_adamw
+    from mri_epilepsy_diagnosis_torch.train.state import create_train_state
+
+    x, labels = (torch.from_numpy(a) for a in
+                 seg_batches(gen, 1, 1, PARITY_SIZE)[0])
+    y64 = TS.binarize_segmentation(labels).double()
+    model = zoo_model(name, "cpu")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev).train()
+        with torch.no_grad(), host_draws(SEED + 1):
+            logits = m(x.to(dev)).cpu()
+        state = create_train_state(m, torch_adamw())
+        with host_draws(SEED + 2):
+            state, loss = TS.seg_train_step(state, x.to(dev),
+                                            labels.to(dev))
+        m64 = copy.deepcopy(model).to(dev, torch.float64).train()
+        with host_draws(SEED + 2):
+            TS.seg_loss(m64, x.to(dev, torch.float64),
+                        y64.to(dev)).backward()
+        res[dev] = dict(
+            logits=logits, loss=loss.item(), grads=grads_of(m),
+            grads64=grads_of(m64),
+            params={k: p.detach().cpu() for k, p in m.named_parameters()})
+    cpu, card = res["cpu"], res["cuda"]
+    on_card = adamw_step_on(model, cpu["grads"], "cuda")
+
+    def worst(a, b, ref):
+        """max over tensors of max|a - b| / max|ref| (0 / 0 as 0)."""
+        return max(((a[k] - b[k]).abs().max()
+                    / r.abs().max().clamp_min(1e-300)).item()
+                   for k, r in ref.items())
+
+    out = {"size": PARITY_SIZE, "batch": 1,
+           "logits_err_over_max": ((card["logits"] - cpu["logits"]).abs()
+                                   .max() / cpu["logits"].abs().max()).item(),
+           "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+           "loss_rel_err": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+           "grad64_err_over_max": worst(card["grads64"], cpu["grads64"],
+                                        cpu["grads64"]),
+           "grad32_err_over_max": worst(card["grads"], cpu["grads"],
+                                        cpu["grads64"]),
+           "cpu_grad32_own_over_max": worst(cpu["grads"], cpu["grads64"],
+                                            cpu["grads64"]),
+           "card_grad32_own_over_max": worst(card["grads"],
+                                             card["grads64"],
+                                             cpu["grads64"]),
+           "adamw_max_abs_err": max((on_card[k] - p).abs().max().item()
+                                    for k, p in cpu["params"].items()),
+           "param_max_abs_err": max(
+               (card["params"][k] - p).abs().max().item()
+               for k, p in cpu["params"].items()),
+           "parameters": sum(p.numel() for p in cpu["params"].values()),
+           "foreground_share": y64.mean().item()}
+    log(f"zoo {name} parity (card vs CPU): {json.dumps(out)}")
+    if (out["logits_err_over_max"] > ZOO_LOGIT_TOL
+            or out["loss_rel_err"] > PARITY_LOSS_RTOL
+            or out["grad64_err_over_max"] > ZOO_GRAD64_RTOL
+            or out["adamw_max_abs_err"] > ZOO_OPT_ATOL):
+        raise AssertionError(f"zoo {name}: card and CPU disagree: {out}")
+    return out
+
+
+# kernel-name tokens of phase 12's device split, matched in this order
+# (lower case); the rest is elementwise
+ZOO_KINDS = (
+    ("copy", ("memcpy", "memset")),
+    ("elementwise", ("distribution",)),          # the random draws
+    ("conv", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit",
+              "nchwtonhwc", "nhwctonchw")),
+    ("norm", ("reduce_kernel", "norm")),
+    ("resize", ("gemm", "gemv", "nvjet", "index", "scatter", "gather")),
+    ("layout", ("copy_kernel",)),                # strided tensor copies
+)
+
+
+def zoo_split(rows):
+    """Device ms of a profiled zoo step by kind, from `profile_batch`'s
+    rows (kernel name, ms, calls), by ZOO_KINDS: cuDNN convolutions (and
+    their layout transforms), norms (the reductions of the Instance and
+    Group norms, and the dice loss's), resizes (the trilinear matmuls,
+    the nearest gathers and their gradients' scatters), host-device
+    copies, copies of strided tensors (layout), and the elementwise
+    rest."""
+    split = {f"{kind}_ms": 0.0 for kind, _ in ZOO_KINDS}
+    for row in rows:
+        name = row["name"].lower()
+        kind = next((kind for kind, tokens in ZOO_KINDS
+                     if any(t in name for t in tokens)), "elementwise")
+        split[f"{kind}_ms"] += row["ms"]
+    return split
+
+
+def zoo_timing(name, gen):
+    """Phase 12b-c: bf16 `seg_train_step`s at PATCH^3 batch PATCH_BATCH
+    and SIZE^3 batch 1 (1 warm-up, ZOO_TIMED_STEPS timed on one batch:
+    ms, volumes or patches per second, peak memory, finite and falling
+    losses), `seg_eval_step` ms at SIZE^3, and one profiled SIZE^3 step
+    split by `zoo_split` with the device's idle share."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.train import seg as TS
+    from mri_epilepsy_diagnosis_torch.train.optim import torch_adamw
+    from mri_epilepsy_diagnosis_torch.train.state import create_train_state
+
+    state = create_train_state(zoo_model(name, "cuda"), torch_adamw())
+    out = {}
+    for label, size, batch in (("patch", PATCH, PATCH_BATCH),
+                               ("volume", SIZE, 1)):
+        x, labels = (torch.from_numpy(a).cuda() for a in
+                     seg_batches(gen, 1, batch, size)[0])
+        x = x.to(torch.bfloat16)
+        losses = [TS.seg_train_step(state, x, labels)[1].item()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(ZOO_TIMED_STEPS):
+            losses.append(TS.seg_train_step(state, x, labels)[1].item())
+        step_s = (time.perf_counter() - t0) / ZOO_TIMED_STEPS
+        res = {"size": size, "batch": batch, "dtype": "bf16",
+               "losses": losses, "ms_per_step": step_s * 1e3,
+               "per_s": batch / step_s,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        timed = losses[1:]
+        if not (np.all(np.isfinite(losses)) and timed[-1] < timed[0]):
+            raise AssertionError(f"zoo {name} {label}: losses {losses}")
+        if label == "volume":
+            TS.seg_eval_step(state, x, labels)            # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ZOO_EVAL_REPS):
+                eval_loss = TS.seg_eval_step(state, x, labels).item()
+            res["eval_ms"] = (time.perf_counter() - t0) / ZOO_EVAL_REPS * 1e3
+            res["eval_loss"] = eval_loss
+            prof = profile_batch(lambda: TS.seg_train_step(state, x, labels),
+                                 top=100_000, name_len=400)
+            res["profile"] = {
+                **zoo_split(prof["top"]),
+                **{k: prof[k] for k in ("wall_ms", "device_ms", "kernel_ms",
+                                        "idle_share")},
+                "top": [dict(r, name=r["name"][:160])
+                        for r in prof["top"][:12]]}
+        out[label] = res
+        log(f"zoo {name} {label} ({size}^3 b{batch} bf16): "
+            f"{json.dumps({k: v for k, v in res.items() if k != 'profile'})}")
+        del x, labels
+    log(f"zoo {name} profile ({SIZE}^3 step): "
+        f"{json.dumps({k: v for k, v in out['volume']['profile'].items() if k != 'top'})}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_phase(K, gen):
+    """Phase 12: each ZOO configuration's parity (12a) and timing and
+    profile (12b-c); no kernel of the port launches in the whole phase
+    (12d)."""
+    K.reset_launch_counts()
+    out = {}
+    for name in ZOO:
+        t0 = time.perf_counter()
+        out[name] = {"parity": zoo_parity(name, gen),
+                     "timing": zoo_timing(name, gen)}
+        out[name]["seconds"] = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    log(f"launches (zoo phase): {launches} (expected all 0)")
+    if any(launches.values()):
+        raise AssertionError(f"zoo phase launched port kernels: {launches}")
+    out["launches"] = launches
+    return out
+
+
 def s8_kernel_entries(k1_rows, k2_rows, errs, counts, serving):
     """The kernels-line entries of K1 (its wgmma route at 9 sites, its
     mma.sync route at the stem) and K2: launches from phase 11b's served
@@ -4687,6 +5001,13 @@ def main() -> int:
     phase11_s = time.perf_counter() - t11
     log(f"phase 11: {phase11_s:.1f} s")
 
+    # ---- 12. the segmentation model zoo through seg_train_step
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    zoo = zoo_phase(K, gen)
+    phase12_s = time.perf_counter() - t12
+    log(f"phase 12: {phase12_s:.1f} s")
+
     # the kernels of the served path, one entry per kernel instantiation:
     # launches from the timed ensemble run, times summed over the sites
     # each serves in bf16.  B1 and its B2-epilogue launches are counted
@@ -5032,6 +5353,7 @@ def main() -> int:
                    "int8_k1_sites": k1_rows, "int8_k2_sites": k2_rows,
                    "int8_serving": int8_serving,
                    "composed_training": composed, "phase11_s": phase11_s,
+                   "zoo": zoo, "phase12_s": phase12_s,
                    "build_s": build_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -47,7 +47,8 @@ def summary(data: dict) -> dict:
     row (the `conv_axis` entry of the kernels line, under either of its
     names), B1's phase-3 serving times, and int8 serving: K1 and K2 summed
     over their sites of one batch-8 forward and per site, their bf16
-    yardsticks, vol/s and device ms of a served batch."""
+    yardsticks, vol/s and device ms of a served batch; the zoo's 192^3 and
+    64^3 step times, eval time, peak memory and profiled device time."""
     fader = data.get("fader", {})
     k1 = data.get("int8_k1_sites") or []
     k2 = data.get("int8_k2_sites") or []
@@ -94,6 +95,17 @@ def summary(data: dict) -> dict:
                                "ms_per_step"),
         "voxresnet_ms": _get(data, "classification", "voxresnet",
                              "ms_per_step"),
+        "zoo": {name: {
+            "volume_step_ms": _get(z, "timing", "volume", "ms_per_step"),
+            "patch_step_ms": _get(z, "timing", "patch", "ms_per_step"),
+            "eval_ms": _get(z, "timing", "volume", "eval_ms"),
+            "peak_memory_gb": _get(z, "timing", "volume", "peak_memory_gb"),
+            "device_ms": _get(z, "timing", "volume", "profile", "device_ms"),
+            "idle_share": _get(z, "timing", "volume", "profile",
+                               "idle_share")}
+            for name, z in (data.get("zoo") or {}).items()
+            if name != "launches"},
+        "phase12_s": data.get("phase12_s"),
         "seconds": data.get("seconds"),
     }
 

@@ -8,9 +8,14 @@ channels-last.  `variables_to_state_dict` inverts the JAX importer's
 per-rank transpose:
 
   rank 5 (conv3d): (kD,kH,kW,I,O) -> (O,I,kD,kH,kW)
+                   (a transposed conv's (kD,kH,kW,O,I) -> torch's (I,O,...))
   rank 4 (conv2d): (kH,kW,I,O)    -> (O,I,kH,kW)
   rank 2 (linear): (in,out)       -> (out,in)
   rank 0/1 (bias, norm stats, PReLU): unchanged
+
+A flax automatic norm name (`GroupNorm_0`, `BatchNorm_0`, the norm
+inside BraTSUnet's named `bn1`) is dropped from the key, as the
+reference's torch keys have no such segment.
 
 `batch_stats` entries keep their leaf names (`running_mean`,
 `running_var`) and land beside the `params` of the same module, as in a
@@ -20,6 +25,7 @@ with `strict=True`.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
@@ -44,8 +50,15 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
             yield prefix + (k,), v
 
 
+# flax's automatic name of a norm built without a name inside a named
+# wrapper module (`brats_unet.py::_Norm`: `convd1/bn1/GroupNorm_0/weight`);
+# the reference's torch key has no such segment (`convd1.bn1.weight`)
+_AUTO_NORM_NAME = re.compile(r"(BatchNorm|GroupNorm|InstanceNorm)_\d+")
+
+
 def _path_to_key(path) -> str:
-    return ".".join(comp.replace("__", ".") for comp in path)
+    return ".".join(comp.replace("__", ".") for comp in path
+                    if not _AUTO_NORM_NAME.fullmatch(comp))
 
 
 def _to_torch_layout(arr: np.ndarray) -> np.ndarray:
@@ -67,7 +80,7 @@ def variables_to_state_dict(
     device = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
-        for path, leaf in _flatten(variables.get(collection, {})):
+        for path, leaf in _flatten(variables.get(collection) or {}):
             key = _path_to_key(path)
             arr = _to_torch_layout(np.asarray(leaf, np.float32))
             out[key] = torch.tensor(arr, device=device)

@@ -31,7 +31,6 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as TF
 from torch import nn
 
 from ..core.device import resolve_device
@@ -41,11 +40,8 @@ from ..ops import functional as F
 def _conv(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
     """A dense or dilated nn.Conv3d on channels-last x, its weight and bias
     cast to x's dtype (JAX casts conv weights to x.dtype)."""
-    bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    y = TF.conv3d(x.permute(0, 4, 1, 2, 3), conv.weight.to(x.dtype), bias,
-                  stride=conv.stride, padding=conv.padding,
-                  dilation=conv.dilation)
-    return y.permute(0, 2, 3, 4, 1)
+    return F.conv3d(x, conv.weight, conv.bias, stride=conv.stride,
+                    padding=conv.padding, dilation=conv.dilation)
 
 
 def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,6 @@ from collections import OrderedDict
 from typing import Any, Dict, Optional, Sequence
 
 import torch
-import torch.nn.functional as TF
 from torch import nn
 
 from ..core.device import resolve_device
@@ -76,11 +75,9 @@ def _separable_conv(convs: Sequence[nn.Conv3d],
 def _dense_conv(conv: nn.Module, x: torch.Tensor, *,
                 transpose: bool = False) -> torch.Tensor:
     """A dense nn.Conv3d / nn.ConvTranspose3d on channels-last x."""
-    fn = TF.conv_transpose3d if transpose else TF.conv3d
-    bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    y = fn(x.permute(0, 4, 1, 2, 3), conv.weight.to(x.dtype), bias,
-           stride=conv.stride, padding=conv.padding)
-    return y.permute(0, 2, 3, 4, 1)
+    fn = F.conv3d_transpose if transpose else F.conv3d
+    return fn(x, conv.weight, conv.bias, stride=conv.stride,
+              padding=conv.padding)
 
 
 def _flatten_torch_order(x: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,6 @@ fine `seg_train_step`.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as TF
 from torch import nn
 
 from ..core.device import resolve_device
@@ -40,10 +39,7 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv_layer
-        bias = None if conv.bias is None else conv.bias.to(x.dtype)
-        y = TF.conv3d(x.permute(0, 4, 1, 2, 3), conv.weight.to(x.dtype),
-                      bias, padding=self.padding)
-        y = y.permute(0, 2, 3, 4, 1)
+        y = F.conv3d(x, conv.weight, conv.bias, padding=self.padding)
         if self.norm_layer is not None:
             y = F.module_batch_norm(self.norm_layer, y)
         if self.activation_layer is not None:
@@ -143,7 +139,9 @@ class UNet3D(nn.Module):
                                     activation=False, kernel_size=1,
                                     padding=0, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None,
+                sample_generator=None) -> torch.Tensor:
+        del generator, sample_generator  # no Dropout, no Bayesian layers
         x, skips = self.encoder(x)
         x = self.bottom_block(x)
         x = self.decoder(x, skips)

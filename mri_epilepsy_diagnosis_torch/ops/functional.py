@@ -1,8 +1,10 @@
 """Channels-last functional ops of the fine UNet3D, the fader family and
 the detection PatchModel (counterpart of the JAX package's
 `ops/functional.py`: `prelu`, `batch_norm` with the train-mode statistics
-of `ops/layers.py::BatchNorm`, `maxpool3d` and `maxpool2d` with JAX's
-gradients at tied maxima, `conv2d` and `dense`, `resize_linear`,
+of `ops/layers.py::BatchNorm`, `instance_norm` and `group_norm`,
+`maxpool3d` and `maxpool2d` with JAX's gradients at tied maxima,
+`avgpool3d`, `conv3d`, `conv3d_transpose`, `conv2d` and `dense`,
+`resize_linear`,
 `resize_nearest`, `module_batch_norm` and `dropout` (with `generator_on`)
 for the train-mode layers, the fader's `relu`/`l_relu` activations, and
 the shape utilities `pad_to` and `crop_or_pad`).  Every function takes and
@@ -117,6 +119,13 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0)
 
 
+def maximum0(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.maximum(x, 0)`, the ReLU of the JAX package's zoo models: at
+    x == 0 the gradient is split, 0.5 (`torch.maximum`'s rule too), where
+    `relu` passes all of it and `torch.relu` (`jax.nn.relu`) none."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
     """torch `nn.LeakyReLU()` (slope 0.01), the fader's `l_relu`."""
     return torch.where(x >= 0, x, slope * x)
@@ -213,6 +222,75 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, *, stride=1, padding=0,
                   None if b is None else b.to(x.dtype), stride=stride,
                   padding=padding, dilation=dilation, groups=groups)
     return y.permute(0, 2, 3, 1)
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor, b=None, *, stride=1,
+           padding=0, dilation=1, groups: int = 1) -> torch.Tensor:
+    """torch `F.conv3d` on channels-last `(N, D, H, W, C)` with a weight in
+    torch's `(O, I / groups, kD, kH, kW)` layout (JAX's is `(kD, kH, kW,
+    I / groups, O)`); the weight and bias are cast to x's dtype, as JAX
+    casts them.  cuDNN on the card: JAX's custom VJP for this conv
+    computes the same gradients."""
+    y = TF.conv3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype),
+                  None if b is None else b.to(x.dtype), stride=stride,
+                  padding=padding, dilation=dilation, groups=groups)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def conv3d_transpose(x: torch.Tensor, w: torch.Tensor, b=None, *, stride=1,
+                     padding=0, output_padding=0, dilation=1
+                     ) -> torch.Tensor:
+    """torch `nn.ConvTranspose3d` on channels-last `x` with torch's `(I, O,
+    kD, kH, kW)` weight (JAX stores `(kD, kH, kW, O, I)` and flips it
+    itself), the weight and bias cast to x's dtype."""
+    y = TF.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype),
+                            None if b is None else b.to(x.dtype),
+                            stride=stride, padding=padding,
+                            output_padding=output_padding,
+                            dilation=dilation)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def avgpool3d(x: torch.Tensor, kernel=2, stride=None) -> torch.Tensor:
+    """torch `nn.AvgPool3d(kernel, stride)` (no padding, floor mode) on
+    channels-last `x`: JAX's window sum over `prod(kernel)`."""
+    y = TF.avg_pool3d(x.permute(0, 4, 1, 2, 3), kernel,
+                      kernel if stride is None else stride)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def _affine(y: torch.Tensor, gamma, beta) -> torch.Tensor:
+    if gamma is not None:
+        y = y * gamma.to(y.dtype)
+    if beta is not None:
+        y = y + beta.to(y.dtype)
+    return y
+
+
+def instance_norm(x: torch.Tensor, gamma=None, beta=None,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """torch `nn.InstanceNorm3d` (no running statistics, affine if gamma
+    and beta are given) on channels-last `x`: each (sample, channel)
+    normalized over the spatial axes with its biased variance and
+    `rsqrt(var + eps)`, in x's dtype, as JAX computes it."""
+    axes = tuple(range(1, x.ndim - 1))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = (x - mean).square().mean(dim=axes, keepdim=True)
+    return _affine((x - mean) * torch.rsqrt(var + eps), gamma, beta)
+
+
+def group_norm(x: torch.Tensor, num_groups: int, gamma=None, beta=None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """torch `nn.GroupNorm` on channels-last `x`: channel c belongs to
+    group `c // (C / num_groups)`, each (sample, group) normalized over
+    its channels and the spatial axes with the biased variance, in x's
+    dtype, as JAX computes it."""
+    n, c = x.shape[0], x.shape[-1]
+    xg = x.reshape(n, -1, num_groups, c // num_groups)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return _affine(y, gamma, beta)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:

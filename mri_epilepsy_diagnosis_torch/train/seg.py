@@ -9,6 +9,12 @@ validation loss; periodic checkpoints to
 logging.  Labels are binarized on the device (LIST_FCD + cortical >= 1000,
 `transforms.binarize_segmentation`).
 
+`seg_train_step` / `seg_eval_step` (and `run_epoch`,
+`train_segmentation` with `packed=False`) train the fine UNet3D or any
+model of the segmentation zoo (`models.BraTSUnet`, `Modified3DUNet`,
+`ResidualUNet3D`, with or without Bayesian convs), with the random
+streams of `step_generators`.
+
 `packed=True` trains through the packed layout of `models/unet_packed.py`
 (every 3x3x3 conv and every conv input gradient but the stem's on kernel
 B1) and validates through the served packed forward (B1 with B2 fused);
@@ -65,26 +71,57 @@ def _dice_loss_from_logits(logits, targets):
 
 
 def _apply_gradients(state: TrainState, loss: torch.Tensor) -> TrainState:
+    """Backward, then one optimizer step.  A trainable parameter that the
+    loss does not reach (BraTSUnet's `conv2` / `bn2`) gets a zero
+    gradient first: JAX's gradient of it is zero, so optax's AdamW still
+    decays it and counts the step, where torch's skips a parameter whose
+    `.grad` is None."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            if p.requires_grad and p.grad is None:
+                p.grad = torch.zeros_like(p)
     state.optimizer.step()
     state.step += 1
     return state
 
 
-def seg_loss(model: UNet3D, inputs, targets) -> torch.Tensor:
-    """Dice loss of the fine `UNet3D` in train mode (`F.conv3d`); the
-    forward updates the model's BatchNorm running statistics."""
+def step_generators(step: int, device) -> dict:
+    """The random streams of one train step: `generator` (Dropout masks)
+    and `sample_generator` (Bayesian-layer noise), each a generator on
+    `device` seeded from (its stream index, `step`), as JAX keys its
+    "dropout" and "sample" streams from (stream index, `state.step`)."""
+    # 2 * step + stream: the host generator's Mersenne Twister keeps only
+    # the low 32 bits of a seed
+    return {name: torch.Generator(device=device).manual_seed(
+                2 * int(step) + i)
+            for i, name in enumerate(("generator", "sample_generator"))}
+
+
+def seg_loss(model, inputs, targets, *, generator=None,
+             sample_generator=None) -> torch.Tensor:
+    """Dice loss of a segmentation model in train mode: the fine
+    `UNet3D` (`F.conv3d`) or a zoo model (`BraTSUnet`, `Modified3DUNet`,
+    `ResidualUNet3D`); the forward updates the model's BatchNorm running
+    statistics.  The generators go to the model's forward (Dropout's
+    masks, the Bayesian layers' noise); models without randomness ignore
+    them."""
     model.train()
-    return _dice_loss_from_logits(model(inputs), targets)
+    logits = model(inputs, generator=generator,
+                   sample_generator=sample_generator)
+    return _dice_loss_from_logits(logits, targets)
 
 
 def seg_train_step(state: TrainState, inputs, raw_labels):
     """inputs (N, D, H, W, 1) float; raw_labels (N, D, H, W, 1) FreeSurfer
     ids or already-binary masks (binarize_segmentation keeps existing 1s,
-    like the reference's prepare_batch).  Returns (state, loss), the loss
-    a detached scalar tensor on the device."""
-    loss = seg_loss(state.model, inputs, binarize_segmentation(raw_labels))
+    like the reference's prepare_batch).  Any model of `seg_loss`, with
+    its random streams from `step_generators(state.step)` on the model's
+    device.  Returns (state, loss), the loss a detached scalar tensor on
+    the device."""
+    loss = seg_loss(state.model, inputs, binarize_segmentation(raw_labels),
+                    **step_generators(state.step, state.device))
     return _apply_gradients(state, loss), loss.detach()
 
 
@@ -135,9 +172,13 @@ def packed_seg_train_step(state: TrainState, inputs, raw_labels,
 
 @torch.no_grad()
 def seg_eval_step(state: TrainState, inputs, raw_labels):
+    """Dice loss of the model in eval mode (running statistics, no
+    Dropout).  Bayesian layers sample in eval mode too, from a fresh
+    generator seeded with 0 (JAX's `key(0)`), so two evaluations agree."""
     state.model.eval()
-    return _dice_loss_from_logits(state.model(inputs),
-                                  binarize_segmentation(raw_labels))
+    gen = torch.Generator(device=state.device).manual_seed(0)
+    logits = state.model(inputs, sample_generator=gen)
+    return _dice_loss_from_logits(logits, binarize_segmentation(raw_labels))
 
 
 @torch.no_grad()

@@ -1312,3 +1312,71 @@ def test_composed_up_branch_on_the_card_matches_cpu(cuda_device, no_tf32,
         out.append([t.detach().cpu() for t in (y, xd.grad, wd.grad)])
     for a, b in zip(*out):
         assert (b - a).abs().max() <= 1e-5 * a.abs().max()
+
+
+# the segmentation zoo at narrow widths (32^3, batch 2): name -> (class,
+# constructor kwargs)
+ZOO_SMALL = {
+    "residual": ("ResidualUNet3D", dict(n_classes=2,
+                                        n_channels=(1, 4, 8, 16, 32))),
+    "residual_bayes": ("ResidualUNet3D", dict(n_classes=2,
+                                              n_channels=(1, 4, 8, 16, 32),
+                                              bayes=True)),
+    "modified": ("Modified3DUNet", dict(in_channels=1, n_classes=2,
+                                        base_n_filter=4)),
+    "brats": ("BraTSUnet", dict(c=1, n=8, dropout=0.5, norm="gn",
+                                num_classes=2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ZOO_SMALL))
+def test_zoo_step_on_the_card_matches_cpu(cuda_device, no_tf32, name):
+    """One f32 `seg_train_step` of each zoo model (cuDNN convs, TF32 off)
+    on the card against the CPU, with the same host-drawn noise and
+    masks (`chip_smoke.host_draws`), as phase 12a holds it: loss 1e-5 in
+    f32; the step's gradients in f64 on both devices, 1e-10 x max|ref| per
+    tensor (f32 rounding alone moves Modified3DUNet's by percents); the
+    card's AdamW step on the CPU's f32 gradients gives the CPU's
+    parameters within 1e-6 (`chip_smoke.adamw_step_on`); no kernel of the
+    port launches."""
+    import copy
+
+    from chip_smoke import (ZOO_GRAD64_RTOL, ZOO_OPT_ATOL, adamw_step_on,
+                            grads_of, host_draws)
+    from mri_epilepsy_diagnosis_torch import models
+    from mri_epilepsy_diagnosis_torch.train import seg as TS
+    from mri_epilepsy_diagnosis_torch.train.optim import torch_adamw
+    from mri_epilepsy_diagnosis_torch.train.state import create_train_state
+
+    cls, kw = ZOO_SMALL[name]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = getattr(models, cls)(**kw, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 32, 32, 32, 1), generator=gen)
+    y = (torch.rand((2, 32, 32, 32, 1), generator=gen) > 0.6).float()
+    out = []
+    K.reset_launch_counts()
+    for dev in ("cpu", cuda_device):
+        state = create_train_state(copy.deepcopy(model).to(dev),
+                                   torch_adamw())
+        with host_draws(2):
+            state, loss = TS.seg_train_step(state, x.to(dev), y.to(dev))
+        m64 = copy.deepcopy(model).to(dev, torch.float64).train()
+        with host_draws(2):
+            TS.seg_loss(m64, x.to(dev, torch.float64),
+                        y.to(dev, torch.float64)).backward()
+        out.append((loss.item(), grads_of(state.model), grads_of(m64),
+                    {k: p.detach().cpu()
+                     for k, p in state.model.named_parameters()}))
+    torch.cuda.synchronize()
+    assert sum(k.launches for k in K.KERNELS) == 0
+    (l_cpu, g_cpu, g64_cpu, p_cpu), (l_gpu, _, g64_gpu, _) = out
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for k, ref in g64_cpu.items():
+        assert ((g64_gpu[k] - ref).abs().max()
+                <= ZOO_GRAD64_RTOL * ref.abs().max()), k
+    on_card = adamw_step_on(model, g_cpu, cuda_device)
+    for k, ref in p_cpu.items():
+        assert (on_card[k] - ref).abs().max() <= ZOO_OPT_ATOL, k

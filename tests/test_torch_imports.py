@@ -36,13 +36,17 @@ def test_port_sources_found():
             "preprocessing.py", "augment.py", "data.py", "pipeline.py",
             "collate.py", "sliding_window.py", "cnn.py",
             "classification.py", "registration.py", "patches.py",
-            "detection.py", "patch_model.py", "unet_packed_q.py"} <= names
+            "detection.py", "patch_model.py", "unet_packed_q.py",
+            "bayes.py", "brats_unet.py", "modified_unet.py",
+            "residual_unet.py"} <= names
     port = ROOT / "mri_epilepsy_diagnosis_torch"
     for path in ("native/__init__.py", "train/fader.py",
                  "train/classification.py", "metrics/classification.py",
                  "models/cnn.py", "transforms/registration.py",
                  "data/patches.py", "infer/detection.py",
-                 "models/patch_model.py", "models/unet_packed_q.py"):
+                 "models/patch_model.py", "models/unet_packed_q.py",
+                 "models/bayes.py", "models/brats_unet.py",
+                 "models/modified_unet.py", "models/residual_unet.py"):
         assert port / path in SOURCES
 
 
