@@ -213,6 +213,35 @@ Phases (each raises on failure, so the script exits nonzero):
       resize, copies, strided-tensor copies and elementwise
       (`zoo_split`), and the idle share
       (recorded, not gated).
+13. the packed encoders:
+   a. the fader encoder of phase 4 (one train-mode pass moves its running
+      statistics) through `models/fader_packed.py::encoder_apply_packed`
+      at batch 8: its B3 calls recorded in bf16 (e0 one fused
+      `separable_conv3d`, e1 and e2 three `conv_axis` each: 1 + 6 per
+      forward, in f32 too, asserted) and each held against its plain
+      version in f32 and bf16 (timed beside cuDNN); the latent against the
+      fine `Encoder` (f32 within 1e-4 x max); ms per batch packed, fine
+      and fused; then the 16 volumes of phase 4 served as the ensemble
+      with `classify_fn` on the packed encoder: exact launch counts per
+      batch (phase 4's UNet, 2 fused stacks, 6 `conv_axis` on tensor
+      cores), probabilities within 0.1 of phase 4's, the same masks, vol/s
+      and batch latency beside phase 4's, a profiled batch;
+   b. `models/fader.py::encoder_apply_fused` (one cuDNN conv a block) at
+      batch 8, f32 and bf16: the latent against the fine `Encoder`, ms
+      per batch, no kernel of the port launched;
+   c. `models/voxresnet_packed.py`: f32 parity with the fine port (cuDNN,
+      TF32 off) at 64^3 (4 stages, 2 filters) and 32^3 (stride 1, the
+      cuDNN stem): eval and train logits, running statistics, every
+      gradient, exact B1 counts; then bench.py's configuration (192^3,
+      batch 10, 32 filters, 4 stages, dropout 0.5, 192 FC units, Adam
+      1e-5 with L2 decay 0.01) in bf16: every distinct B1 site of the step
+      (forward, dx, and the eval forward's B2-fused launches) against its
+      plain version, timed beside cuDNN's conv of the fine layer; 1
+      warm-up and 5 timed `voxresnet_class_step_packed`s (B1 43 per step:
+      22 forward, 21 dx, all on tensor cores), the same for the fine
+      `_class_step`, ms, vol/s, peak memory, a profiled step each (idle
+      share; B1 forward, B1 dx, dw GEMMs, cuDNN, other); one eval forward
+      (22 B1, 9 with B2 fused).
 
 It prints one line per check, then `{"kernels": [...]}` (the kernels of
 the served path: B1 on tensor cores, B2 fused into B1 on either route,
@@ -221,7 +250,9 @@ stem's forward on CUDA cores, B1 as input gradient; of f32 validation;
 of phase 8's sliding window and patch training; of phase 9's fader
 training: fused B3, B3's dx and dw and the `conv_axis` recomputes on
 tensor cores; of phase 11's int8 serving: K1 on its wgmma route and on
-the stem's mma.sync route, and K2; the standalone
+the stem's mma.sync route, and K2; of phase 13: B1 forward and dx of the
+packed VoxResNet step, B1 with B2 fused in its eval forward, fused B3 and
+`conv_axis` on the packed ensemble; the standalone
 B2, off every path, goes to the JSON file with its numbers, as does dw
 of the packed UNet, which is cuBLAS and no kernel of the port), the card's
 `nvidia-smi` name and power limit, and last
@@ -572,6 +603,52 @@ ZOO_OPT_ATOL = 1e-6            # the card's AdamW step against the CPU's
 ZOO_GRAD64_RTOL = 1e-10        # x max|ref|
 ZOO_TIMED_STEPS = 4
 ZOO_EVAL_REPS = 3
+
+# phase 13: the packed encoders.  13a serves the ensemble's fader encoder
+# through `models/fader_packed.py::encoder_apply_packed` (bench.py:134-151
+# serves the seg+clf ensemble that way): pack2 and one B3 call per block.
+# By `_separable_route`, e0 (8Ci = 8) takes the fused kernel and e1, e2
+# (8Ci = 64, 128: no fused plan in f32, per-axis in bf16) three
+# `conv_axis` launches each, in f32 and bf16 alike; the classifier's stack
+# stays fused.  13b runs `encoder_apply_fused` (one cuDNN conv per block:
+# no kernel of the port).  13c trains bench.py's VoxResNet
+# (bench.py:591-640) through `voxresnet_class_step_packed`.
+PACKED_ENC_PER_BATCH = {**{k: 0 for k in UNET_PER_BATCH},
+                        "separable_conv3d": 1, "conv_axis": 6}
+PACKED_ENSEMBLE_PER_BATCH = {**UNET_PER_BATCH, "separable_conv3d": 2,
+                             "conv_axis": 6, "conv_axis_tc": 6}
+ENC_LATENT_TOL = 1e-4          # f32 packed / fused vs fine latent, x max
+# bench.py:603-606: VoxResNet(192^3, 32 filters, stride 2, 4 stages,
+# dropout 0.5, 192 FC units), torch_adam(1e-5, weight_decay=0.01) (Adam
+# with L2 decay, also `create_model_opt`'s), batch 10, bf16
+VOX_KWARGS = dict(input_shape=(SIZE,) * 3, n_filters=32, stride=2,
+                  n_blocks=4, dropout=0.5, n_fc_units=192)
+VOX_LR, VOX_WD = 1e-5, 0.01
+VOX_BATCH = CLASS_BATCH
+VOX_TIMED_STEPS = 5
+# B1 per packed step at stride 2 and 4 stages: the stem, conv3d_2, 4
+# downsamples and 16 block convs forward; every input gradient but the
+# stem's (its input, the image, takes none); all on tensor cores in bf16
+# (8Ci 64-1024, 8Co or Co multiples of 64).  Eval: the same 22 forward
+# launches, the stem and the 8 block conv1s with B2 fused.
+VOX_FWD, VOX_DX, VOX_FUSED = 22, 21, 9
+VOX_PER_STEP = {**{k: 0 for k in UNET_PER_BATCH},
+                "conv2_packed": VOX_FWD + VOX_DX,
+                "conv2_packed_tc": VOX_FWD + VOX_DX,
+                "conv2_packed_dx": VOX_DX, "conv2_packed_dx_tc": VOX_DX}
+VOX_EVAL_PER_CALL = {**{k: 0 for k in UNET_PER_BATCH},
+                     "conv2_packed": VOX_FWD, "conv2_packed_tc": VOX_FWD,
+                     "conv2_packed_as_bn_act": VOX_FUSED,
+                     "conv2_packed_as_bn_act_tc": VOX_FUSED}
+# 13c f32 parity, packed against the fine port on the card (cuDNN, TF32
+# off): the sizes and tolerances of tests/test_torch_voxresnet_packed.py
+VOX_PARITY = {"s64_nb4": (64, dict(n_blocks=4, n_filters=2)),
+              "s32_stride1": (32, dict(n_blocks=3, n_filters=4, stride=1))}
+VOX_EVAL_TOL = (1e-5, 1e-4)    # atol, rtol
+VOX_TRAIN_TOL = (2e-5, 1e-4)
+VOX_STATS_TOL = (1e-5, 1e-4)
+VOX_GRAD_RTOL = 1e-4           # x max|ref| of the tensor, + f32 rounding
+VOX_PRE_BN_BIASES = ("model.conv3d_1.bias", "model.conv3d_2.bias")
 
 
 def log(*args):
@@ -1251,7 +1328,7 @@ def calibrate_fader(enc, clf, x_few, latents_fn):
 
 
 def profile_batch(fn, top: int = 12, host_ops: bool = True,
-                  name_len: int = 90):
+                  name_len: int = 90, groups=None):
     """torch.profiler over one served batch: device time by kernel name,
     the port's kernels (B1 on tensor cores split into its plain-store and
     B2-epilogue instantiations), everything else, and the device's idle share
@@ -1260,7 +1337,10 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True,
     absorbs the profiler's own start-up.  `host_ops=False` traces the
     device alone: recording every host op slows the host threads, which
     set the pace of an epoch from files.  `top` rows of kernel names cut
-    to `name_len` characters are returned."""
+    to `name_len` characters are returned; `groups`, {label: name
+    substrings}, adds the device ms by label (`groups_ms`), each kernel
+    counted under the first label one of whose substrings its name
+    holds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1317,6 +1397,8 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True,
             "host_ops_traced": host_ops,
             "trace_read_s": time.perf_counter() - t0,
             "kernel_ms": device_ms - copy_ms, "copy_ms": copy_ms,
+            "kernels": sum(r[2] for r in rows if not r[0].startswith(
+                ("Memcpy", "Memset"))),
             "host_syncs": syncs, "h2d_copies": h2d,
             "idle_share": (1 - device_ms / wall_ms) if device_ms else None,
             "conv2_packed_tc_ms": ours["conv2_packed_tc_kernel"],
@@ -1337,8 +1419,21 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True,
             "conv2_packed_s8_tc_ms": ours["conv2_packed_s8_tc_kernel"],
             "upconv_packed_s8_ms": ours["upconv_packed_s8_kernel"],
             "other_kernels_ms": device_ms - copy_ms - sum(ours.values()),
+            "groups_ms": _group_ms(rows, groups or {}),
             "top": [{"name": k[:name_len], "ms": ms, "calls": n}
                     for k, ms, n in rows[:top]]}
+
+
+def _group_ms(rows, groups):
+    """Device ms of profiler rows (name, ms, calls) by label of `groups`,
+    each row under the first label one of whose substrings it holds."""
+    out = dict.fromkeys(groups, 0.0)
+    for name, ms, _ in rows:
+        label = next((lb for lb, keys in groups.items()
+                      if any(k in name for k in keys)), None)
+        if label is not None:
+            out[label] += ms
+    return out
 
 
 def record_train_sites(K, P, fn):
@@ -4451,6 +4546,478 @@ def zoo_phase(K, gen):
     return out
 
 
+# kernel-name substrings of the device split of a classification step
+# (phase 13c): cuDNN's convolutions (its `*_implicit_gemm` kernels too),
+# then cuBLAS's GEMMs (the packed convs' dw, the FC layers)
+STEP_GROUPS = {"cudnn_ms": ("fprop", "dgrad", "wgrad", "cudnn", "convolve"),
+               "gemm_ms": ("gemm", "nvjet", "cutlass")}
+
+
+def packed_encoder_phase(K, Fd, FP, enc, x8, gen, launch_counts):
+    """Phase 13a-b on the kernel side, batch BATCH at 192^3: a copy of the
+    ensemble's encoder after one train-mode pass (running statistics moved
+    from phase 4's), its packed forward's B3 launches recorded in bf16
+    (e0 fused, e1 and e2 three `conv_axis` each) and each held against its
+    plain version in f32 and bf16 (the stacks at SEP_TOL, each one-axis
+    launch at TOL; bf16 timed beside cuDNN); the packed and fused latents
+    against the fine `Encoder` (f32 within ENC_LATENT_TOL x max, bf16
+    recorded), exact launch counts per forward (the fused path launches no
+    kernel of the port), ms per batch of each."""
+    import copy
+
+    import torch
+
+    kw = FADER_AE_KWARGS
+    enc = copy.deepcopy(enc)
+    with torch.no_grad():
+        enc.train()
+        enc(x8[:2])
+    enc.eval()
+    xb = x8.to(torch.bfloat16)
+    with torch.inference_mode():
+        calls = record_b3(K, lambda: FP.encoder_apply_packed(enc, xb, kw))
+        stacks, axes = calls["stack"], calls["axis"]
+        routes = [K._separable_route(torch.bfloat16, K.separable_plan(
+            st["x"][0], st["x"][1:4], (st["x"][4], *(w[2] for w in st["w"])),
+            [w[0] for w in st["w"]], st["stride"], st["pad"],
+            torch.bfloat16)) for st in stacks]
+        log(f"packed encoder stacks: {stacks}, routes {routes}")
+        if routes != ["fused", "per_axis", "per_axis"] or len(axes) != 6:
+            raise AssertionError(f"packed encoder B3 calls: {routes}, "
+                                 f"{len(axes)} conv_axis")
+        names = ("pe0", "pe1", "pe2")
+        sep_rows, sep_errs = sep_kernel_phase(
+            K, [(n, st, 1) for n, st in zip(names, stacks)], gen,
+            [(None, "f32"), (None, "bf16")], (None, "bf16"),
+            fused_only=False)
+        axis_names = [f"{n}{ax}" for n in names[1:] for ax in "xyz"]
+        axis_rows, axis_errs = b3_kernel_phase(K, axis_names, axes, gen,
+                                               (BATCH,))
+        lat, counts, ms = {}, {}, {}
+        for dn, x in (("f32", x8), ("bf16", xb)):
+            ref, ref_sizes = enc(x)
+            for path, fn in (("packed", FP.encoder_apply_packed),
+                             ("fused", Fd.encoder_apply_fused)):
+                K.reset_launch_counts()
+                got, sizes = fn(enc, x, kw)
+                torch.cuda.synchronize()
+                counts[f"{path}_{dn}"] = launch_counts()
+                # the packed forward's `conv_axis` launches all take the
+                # tensor cores in bf16; the fused path launches no kernel
+                want = ({k: 0 for k in PACKED_ENC_PER_BATCH}
+                        if path == "fused" else {
+                            **PACKED_ENC_PER_BATCH,
+                            "conv_axis_tc": 6 if dn == "bf16" else 0})
+                _expect_counts(f"{path} encoder forward {dn}",
+                               counts[f"{path}_{dn}"], want)
+                if sizes != ref_sizes:
+                    raise AssertionError(f"{path} size_list {sizes} != "
+                                         f"{ref_sizes}")
+                err = (got.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                lat[f"{path}_{dn}_max_abs_err"] = err
+                lat[f"{path}_{dn}_max_abs_ref"] = scale
+                log(f"{path} encoder latent {dn}: max_abs_err {err:.3e} "
+                    f"(max|ref| {scale:.3e}; f32 tol {ENC_LATENT_TOL} x max)")
+                if dn == "f32" and err > ENC_LATENT_TOL * scale:
+                    raise AssertionError(f"{path} latent differs by {err}")
+            if dn == "bf16":
+                for path, fn in (("fine", lambda: enc(xb)),
+                                 ("packed", lambda: FP.encoder_apply_packed(
+                                     enc, xb, kw)),
+                                 ("fused", lambda: Fd.encoder_apply_fused(
+                                     enc, xb, kw))):
+                    ms[f"{path}_ms_per_batch"] = time_ms(fn, 5)
+    out = {"batch": BATCH, "size": SIZE, "latents": lat,
+           "launches_per_forward": counts, "bf16": ms,
+           "stack_routes": routes,
+           "kernel_max_abs_err": {"stacks": sep_errs, "axis": axis_errs}}
+    log(f"packed encoder: {json.dumps(out)}")
+    return enc, out, sep_rows, axis_rows
+
+
+def _vox_model(gen, seed=SEED, **kw):
+    """A VoxResNet on the card: torch's default init drawn under `seed`
+    (on the host, then moved), then random BatchNorm statistics and
+    affine parameters and conv biases from `gen`, so that eval mode and
+    the bias folds are exercised."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.models import VoxResNet
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = VoxResNet(device="cpu", **kw).to("cuda")
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):
+                for t, lo, hi in ((m.running_var, 0.5, 1.5),
+                                  (m.weight, 0.5, 1.5)):
+                    t.copy_(lo + (hi - lo) * torch.rand(
+                        t.shape, generator=gen, device="cuda"))
+                for t in (m.running_mean, m.bias):
+                    t.copy_(0.2 * torch.randn(t.shape, generator=gen,
+                                              device="cuda"))
+            elif isinstance(m, torch.nn.Conv3d) and m.bias is not None:
+                m.bias.copy_(0.2 * torch.randn(m.bias.shape, generator=gen,
+                                               device="cuda"))
+    return model
+
+
+def _allclose_err(got, ref, tol):
+    """max(|got - ref| - rtol |ref|) against atol, numpy's allclose."""
+    atol, rtol = tol
+    return ((got.double() - ref.double()).abs()
+            - rtol * ref.double().abs()).max().item(), atol
+
+
+def voxresnet_parity_phase(K, VP, gen, launch_counts):
+    """Phase 13c, f32 parity of the packed VoxResNet (B1 on CUDA cores)
+    with the fine port (cuDNN, TF32 off) on the card, at the sizes and
+    tolerances of tests/test_torch_voxresnet_packed.py (VOX_PARITY): eval
+    and train logits, the new running statistics, and every gradient,
+    1e-4 x its tensor's max plus the fine model's own float32 rounding (its
+    float32 gradient against its float64 one on the card); the pre-BN conv
+    biases (true gradient 0) at 1e-4 x the largest gradient.  Exact B1
+    launch counts of the packed train step."""
+    import copy
+
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.train.classification import (
+        cross_entropy)
+
+    out = {}
+    for name, (size, kw) in VOX_PARITY.items():
+        model = _vox_model(gen, input_shape=(size,) * 3, n_fc_units=16, **kw)
+        x = torch.randn((2, size, size, size, 1), generator=gen,
+                        device="cuda")
+        y = torch.tensor([0, 1], device="cuda")
+        res = {}
+        with torch.no_grad():
+            ref = model.eval()(x)
+            got, _ = VP.voxresnet_apply_packed(model, x, train=False)
+        res["eval"] = _allclose_err(got, ref, VOX_EVAL_TOL)
+        fine = copy.deepcopy(model).train()
+        ref = fine(x)
+        cross_entropy(ref, y).backward()
+        packed = copy.deepcopy(model)
+        K.reset_launch_counts()
+        got, stats = VP.voxresnet_apply_packed(packed, x, train=True)
+        cross_entropy(got, y).backward()
+        torch.cuda.synchronize()
+        # forward: conv3d_2, 5 convs a stage and, at stride 2, the stem
+        # (at stride 1 it is cuDNN's); dx: all but the stem's
+        stages, stride = model.stages, model.model["conv3d_1"].stride[0]
+        n_fwd, n_dx = 1 + (stride == 2) + 5 * stages, 1 + 5 * stages
+        res["launches"] = launch_counts()
+        _expect_counts(f"voxresnet f32 {name} train step", res["launches"], {
+            **{k: 0 for k in VOX_PER_STEP}, "conv2_packed": n_fwd + n_dx,
+            "conv2_packed_dx": n_dx})
+        res["train"] = _allclose_err(got, ref, VOX_TRAIN_TOL)
+        buffers = dict(fine.named_buffers())
+        res["stats"] = max((_allclose_err(v, buffers[k], VOX_STATS_TOL)
+                            for k, v in stats.items()), key=lambda e: e[0])
+        m64 = copy.deepcopy(model).double().train()
+        cross_entropy(m64(x.double()), y).backward()
+        g64 = dict(m64.named_parameters())
+        gf = dict(fine.named_parameters())
+        largest = max(p.grad.abs().max().item() for p in gf.values())
+        worst = (0.0, None)
+        for n, p in packed.named_parameters():
+            r = gf[n].grad
+            err = (p.grad - r).abs().max().item()
+            if n in VOX_PRE_BN_BIASES:
+                tol = VOX_GRAD_RTOL * largest
+            else:
+                rounding = (r.double() - g64[n].grad).abs().max().item()
+                tol = VOX_GRAD_RTOL * r.abs().max().item() + rounding
+                if tol >= 0.5 * r.abs().max().item():
+                    raise AssertionError(f"{name} {n}: vacuous bound {tol}")
+            worst = max(worst, (err / tol, n), key=lambda e: e[0])
+        res["grad_worst_share_of_tol"] = worst
+        log(f"voxresnet f32 parity {name}: {json.dumps(res)}")
+        for key in ("eval", "train", "stats"):
+            if res[key][0] > res[key][1]:
+                raise AssertionError(f"{name} {key} differs: {res[key]}")
+        if worst[0] > 1.0:
+            raise AssertionError(f"{name} gradient {worst[1]} differs")
+        out[name] = res
+        del model, fine, packed, m64
+        torch.cuda.empty_cache()
+    return out
+
+
+def vox_layers(model, size):
+    """(name, fine nn.Conv3d, fine input size) of each distinct B1 site of
+    the packed forward in call order, and the site index of each of the
+    forward's launches: the stem, conv3d_2, then per stage the downsample
+    and the two blocks' conv1 / conv2 (the same shapes in both blocks)."""
+    m = model.model
+    layers = [("stem", m["conv3d_1"], size),
+              ("conv3d_2", m["conv3d_2"], size // 2)]
+    order = [0, 1]
+    f = size // 2
+    for i in range(model.stages):
+        layers.append((f"conv3d_{i + 3}", m[f"conv3d_{i + 3}"], f))
+        f //= 2
+        blk = m[f"block_{2 * i + 1}"]
+        layers += [(f"stage{i + 1}.conv1", blk.conv1, f),
+                   (f"stage{i + 1}.conv2", blk.conv2, f)]
+        base = len(layers) - 3
+        order += [base, base + 1, base + 2, base + 1, base + 2]
+    return layers, order
+
+
+def _fine_yardstick(conv, size, batch, dtype, gen):
+    """cuDNN's forward and input gradient of the fine layer (the library
+    yardstick of a B1 site): callables on random channels-last data."""
+    import torch
+    import torch.nn.functional as TF
+
+    s, ci, co = conv.stride[0], conv.in_channels, conv.out_channels
+    x = torch.randn((batch, ci, size, size, size), generator=gen,
+                    device="cuda").to(dtype).contiguous(
+        memory_format=torch.channels_last_3d)
+    w = conv.weight.detach().to(dtype).contiguous(
+        memory_format=torch.channels_last_3d)
+    out = size // s
+    g = torch.randn((batch, co, out, out, out), generator=gen,
+                    device="cuda").to(dtype).contiguous(
+        memory_format=torch.channels_last_3d)
+    return (lambda: TF.conv3d(x, w, None, stride=s, padding=1),
+            lambda: torch.ops.aten.convolution_backward(
+                g, x, w, None, [s] * 3, [1] * 3, [1] * 3, False, [0] * 3, 1,
+                [True, False, False]))
+
+
+def vox_site_rows(K, sites, model, gen):
+    """Each distinct B1 site of the recorded packed VoxResNet step (bf16,
+    batch VOX_BATCH at 192^3) against its plain version: the forward
+    launch (bf16 at batch VOX_BATCH, f32 at batch 1), its input gradient
+    (all but the stem's) and, at the aligned->shifted sites the eval
+    forward takes, the launch with B2 fused (alpha 0); each timed in bf16
+    beside cuDNN's forward / input gradient of the fine layer.  Rows are
+    repeated by their calls per step.  Returns rows {"forward", "dx",
+    "fused"} and the largest errors by kind and dtype."""
+    import torch
+
+    layers, order = vox_layers(model, SIZE)
+    fwd = sites["forward"]
+    if len(fwd) != len(order):
+        raise AssertionError(f"{len(fwd)} forward B1 launches per step")
+    calls = [order.count(i) for i in range(len(layers))]
+    first = [order.index(i) for i in range(len(layers))]
+    want_dx = sorted((tuple(fwd[j]["wp"]), fwd[j]["pad"])
+                     for j in range(1, len(fwd)))
+    got_dx = sorted((d["wp"], d["pad"]) for d in sites["dx"])
+    if got_dx != want_dx:
+        raise AssertionError(f"dx launches {got_dx} != {want_dx}")
+    rows = {"forward": [], "dx": [], "fused": []}
+    errs = {k: {"f32": 0.0, "bf16": 0.0} for k in rows}
+    for i, (name, conv, fine) in enumerate(layers):
+        site = fwd[first[i]]
+        c8i, c8o, pad = site["x"][4], site["wp"][4], site["pad"]
+        fine_fwd, fine_dx = _fine_yardstick(conv, fine, VOX_BATCH,
+                                            torch.bfloat16, gen)
+        for batch, dn in ((1, "f32"), (VOX_BATCH, "bf16")):
+            dt = torch.float32 if dn == "f32" else torch.bfloat16
+            x = torch.randn((batch, *site["x"][1:]), generator=gen,
+                            device="cuda").to(dt)
+            wp = (torch.randn(site["wp"], generator=gen, device="cuda")
+                  / np.sqrt(8 * c8i)).to(dt)
+            bias = (torch.randn(c8o, generator=gen, device="cuda")
+                    if site["bias"] else None)
+            got = K.conv2_packed(x, wp, bias, pad=pad)
+            torch.cuda.synchronize()
+            route = K._conv2_route(dt, c8i, c8o)
+            err = check(f"voxresnet conv2_packed {name} b{batch} ({route})",
+                        got, K.conv2_packed_plain(x, wp, bias, pad=pad), dn)
+            errs["forward"][dn] = max(errs["forward"][dn], err)
+            m = got.shape[0] * got.shape[1] * got.shape[2] * got.shape[3]
+            flops = 2.0 * m * (8 * c8i) * c8o          # 8 taps
+            nbytes = (x.numel() + wp.numel() + got.numel()) \
+                * x.element_size() + (0 if bias is None else 4 * c8o)
+            timed = dn == "bf16"
+            if timed:
+                rows["forward"] += [vox_row(
+                    name, route, err, x, flops, nbytes,
+                    lambda: K.conv2_packed(x, wp, bias, pad=pad),
+                    lambda: K.conv2_packed_plain(x, wp, bias, pad=pad),
+                    fine_fwd, calls[i])] * calls[i]
+            if i > 0:           # the stem's input takes no gradient
+                g = torch.randn(got.shape, generator=gen,
+                                device="cuda").to(dt)
+                dx = K.conv2_packed_dx(g, wp, pad=pad)
+                torch.cuda.synchronize()
+                err = check(f"voxresnet conv2_packed_dx {name} b{batch}", dx,
+                            K.conv2_packed_dx_plain(g, wp, pad=pad), dn)
+                errs["dx"][dn] = max(errs["dx"][dn], err)
+                if timed:
+                    rows["dx"] += [vox_row(
+                        name, K._conv2_route(dt, c8o, c8i), err, g, flops,
+                        (g.numel() + wp.numel() + dx.numel())
+                        * g.element_size(),
+                        lambda: K.conv2_packed_dx(g, wp, pad=pad),
+                        lambda: K.conv2_packed_dx_plain(g, wp, pad=pad),
+                        fine_dx, calls[i])] * calls[i]
+            if pad == 1:        # eval: BN + ReLU + pad zeroing fused
+                scale = 0.5 + torch.rand(c8o, generator=gen, device="cuda")
+                shift = torch.randn(c8o, generator=gen, device="cuda")
+                alpha = torch.zeros(c8o, device="cuda")
+                fused = K.conv2_packed_as_bn_act(x, wp, scale, shift, alpha)
+                torch.cuda.synchronize()
+                err = check(f"voxresnet conv2_packed_as_bn_act {name} "
+                            f"b{batch}", fused, K.conv2_packed_as_bn_act_plain(
+                                x, wp, scale, shift, alpha), dn)
+                errs["fused"][dn] = max(errs["fused"][dn], err)
+                if timed:
+                    rows["fused"] += [vox_row(
+                        name, route, err, x, flops, nbytes + 3 * 4 * c8o,
+                        lambda: K.conv2_packed_as_bn_act(x, wp, scale, shift,
+                                                         alpha),
+                        lambda: K.conv2_packed_as_bn_act_plain(
+                            x, wp, scale, shift, alpha),
+                        fine_fwd, calls[i])] * calls[i]
+            del x, wp, got
+            torch.cuda.empty_cache()
+    return rows, errs
+
+
+def vox_row(name, route, err, x, flops, nbytes, run, plain, library, calls):
+    bound_ms, bound_by = _bound(flops, nbytes, "bf16")
+    ms = time_ms(run, 10)
+    row = {"site": name, "x": list(x.shape), "route": route,
+           "calls_per_step": calls, "max_abs_err": err, "ms": ms,
+           "plain_ms": time_ms(plain, 1), "library_ms": time_ms(library, 10),
+           "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_share": bound_ms / ms,
+           "tflops": flops / ms / 1e9}
+    log(f"time voxresnet {name} b{x.shape[0]} bf16: {json.dumps(row)}")
+    return row
+
+
+def voxresnet_train_phase(K, P, VP, gen, launch_counts):
+    """Phase 13c at bench.py's configuration (VOX_KWARGS, bf16, batch
+    VOX_BATCH, Adam lr VOX_LR with L2 decay VOX_WD, Dropout from a seeded
+    card generator): every B1 launch of one packed step recorded and each
+    distinct site checked and timed (`vox_site_rows`); 1 warm-up and
+    VOX_TIMED_STEPS timed `voxresnet_class_step_packed`s (exact launch
+    counts, finite losses, parameters that move, ms, vol/s, peak memory),
+    one profiled step (device ms and kernel count; B1 forward and input
+    gradients, cuDNN, cuBLAS GEMMs, other kernels, copies; the idle
+    share), the same for the fine `_class_step` of the same initial model;
+    one bf16 eval forward of each (the packed one with B2 fused at 9
+    launches)."""
+    import copy
+
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.train import TrainState
+    from mri_epilepsy_diagnosis_torch.train.classification import (
+        _class_step)
+    from mri_epilepsy_diagnosis_torch.train.optim import torch_adam
+
+    model = _vox_model(gen, **VOX_KWARGS)
+    fine_model = copy.deepcopy(model)
+    x = torch.randn((VOX_BATCH, SIZE, SIZE, SIZE, 1), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    y = torch.arange(VOX_BATCH, device="cuda") % 2
+    drop = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {"config": {**VOX_KWARGS, "batch": VOX_BATCH, "dtype": "bf16",
+                      "optimizer": f"torch_adam({VOX_LR}, weight_decay="
+                                   f"{VOX_WD})"}}
+
+    def new_state(m):
+        return TrainState(m, torch_adam(VOX_LR, weight_decay=VOX_WD)(
+            m.parameters()))
+
+    def b1_ms(prof):
+        return prof["conv2_packed_tc_ms"] + prof["conv2_packed_ms"]
+
+    def run(step_fn, state, tag, forward_fn):
+        before = {k: v.detach().clone()
+                  for k, v in state.model.state_dict().items()}
+        sites = None
+        if tag == "packed":
+            sites = record_train_sites(K, P, lambda: step_fn(state))
+        else:
+            step_fn(state)                               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(VOX_TIMED_STEPS):
+            _, loss, probs = step_fn(state)
+            losses.append(float(loss))
+        step_s = (time.perf_counter() - t0) / VOX_TIMED_STEPS
+        counts = launch_counts()
+        want = ({k: VOX_TIMED_STEPS * v for k, v in VOX_PER_STEP.items()}
+                if tag == "packed" else {k: 0 for k in VOX_PER_STEP})
+        _expect_counts(f"voxresnet {tag} steps", counts, want)
+        # the device split from the profiler's kernel times (CUDA events
+        # around each call would count the host's gaps too): B1 of the
+        # step less B1 of a train-mode forward gives the input gradients
+        prof = profile_batch(lambda: step_fn(state), groups=STEP_GROUPS)
+        with torch.no_grad():
+            fwd = profile_batch(forward_fn, groups=STEP_GROUPS)
+        grp = prof["groups_ms"]
+        split = {"b1_forward_ms": b1_ms(fwd),
+                 "b1_dx_ms": b1_ms(prof) - b1_ms(fwd),
+                 "cudnn_ms": grp["cudnn_ms"],
+                 "cudnn_forward_ms": fwd["groups_ms"]["cudnn_ms"],
+                 "gemm_ms": grp["gemm_ms"],
+                 "other_ms": prof["kernel_ms"] - b1_ms(prof)
+                 - grp["cudnn_ms"] - grp["gemm_ms"],
+                 "copy_ms": prof["copy_ms"], "device_ms": prof["device_ms"]}
+        after = state.model.state_dict()
+        floats = [k for k in before if before[k].is_floating_point()]
+        moved = sum(not torch.equal(before[k], after[k]) for k in floats)
+        res = {"losses": losses, "ms_per_step": step_s * 1e3,
+               "vol_per_s": VOX_BATCH / step_s,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches_timed_steps": counts, "step_split": split,
+               # against the unprofiled step's wall, and the profiled one's
+               "idle_share": 1 - prof["device_ms"] / (step_s * 1e3),
+               "idle_share_profiled": prof["idle_share"], "profile": prof,
+               "forward_profile": fwd,
+               "moved_tensors": moved, "tensors": len(floats),
+               "probs_sum_to_one": bool(torch.allclose(
+                   probs.sum(-1), torch.ones_like(probs[:, 0])))}
+        log(f"voxresnet {tag} training: {json.dumps(res)}")
+        if not (np.isfinite(losses).all() and res["probs_sum_to_one"]
+                and moved == len(floats)):
+            raise AssertionError(f"voxresnet {tag} steps: {res}")
+        return res, sites
+
+    out["packed"], sites = run(
+        lambda st: VP.voxresnet_class_step_packed(st, x, y, drop),
+        new_state(model), "packed",
+        lambda: VP.voxresnet_apply_packed(model, x, train=True,
+                                          generator=drop))
+    out["fine"], _ = run(lambda st: _class_step(st, x, y, drop, True),
+                         new_state(fine_model), "fine",
+                         lambda: fine_model.train()(x, generator=drop))
+    # one eval forward of each on the trained models
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        VP.voxresnet_apply_packed(model, x, train=False)
+        torch.cuda.synchronize()
+        out["eval_launches"] = launch_counts()
+        _expect_counts("voxresnet packed eval forward", out["eval_launches"],
+                       VOX_EVAL_PER_CALL)
+        out["eval_ms"] = {
+            "packed": time_ms(lambda: VP.voxresnet_apply_packed(
+                model, x, train=False), 3),
+            "fine": time_ms(lambda: fine_model.eval()(x), 3)}
+    del fine_model
+    torch.cuda.empty_cache()
+    rows, errs = vox_site_rows(K, sites, model, gen)
+    out["kernel_max_abs_err"] = errs
+    return out, rows
+
+
 def s8_kernel_entries(k1_rows, k2_rows, errs, counts, serving):
     """The kernels-line entries of K1 (its wgmma route at 9 sites, its
     mma.sync route at the stem) and K2: launches from phase 11b's served
@@ -4537,6 +5104,8 @@ def main() -> int:
     from mri_epilepsy_diagnosis_torch.infer.serving import segment_volumes
     from mri_epilepsy_diagnosis_torch.models import UNet3D
     from mri_epilepsy_diagnosis_torch.models import fader as Fd
+    from mri_epilepsy_diagnosis_torch.models import fader_packed as FP
+    from mri_epilepsy_diagnosis_torch.models import voxresnet_packed as VP
     from mri_epilepsy_diagnosis_torch.models.fader import (
         AE, Classificator, make_encoder)
     from mri_epilepsy_diagnosis_torch.models.unet_packed import (
@@ -4765,15 +5334,15 @@ def main() -> int:
             for i in range(0, N_VOLUMES, BATCH)]))
     ens_params = {"seg": params, "enc": enc, "clf": clf}
 
-    def serve_ensemble(volumes):
+    def serve_ensemble(volumes,
+                       classify_fn=lambda p, x: p["clf"](p["enc"](x)[0])):
         t = time.perf_counter()
         outs = list(segment_volumes(
             None, ens_params, volumes, batch_size=BATCH,
             dtype=torch.bfloat16, device="cuda",
             device_preprocess=znorm_batch, transfer_dtype=np.int16,
             mask_fn=lambda p, x: packed_unet_mask_v2(p["seg"], x),
-            classify_fn=lambda p, x: p["clf"](p["enc"](x)[0]),
-            pack_masks=True))
+            classify_fn=classify_fn, pack_masks=True))
         dt = time.perf_counter() - t
         if len(outs) != len(volumes) or outs[0]["probs"].shape != (2,):
             raise AssertionError("ensemble serving returned wrong results")
@@ -4841,9 +5410,11 @@ def main() -> int:
     # ---- 6. training
     from mri_epilepsy_diagnosis_torch.train import seg as TS
 
-    # phase 11 quantizes the served UNet and serves the same volumes
+    # phase 11 quantizes the served UNet and serves the same volumes, and
+    # phase 13 serves them through the packed encoder
     int8_inputs = (vols, state, fine_masks)
-    del vols, noise, model, params, ens_params, enc, clf
+    ensemble_inputs = (vols, probs, ens_masks)
+    del vols, noise, model, params, enc, clf
     torch.cuda.empty_cache()
     t_train = time.perf_counter()
     # 6a. every B1 launch and dw of one 192^3 batch-2 bf16 train step
@@ -5007,6 +5578,58 @@ def main() -> int:
     zoo = zoo_phase(K, gen)
     phase12_s = time.perf_counter() - t12
     log(f"phase 12: {phase12_s:.1f} s")
+
+    # ---- 13. the packed encoders: the fader's packed and fused encoders
+    # (13a-b), the ensemble served through the packed one (13a), and the
+    # packed VoxResNet trained through B1 (13c)
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    vols, probs4, masks4 = ensemble_inputs
+    del ensemble_inputs
+    with torch.inference_mode():
+        x8 = normalized(vols[:BATCH])
+    _, packed_enc, pe_sep_rows, pe_axis_rows = packed_encoder_phase(
+        K, Fd, FP, ens_params["enc"], x8, gen, launch_counts)
+    del x8
+    torch.cuda.empty_cache()
+
+    def packed_classify(p, x):
+        return p["clf"](FP.encoder_apply_packed(p["enc"], x,
+                                                FADER_AE_KWARGS)[0])
+
+    serve_ensemble(vols, packed_classify)            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (t_pens, (pmasks, pprobs)), pens_counts = counted(
+        lambda: serve_ensemble(vols, packed_classify),
+        PACKED_ENSEMBLE_PER_BATCH)
+    p_err = float(np.abs(pprobs - probs4).max())
+    packed_ensemble = {
+        "volumes": N_VOLUMES, "batch": BATCH, "size": SIZE,
+        "int16_s": t_pens, "int16_vol_per_s": N_VOLUMES / t_pens,
+        "int16_ms_per_batch": t_pens / n_batches * 1e3,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "phase4_int16_vol_per_s": ensemble["int16_vol_per_s"],
+        "phase4_int16_ms_per_batch": ensemble["int16_ms_per_batch"],
+        "probs_vs_phase4_max_abs_err": p_err,
+        "masks_equal_phase4": bool(np.array_equal(pmasks, masks4)),
+        "launches": pens_counts, "device": kind, "nvidia_smi": smi}
+    log(f"packed ensemble: {json.dumps(packed_ensemble)}")
+    if not packed_ensemble["masks_equal_phase4"]:
+        raise AssertionError("packed-encoder ensemble masks differ")
+    if not np.isfinite(pprobs).all() or p_err > PROBS_TOL_BF16:
+        raise AssertionError(f"packed-encoder probabilities differ from "
+                             f"phase 4's by {p_err}")
+    pens_profile = profile_batch(lambda: serve_ensemble(vols[:BATCH],
+                                                        packed_classify))
+    log(f"profile packed ensemble: {json.dumps(pens_profile)}")
+    del vols, ens_params, pmasks, masks4
+    torch.cuda.empty_cache()
+    vox_parity = voxresnet_parity_phase(K, VP, gen, launch_counts)
+    torch.cuda.empty_cache()
+    voxresnet, vox_rows = voxresnet_train_phase(K, P, VP, gen,
+                                                launch_counts)
+    phase13_s = time.perf_counter() - t13
+    log(f"phase 13: {phase13_s:.1f} s")
 
     # the kernels of the served path, one entry per kernel instantiation:
     # launches from the timed ensemble run, times summed over the sites
@@ -5236,6 +5859,60 @@ def main() -> int:
                          "library_ms")),
                      max_abs_err_ae_bf16=ae_bwd_errs["axis"]["bf16"]),
     ]
+    # phase 13: B1 on the packed VoxResNet's paths (launches from the timed
+    # bf16 steps and the eval forward), B3 on the packed ensemble's (the
+    # encoder's e0 and the classifier's stack fused, e1 and e2 per axis)
+    vt = voxresnet["packed"]["launches_timed_steps"]
+    ve = voxresnet["eval_launches"]
+    vox_errs = voxresnet["kernel_max_abs_err"]
+    per_vox = (f"sum over the sites of one batch-{VOX_BATCH} bf16 packed "
+               f"VoxResNet step at {SIZE}^3 (bench.py's configuration; "
+               f"library_ms: cuDNN's fine conv of the same layer); launches "
+               f"from {VOX_TIMED_STEPS} steps")
+    pe_errs = packed_enc["kernel_max_abs_err"]
+    per_pens = (f"sum over the sites of one batch-{BATCH} bf16 forward of "
+                f"the packed encoder and the classifier at {SIZE}^3; "
+                f"launches from the {N_VOLUMES} served volumes")
+    kernels += [
+        kernel_entry("conv2_packed_tc.voxresnet_forward",
+                     src + "conv2_packed_tc.cu", tpu + "265",
+                     vox_rows["forward"], vox_errs["forward"],
+                     _counted_b1(vt)["conv2_packed_tc"], VOX_FWD,
+                     path="voxresnet_training", shapes=per_vox),
+        kernel_entry("conv2_packed_tc.voxresnet_dx",
+                     src + "conv2_packed_tc.cu", tpu + "265", vox_rows["dx"],
+                     vox_errs["dx"], vt["conv2_packed_dx_tc"], VOX_DX,
+                     path="voxresnet_training", shapes=per_vox,
+                     gradient_of="mri_epilepsy_diagnosis_tpu/ops/packed.py:"
+                     "975 (conv3s2_packed_aa), :268, :286 (conv3_packed, "
+                     "conv3_packed_as; XLA's gradients in JAX)"),
+        kernel_entry("conv2_packed_tc_bn_act.voxresnet_eval",
+                     src + "conv2_packed_tc.cu", tpu + "197",
+                     vox_rows["fused"], vox_errs["fused"],
+                     ve["conv2_packed_as_bn_act_tc"], VOX_FUSED,
+                     fuses=tpu + "265 (B1) + " + tpu + "197 (B2, slope 0)",
+                     path="voxresnet_eval", shapes=per_vox.replace(
+                         "step", "eval forward").replace(
+                         f"launches from {VOX_TIMED_STEPS} steps",
+                         "launches from one forward")),
+        kernel_entry("separable_conv3d.packed_ensemble",
+                     src + "separable_conv3d.cu", tpu + "70",
+                     pe_sep_rows + [r for r in sep_rows
+                                    if r["site"] == "clf"],
+                     pe_errs["stacks"], pens_counts["separable_conv3d"],
+                     PACKED_ENSEMBLE_PER_BATCH["separable_conv3d"],
+                     path="packed_ensemble", shapes=per_pens,
+                     fuses="three " + tpu + "70 calls of " + tpu
+                     + "148 separable_conv3d (models/fader_packed.py:87 "
+                     "conv_axis_packed, per axis)"),
+        kernel_entry("conv_axis_tc.packed_ensemble",
+                     src + "conv_axis_tc.cu", tpu + "70", pe_axis_rows,
+                     {"f32": None, "bf16": pe_errs["axis"]["bf16"]},
+                     pens_counts["conv_axis_tc"],
+                     PACKED_ENSEMBLE_PER_BATCH["conv_axis_tc"],
+                     path="packed_ensemble", shapes=per_pens,
+                     max_abs_err_f32_cuda_core=pe_errs["axis"]["f32"]),
+    ]
     # every entry's launches on each path driven with the counts at 0
     paths = {"serving_ensemble": c, "train_step": t,
              "fader_alternation": fb,
@@ -5246,7 +5923,9 @@ def main() -> int:
              "whole_volumes_from_files": from_files["whole"]["launches"],
              "patch_epoch_from_files":
                  from_files["patches"]["launches_epoch"],
-             "patch_train_steps": pt, "sliding_window_bf16": sw}
+             "patch_train_steps": pt, "sliding_window_bf16": sw,
+             "packed_ensemble": pens_counts, "voxresnet_packed_steps": vt,
+             "voxresnet_packed_eval": ve}
     counted_as = {"conv2_packed_tc.train_forward": "conv2_packed_tc",
                   "conv2_packed.train_stem": "conv2_packed",
                   "conv2_packed.validate_f32": "conv2_packed",
@@ -5260,7 +5939,13 @@ def main() -> int:
                   "conv2_packed_tc.patch_dx": "conv2_packed_tc.dx",
                   "separable_conv3d.fader_training": "separable_conv3d",
                   "conv_axis_dx": "conv_axis_dx_tc",
-                  "conv_axis_dw": "conv_axis_dw_tc"}
+                  "conv_axis_dw": "conv_axis_dw_tc",
+                  "conv2_packed_tc.voxresnet_forward": "conv2_packed_tc",
+                  "conv2_packed_tc.voxresnet_dx": "conv2_packed_tc.dx",
+                  "conv2_packed_tc_bn_act.voxresnet_eval":
+                      "conv2_packed_tc_bn_act",
+                  "separable_conv3d.packed_ensemble": "separable_conv3d",
+                  "conv_axis_tc.packed_ensemble": "conv_axis_tc"}
     for entry in kernels:
         key = counted_as.get(entry["name"], entry["name"])
         entry["launches_by_path"] = {p: _counted_b1(n)[key]
@@ -5354,6 +6039,14 @@ def main() -> int:
                    "int8_serving": int8_serving,
                    "composed_training": composed, "phase11_s": phase11_s,
                    "zoo": zoo, "phase12_s": phase12_s,
+                   "packed_encoder": packed_enc,
+                   "packed_encoder_sites": {"stacks": pe_sep_rows,
+                                            "axis": pe_axis_rows},
+                   "packed_ensemble": packed_ensemble,
+                   "profile_packed_ensemble": pens_profile,
+                   "voxresnet_parity_f32": vox_parity,
+                   "voxresnet_packed": voxresnet,
+                   "voxresnet_sites": vox_rows, "phase13_s": phase13_s,
                    "build_s": build_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -33,12 +33,18 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..core.device import resolve_device
 from ..ops import cuda_kernels as K
 from ..ops import functional as F
+from ..ops.packed import _exact_f32_convs
+
+
+# the names of a DownBlock's (and a head's) separable stack
+_DOWN_STACK = ("1_convx", "2_convy", "3_convz")
 
 
 def _separable_convs(c_in: int, c_out: int, k: int, s: int, p: int,
@@ -55,6 +61,13 @@ def _separable_convs(c_in: int, c_out: int, k: int, s: int, p: int,
     return out
 
 
+def _axis_weight(conv: nn.Conv3d, dtype: torch.dtype) -> torch.Tensor:
+    """A separable factor's (O, I, k, 1, 1)-style weight viewed as (k, I,
+    O), in `dtype`."""
+    w = conv.weight.to(dtype)
+    return w.reshape(w.shape[0], w.shape[1], -1).permute(2, 1, 0)
+
+
 def _separable_conv(convs: Sequence[nn.Conv3d],
                     x: torch.Tensor) -> torch.Tensor:
     """One B3 call for the stack, conv `i` along spatial axis i + 1, each
@@ -62,10 +75,7 @@ def _separable_conv(convs: Sequence[nn.Conv3d],
     activations' dtype (JAX casts conv weights to x.dtype) and its bias
     fused, through `SeparableConv3dFn` (the fused forward; B3's backward
     where autograd records)."""
-    ws = []
-    for conv in convs:
-        w = conv.weight.to(x.dtype)
-        ws.append(w.reshape(w.shape[0], w.shape[1], -1).permute(2, 1, 0))
+    ws = [_axis_weight(conv, x.dtype) for conv in convs]
     stride = tuple(c.stride[a] for a, c in enumerate(convs))
     pad = tuple(c.padding[a] for a, c in enumerate(convs))
     biases = tuple(c.bias for c in convs)
@@ -99,7 +109,7 @@ class DownBlock(nn.Module):
         self.maxpool_k, self.maxpool_s = maxpool_k, maxpool_s
         self.act = act
         layers = _separable_convs(c_in, c_out, conv_k, conv_s, conv_pad,
-                                  ("1_convx", "2_convy", "3_convz"), device)
+                                  _DOWN_STACK, device)
         if batch_norm:
             layers.append(("5_batch_norm",
                            nn.BatchNorm3d(c_out, device=device)))
@@ -108,7 +118,7 @@ class DownBlock(nn.Module):
     def pre_norm(self, x: torch.Tensor):
         """The separable convs and the max pool: (pooled, pre-pool shape)."""
         b = self.block
-        x = _separable_conv((b["1_convx"], b["2_convy"], b["3_convz"]), x)
+        x = _separable_conv([b[n] for n in _DOWN_STACK], x)
         shape_before_pool = tuple(x.shape[1:4])
         x = F.maxpool3d(x, self.maxpool_k, self.maxpool_s)
         return x, shape_before_pool
@@ -186,14 +196,20 @@ class Encoder(nn.Module):
         self.encode = nn.ModuleList(blocks)
 
     def forward(self, x: torch.Tensor):
+        x, first = encoder_stem(self, x)
         size_list = []
-        for i, blk in enumerate(self.encode):
-            if i == 0 and self.reduce_size:
-                x = _dense_conv(blk, x)
-                continue
+        for blk in self.encode[first:]:
             x, size = blk(x)
             size_list.append(size)
         return x, size_list
+
+
+def encoder_stem(encoder: Encoder, x: torch.Tensor):
+    """The `reduce_size` 4^3/stride-4 conv, if the encoder has one: (x
+    after it, the index of the first DownBlock)."""
+    if not encoder.reduce_size:
+        return x, 0
+    return _dense_conv(encoder.encode[0], x), 1
 
 
 class Decoder(nn.Module):
@@ -272,7 +288,7 @@ def make_encoder(ae_kwargs: Dict[str, Any], device=None) -> Encoder:
 def _head_layers(c_in, c_out, conv_k, conv_s, conv_pad, l_in, l_out,
                  n_final, batch_norm, device) -> nn.ModuleDict:
     layers = _separable_convs(c_in, c_out, conv_k, conv_s, conv_pad,
-                              ("1_convx", "2_convy", "3_convz"), device)
+                              _DOWN_STACK, device)
     layers.append(("5_l1", nn.Linear(l_in, l_out, device=device)))
     if batch_norm:
         layers.append(("6_batch_norm", nn.BatchNorm1d(l_out, device=device)))
@@ -287,8 +303,7 @@ def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 def _conv_head_features(head: nn.ModuleDict,
                         x: torch.Tensor) -> torch.Tensor:
     """Separable convs, torch-order flatten, first Linear (pre-BN)."""
-    x = _separable_conv((head["1_convx"], head["2_convy"], head["3_convz"]),
-                        x)
+    x = _separable_conv([head[n] for n in _DOWN_STACK], x)
     return _linear(head["5_l1"], _flatten_torch_order(x))
 
 
@@ -360,3 +375,103 @@ class Classificator(_ConvHead):
                  p_drop: float = 0.5, device=None):
         super().__init__(c_in, c_out, conv_k, conv_s, conv_pad, l_in, l_out,
                          n_class, batch_norm, act, p_drop, device)
+
+
+# ---------------------------------------------------------------------------
+# the fused separable-conv encoder (eval), JAX's `models/fader.py`
+# "fused separable-conv execution path": the three separable convs of a
+# DownBlock compose exactly into one dense k^3 conv (the x-dependent parts
+# share zero padding); the biases propagate position-dependently near the
+# boundaries and are added as a separable (h, w) bias field, built in
+# float32.  The dense conv is one cuDNN `F.conv3d` (XLA's in JAX), TF32
+# off for float32; no kernel of the port runs.
+# ---------------------------------------------------------------------------
+
+
+def _axis_valid_mask(size_in: int, size_out: int, k: int, s: int,
+                     p: int) -> np.ndarray:
+    """(size_out, k) 0/1 mask: tap b of output position h reads a valid
+    input index (s*h + b - p in range)."""
+    h = np.arange(size_out)[:, None]
+    b = np.arange(k)[None, :]
+    idx = s * h + b - p
+    return ((idx >= 0) & (idx < size_in)).astype(np.float32)
+
+
+def _norm_act(block: "DownBlock", y: torch.Tensor, batch_norm: bool,
+              act: str) -> torch.Tensor:
+    """Eval BN (running statistics) and the activation of a DownBlock."""
+    if batch_norm:
+        bn = block.block["5_batch_norm"]
+        y = F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
+                         bn.bias, bn.eps)
+    return F.activation(act)(y)
+
+
+def fused_downblock_apply(block: DownBlock, x: torch.Tensor, *,
+                          conv_k: int = 3, conv_s: int = 1,
+                          conv_pad: int = 1, maxpool_k: int = 2,
+                          maxpool_s: int = 2, batch_norm: bool = True,
+                          act: str = "relu"):
+    """Eval-mode DownBlock with its three separable convs fused into one
+    dense conv plus the boundary-exact separable bias field: the function
+    of `block` in eval mode.  Returns (y, pre-pool spatial shape)."""
+    convs = [block.block[n] for n in _DOWN_STACK]
+    wxa, wyb, wzc = (_axis_weight(c, torch.float32) for c in convs)
+    bx, by, bz = (c.bias for c in convs)
+    k, s, p = conv_k, conv_s, conv_pad
+    w = torch.einsum("aim,bmn,cno->oiabc", wxa, wyb, wzc)
+    with _exact_f32_convs(x.dtype):
+        y = F.conv3d(x, w.to(x.dtype), stride=s, padding=p)
+
+    # position-dependent bias: bx flows through convy's h-taps and convz's
+    # w-taps (zero padding truncates the constant field at boundaries),
+    # by through convz's w-taps, bz is uniform
+    h_in, w_in = x.shape[2], x.shape[3]
+    h_out, w_out = y.shape[2], y.shape[3]
+    dev = x.device
+    bias_h = torch.zeros((h_out, wyb.shape[2]), device=dev)
+    if by is not None:
+        bias_h = bias_h + by.float()
+    if bx is not None:
+        my = torch.as_tensor(_axis_valid_mask(h_in, h_out, k, s, p),
+                             device=dev)
+        sy = torch.einsum("hb,bmn->hmn", my, wyb)
+        bias_h = bias_h + torch.einsum("m,hmn->hn", bx.float(), sy)
+    mz = torch.as_tensor(_axis_valid_mask(w_in, w_out, k, s, p), device=dev)
+    sz = torch.einsum("wb,bno->wno", mz, wzc)
+    bias_hw = torch.einsum("hn,wno->hwo", bias_h, sz)
+    if bz is not None:
+        bias_hw = bias_hw + bz.float()
+    y = y + bias_hw[None, None].to(y.dtype)
+
+    shape_before_pool = tuple(y.shape[1:4])
+    y = F.maxpool3d(y, maxpool_k, maxpool_s)
+    return _norm_act(block, y, batch_norm, act), shape_before_pool
+
+
+def _down_block_kwargs(ae_kwargs: Dict[str, Any], conv_pad=1) -> dict:
+    """The DownBlock kwargs of `ae_kwargs`, the defaults filled in as the
+    JAX package's encoder paths fill them (`conv_pad` differs between
+    them: 1 for the fused path, None (k/2 - 1) for the packed one)."""
+    dbk = dict(ae_kwargs["down_block_kwargs"])
+    return dict(conv_k=dbk.get("conv_k", 3), conv_s=dbk.get("conv_s", 1),
+                conv_pad=dbk.get("conv_pad", conv_pad),
+                maxpool_k=dbk.get("maxpool_k", 2),
+                maxpool_s=dbk.get("maxpool_s", 2),
+                batch_norm=dbk.get("batch_norm", True),
+                act=dbk.get("act", "relu"))
+
+
+def encoder_apply_fused(encoder: Encoder, x: torch.Tensor,
+                        ae_kwargs: Dict[str, Any]):
+    """Eval-mode `encoder(x)` -> (latent, size_list) with every
+    DownBlock's separable convs fused (`fused_downblock_apply`)."""
+    x, offset = encoder_stem(encoder, x)
+    kwargs = _down_block_kwargs(ae_kwargs)
+    size_list = []
+    for i in range(ae_kwargs["deapth"]):
+        x, size = fused_downblock_apply(encoder.encode[i + offset], x,
+                                        **kwargs)
+        size_list.append(size)
+    return x, size_list

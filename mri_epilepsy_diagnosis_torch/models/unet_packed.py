@@ -34,6 +34,7 @@ from __future__ import annotations
 from typing import Dict, Mapping
 
 import torch
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import functional as F
@@ -201,14 +202,31 @@ def packed_unet_mask_v2(state_dict: StateDict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _bn_train_packed(y, sd: StateDict, block: str, *, valid: float,
-                     momentum: float = 0.1, eps: float = 1e-5):
+def _bn_train_packed(y, bn, block: str = "", *, valid: float,
+                     pad_entries: float = 0.0, momentum: float = 0.1,
+                     eps: float = 1e-5):
     """Normalize packed `y` (pad voxels zeroed, or aligned) with its own
     fine-exact batch statistics: one pass of float32 sums E[x] and E[x^2],
     var = max(E[x^2] - E[x]^2, 0), `valid` = N*S^3 fine voxels per
-    channel; normalized in y's dtype.  Returns (normalized y, the new
-    running statistics as new tensors keyed like the state dict), as the
-    JAX package's `models/unet_packed.py::_bn_train_packed`."""
+    channel; normalized in y's dtype.  `pad_entries`, the zeroed pad
+    entries per fine channel, adds nothing to either sum, so only `valid`
+    divides them (JAX takes it for the same reason and drops it).
+
+    `bn` is the UNet's state dict, with `block` the ConvBlock whose
+    `norm_layer` normalizes, or an `nn.BatchNorm3d`, whose own momentum
+    and eps then apply.  Returns (normalized y, the new running statistics
+    as new tensors, keyed like the state dict or, for a module, like its
+    buffers), as the JAX package's `models/unet_packed.py::
+    _bn_train_packed`."""
+    if isinstance(bn, nn.BatchNorm3d):
+        prefix, momentum, eps = "", bn.momentum, bn.eps
+        gamma, beta, rm, rv = bn.weight, bn.bias, bn.running_mean, \
+            bn.running_var
+    else:
+        prefix = f"{block}.norm_layer."
+        gamma, beta, rm, rv = (bn[prefix + k] for k in (
+            "weight", "bias", "running_mean", "running_var"))
+    del pad_entries
     c = y.shape[-1] // 8
     yf = y.float()
     s1 = yf.sum(dim=(0, 1, 2, 3)).reshape(8, c).sum(0)
@@ -217,15 +235,12 @@ def _bn_train_packed(y, sd: StateDict, block: str, *, valid: float,
     # f32 cancellation can round E[x^2]-E[x]^2 slightly negative for a
     # near-constant channel with a large mean; rsqrt(var+eps) would NaN
     var = torch.clamp_min(s2 / valid - mean * mean, 0.0)
-    nl = f"{block}.norm_layer"
     out = F.batch_norm(y, P.tile_channel_param(mean),
                        P.tile_channel_param(var),
-                       P.tile_channel_param(sd[f"{nl}.weight"]),
-                       P.tile_channel_param(sd[f"{nl}.bias"]), eps)
-    rm, rv = F.update_running_stats(sd[f"{nl}.running_mean"],
-                                    sd[f"{nl}.running_var"], mean, var,
-                                    valid, momentum)
-    return out, {f"{nl}.running_mean": rm, f"{nl}.running_var": rv}
+                       P.tile_channel_param(gamma),
+                       P.tile_channel_param(beta), eps)
+    rm, rv = F.update_running_stats(rm, rv, mean, var, valid, momentum)
+    return out, {f"{prefix}running_mean": rm, f"{prefix}running_var": rv}
 
 
 def _block_train(y, sd: StateDict, block: str, *, shifted: bool,

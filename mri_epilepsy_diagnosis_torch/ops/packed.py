@@ -61,6 +61,64 @@ def unpack2(y: torch.Tensor) -> torch.Tensor:
     return y.reshape(n, 2 * d2, 2 * h2, 2 * w2, c)
 
 
+def pack4(x: torch.Tensor) -> torch.Tensor:
+    """(N, D, H, W, C) -> (N, D/4, H/4, W/4, 64C), channel = (s4d, s4h,
+    s4w, c) sub-position-major: the space-to-depth of JAX's identity
+    stride-4 conv `_pack4_identity_kernel`, as a reshape.  Spatial dims
+    must be multiples of 4."""
+    n, d, h, w, c = x.shape
+    x = x.reshape(n, d // 4, 4, h // 4, 4, w // 4, 4, c)
+    x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return x.reshape(n, d // 4, h // 4, w // 4, 64 * c)
+
+
+@functools.lru_cache(maxsize=None)
+def _pack2_identity_kernel(c: int) -> np.ndarray:
+    """torch (8C, C, 2, 2, 2) identity space-to-depth kernel: output
+    channel sub*C + i takes input channel i at tap (sd, sh, sw) = sub."""
+    k = np.zeros((8 * c, c, 2, 2, 2), np.float32)
+    for sub in range(8):
+        sd, sh, sw = sub >> 2, (sub >> 1) & 1, sub & 1
+        for i in range(c):
+            k[sub * c + i, i, sd, sh, sw] = 1.0
+    return k
+
+
+def pack2_conv(x: torch.Tensor) -> torch.Tensor:
+    """`pack2` as JAX's identity stride-2 conv (one cuDNN call on the
+    card, TF32 off for float32): exact, since every output is a sum with
+    one nonzero term."""
+    k = torch.as_tensor(_pack2_identity_kernel(x.shape[-1]), device=x.device)
+    with _exact_f32_convs(x.dtype):
+        return F.conv3d(x, k, stride=2)
+
+
+def pack2_shifted(x: torch.Tensor) -> torch.Tensor:
+    """Packing of the volume shifted by +1 voxel per axis (one leading and
+    one trailing zero plane), the input form `conv3_packed` consumes:
+    (N, D, H, W, C) -> (N, D/2+1, H/2+1, W/2+1, 8C)."""
+    return pack2(TF.pad(x, (0, 0) + (1, 1) * 3))
+
+
+def repack_shifted(xp: torch.Tensor) -> torch.Tensor:
+    """Aligned packed activation -> shifted packed, without a round trip
+    through the fine layout: shifted cell Q sub r on an axis holds fine
+    voxel 2Q-1+r, so sub 0 comes from the previous aligned cell's sub 1
+    and sub 1 from this cell's sub 0.  Per axis a pad, two slices of the
+    sub axis and a concat, as in JAX."""
+    n, c8 = xp.shape[0], xp.shape[-1]
+    y = xp.reshape(n, *xp.shape[1:4], 2, 2, 2, c8 // 8)
+    for ax in range(3):
+        spec = [0, 0] * (y.ndim - 1 - ax)
+        spec[-2:] = (1, 1)
+        yp = TF.pad(y, spec)
+        size = y.shape[1 + ax] + 1
+        prev = yp.narrow(1 + ax, 0, size).narrow(4 + ax, 1, 1)
+        cur = yp.narrow(1 + ax, 1, size).narrow(4 + ax, 0, 1)
+        y = torch.cat([prev, cur], dim=4 + ax)
+    return y.reshape(n, *[s + 1 for s in xp.shape[1:4]], c8)
+
+
 # ---------------------------------------------------------------------------
 # weights
 # ---------------------------------------------------------------------------
@@ -91,19 +149,52 @@ def _axis_table_as():
     return a
 
 
-@functools.lru_cache(maxsize=None)
-def _packed_tap_index(kind: str) -> np.ndarray:
-    """Flat fine-tap index (td*9 + th*3 + tw, or 27 for "no tap") of every
-    packed weight entry, shaped (qd,qh,qw, rd,rh,rw, sd,sh,sw)."""
-    a = _axis_table_sa() if kind == "sa" else _axis_table_as()
-    tap = np.full((2, 2, 2), -1, np.int64)            # [q, r, s] -> t
-    for t, q, r, s in zip(*np.nonzero(a)):
-        tap[q, r, s] = t
-    td = tap[:, None, None, :, None, None, :, None, None]
-    th = tap[None, :, None, None, :, None, None, :, None]
-    tw = tap[None, None, :, None, None, :, None, None, :]
+def _taps_of(table01: np.ndarray) -> np.ndarray:
+    """A 0/1 per-axis table A[t, ...] -> its inverse map [...] -> t, or -1
+    (one tap at most per entry)."""
+    out = np.full(table01.shape[1:], -1, np.int64)
+    for t, *rest in zip(*np.nonzero(table01)):
+        out[tuple(rest)] = t
+    return out
+
+
+def _tap_index3(taps: np.ndarray) -> np.ndarray:
+    """Flat fine-tap index (td*9 + th*3 + tw, or 27 where some axis has no
+    tap) of a kernel whose per-axis map `taps` (its indices -> tap t, or
+    -1) is the same on D, H and W: shape (taps' axes for D, for H, for
+    W)."""
+    k = taps.ndim
+    td = taps.reshape(taps.shape + (1,) * 2 * k)
+    th = taps.reshape((1,) * k + taps.shape + (1,) * k)
+    tw = taps.reshape((1,) * 2 * k + taps.shape)
     valid = (td >= 0) & (th >= 0) & (tw >= 0)
     return np.where(valid, td * 9 + th * 3 + tw, 27)
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_tap_index(kind: str) -> np.ndarray:
+    """Flat fine-tap index of every entry of the packing `kind`, its
+    spatial axes first: "sa" / "as" (qd, qh, qw, rd, rh, rw, sd, sh, sw) of
+    `_axis_table_sa` / `_axis_table_as`; "s2" (wd, wh, ww, rd, rh, rw) of
+    `_axis_table_s2`; "in" (kd, kh, kw, rd, rh, rw), k=4 window tap kk = r
+    + t, and "in_s2", k=5, j = 2r + t; "in_s2_p4" (wd, wh, ww, s4d, s4h,
+    s4w, rd, rh, rw) of `_axis_table_s2_p4`."""
+    if kind in ("sa", "as"):
+        taps = _taps_of(_axis_table_sa() if kind == "sa"
+                        else _axis_table_as())                # [q, r, s]
+        return _tap_index3(taps).transpose(0, 3, 6, 1, 4, 7, 2, 5, 8)
+    if kind == "s2":
+        return _tap_index3(_taps_of(_axis_table_s2())).transpose(
+            0, 2, 4, 1, 3, 5)
+    if kind == "in_s2_p4":
+        taps = _taps_of(_axis_table_s2_p4()).transpose(1, 2, 0)  # wpos,s4,r
+        return _tap_index3(taps).transpose(0, 3, 6, 1, 4, 7, 2, 5, 8)
+    step, k = {"in": (1, 4), "in_s2": (2, 5)}[kind]
+    taps = np.full((k, 2), -1, np.int64)                      # [kk, r]
+    for r in range(2):
+        for t in range(3):
+            taps[step * r + t, r] = t
+    return _tap_index3(taps).transpose(0, 2, 4, 1, 3, 5)
 
 
 def _device_constant(array: np.ndarray, **kw) -> torch.Tensor:
@@ -118,16 +209,22 @@ def _device_tap_index(kind: str, device: torch.device) -> torch.Tensor:
     return _device_constant(_packed_tap_index(kind), device=device)
 
 
-def _pack_weights(w: torch.Tensor, kind: str) -> torch.Tensor:
+def _gather_taps(w: torch.Tensor, kind: str) -> torch.Tensor:
+    """Exact gather of the torch (Co, Ci, 3, 3, 3) kernel into the packing
+    `kind`, one fine tap or zero per entry: shape
+    `_packed_tap_index(kind).shape + (Ci, Co)`."""
     co, ci = w.shape[0], w.shape[1]
     if tuple(w.shape[2:]) != (3, 3, 3):
         raise ValueError(f"expected a (Co, Ci, 3, 3, 3) kernel, got "
                          f"{tuple(w.shape)}")
     taps = w.permute(2, 3, 4, 1, 0).reshape(27, ci, co)
     taps = torch.cat([taps, taps.new_zeros(1, ci, co)])
-    # exact gather: (2,)*9 + (ci, co), one fine tap or zero per entry
-    wp = taps[_device_tap_index(kind, w.device)]
-    wp = wp.permute(0, 1, 2, 3, 4, 5, 9, 6, 7, 8, 10)
+    return taps[_device_tap_index(kind, w.device)]
+
+
+def _pack_weights(w: torch.Tensor, kind: str) -> torch.Tensor:
+    ci, co = w.shape[1], w.shape[0]
+    wp = _gather_taps(w, kind).permute(0, 1, 2, 3, 4, 5, 9, 6, 7, 8, 10)
     return wp.reshape(2, 2, 2, 8 * ci, 8 * co)
 
 
@@ -318,6 +415,22 @@ def conv1_packed_blockdiag(xp: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def conv1_packed(xp: torch.Tensor, w: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fine 1x1x1 conv in packed layout as a per-sub channel contraction
+    (JAX's `conv1_packed`; `conv1_packed_blockdiag` computes the same
+    without the sub-axis reshape).  w: torch (Co, Ci, 1, 1, 1) or (Co,
+    Ci)."""
+    co, ci = w.shape[0], w.shape[1]
+    n, d, h, wd, _ = xp.shape
+    y = torch.matmul(xp.reshape(n, d, h, wd, 8, ci),
+                     w.reshape(co, ci).t().to(xp.dtype))
+    y = y.reshape(n, d, h, wd, 8 * co)
+    if bias is not None:
+        y = y + tile_channel_param(bias).to(y.dtype)
+    return y
+
+
 # ---------------------------------------------------------------------------
 # norm / pool / resize / concat
 # ---------------------------------------------------------------------------
@@ -336,6 +449,15 @@ def maxpool2_packed(xp: torch.Tensor) -> torch.Tensor:
     n, d, h, w, c8 = xp.shape
     pooled = xp.reshape(n, d, h, w, 8, c8 // 8).amax(dim=4)
     return pack2(pooled)
+
+
+def maxpool2_packed_cascade(xp: torch.Tensor) -> torch.Tensor:
+    """`maxpool2_packed` as three halvings of the channel blocks (the sub
+    bits w, h, d in turn) and a repack, as JAX's cascade."""
+    c = xp.shape[-1] // 8
+    x = torch.maximum(xp[..., :4 * c], xp[..., 4 * c:])
+    x = torch.maximum(x[..., :2 * c], x[..., 2 * c:])
+    return pack2(torch.maximum(x[..., :c], x[..., c:]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -753,3 +875,159 @@ def upconv_core_hybrid(x_aligned: torch.Tensor,
     autograd forbids on a custom Function's own output."""
     y = UpconvCoreHybrid.apply(x_aligned, w_u)
     return y.clone() if y.requires_grad else y
+
+
+# ---------------------------------------------------------------------------
+# stride-2 convs: VoxResNet's downsamples and stems (JAX's `ops/packed.py`
+# "stride-2 conv variants")
+#
+# A fine k=3/s=2/p=1 conv maps fine grid S to S/2.  Split by output
+# sub-position, it is 8 phase convolutions that share one (2, 2, 2, 8Ci,
+# Co) kernel (`pack_weights2_s2`): phase s's window on an axis starts at
+# cell 2X+s-1.  Together the 8 phases are ONE stride-1 k=2 conv of that
+# kernel over the input padded by one cell on the low side of each axis,
+# whose (N, S2, S2, S2, Co) output `pack2` folds into the packed result:
+# `conv3s2_packed_aa` runs it as one B1 launch.  The stems map the fine
+# input straight to the SHIFTED packing of the stem conv's output: at
+# stride 1 one k=4/s=2/p=2 cuDNN conv (`conv_input_packed`, XLA's in JAX);
+# at stride 2 a k=2 pad-1 B1 conv over `pack4` cells
+# (`conv_input_packed_s2_p4`, the form VoxResNet runs) or the fused
+# k=5/s=4 cuDNN conv (`conv_input_packed_s2`, kept as JAX keeps it).
+# Every packed kernel here holds one fine tap or zero per entry, gathered
+# exactly from the torch (Co, Ci, 3, 3, 3) weight.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _axis_table_s2() -> np.ndarray:
+    """Per-axis table B[t, wpos, r]: output sub s's tap t reads, within its
+    phase-s window [2X+s-1, 2X+s], window cell `wpos` sub `r`, with
+    (wpos, r) = divmod(t + 1, 2), independent of s."""
+    b = np.zeros((3, 2, 2), np.float32)
+    for t in range(3):
+        wpos, r = divmod(t + 1, 2)
+        b[t, wpos, r] = 1.0
+    return b
+
+
+@functools.lru_cache(maxsize=None)
+def _axis_table_s2_p4() -> np.ndarray:
+    """Per-axis table A[t, r, wpos, s4] of the pack4-input stem: shifted
+    output sub r's tap t reads pack4 window cell `wpos` sub4 `s4`
+    (j = 2r + t; j <= 2 -> (0, j+1), else (1, j-3))."""
+    a = np.zeros((3, 2, 2, 4), np.float32)
+    for t in range(3):
+        for r in range(2):
+            j = 2 * r + t
+            if j <= 2:
+                a[t, r, 0, j + 1] = 1.0
+            else:
+                a[t, r, 1, j - 3] = 1.0
+    return a
+
+
+def pack_weights2_s2(w: torch.Tensor) -> torch.Tensor:
+    """Fine (Co, Ci, 3, 3, 3) stride-2 kernel -> the shared phase kernel
+    (2, 2, 2, 8Ci, Co) of `conv3s2_packed_aa`, input channels (rd, rh, rw,
+    ci)."""
+    ci, co = w.shape[1], w.shape[0]
+    return _gather_taps(w, "s2").reshape(2, 2, 2, 8 * ci, co)
+
+
+def conv3s2_packed_aa(xp_aligned: torch.Tensor, wk: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fine k=3/stride-2/pad-1 conv in packed space: ALIGNED packed input
+    (N, S2, S2, S2, 8Ci) [fine 2 S2] -> ALIGNED packed output (N, S2/2,
+    ..., 8Co) [fine S2]; S2 even; wk from `pack_weights2_s2`.
+
+    JAX runs 8 stride-2 phase convs.  Here the 8 phases are one stride-1
+    B1 launch (`Conv3Packed`, whose gradient is a B1 dx launch and the
+    qgroup dw) over the input low-padded by one cell, and `pack2` of its
+    (N, S2, S2, S2, Co) output.  The bias, fine (Co,), is added after the
+    pack in the output's dtype, as in JAX."""
+    s2 = xp_aligned.shape[1:4]
+    if any(s % 2 for s in s2):
+        raise ValueError(f"conv3s2_packed_aa needs even cell extents, got "
+                         f"{tuple(s2)}")
+    # B1's input gradient reads Co channels in groups of 8: narrower
+    # layers (Co = 4 at 2 filters) run on zero output channels, dropped
+    co = wk.shape[-1]
+    wk = TF.pad(wk, (0, -co % 8))
+    y = Conv3Packed.apply(TF.pad(xp_aligned, (0, 0, 1, 0, 1, 0, 1, 0)), wk,
+                          None)
+    y = pack2(y[..., :co])
+    if bias is not None:
+        y = y + tile_channel_param(bias).to(y.dtype)
+    return y
+
+
+def pack_input_weights(w: torch.Tensor) -> torch.Tensor:
+    """Fine (Co, Ci, 3, 3, 3) kernel -> (4, 4, 4, Ci, 8Co) for
+    `conv_input_packed` (JAX's layout)."""
+    ci, co = w.shape[1], w.shape[0]
+    wp = _gather_taps(w, "in").permute(0, 1, 2, 6, 3, 4, 5, 7)
+    return wp.reshape(4, 4, 4, ci, 8 * co)
+
+
+def _stem_conv(x_fine: torch.Tensor, wp: torch.Tensor, bias, *, stride: int,
+               pad) -> torch.Tensor:
+    """One cuDNN conv of a JAX-layout (k, k, k, Ci, 8Co) stem kernel, TF32
+    off for float32, then the fine bias tiled over the 8 sub-positions in
+    the output's dtype, as JAX adds it."""
+    x = TF.pad(x_fine, (0, 0) + tuple(pad) * 3)
+    with _exact_f32_convs(x.dtype):
+        y = F.conv3d(x, wp.permute(4, 3, 0, 1, 2), stride=stride)
+    if bias is not None:
+        y = y + tile_channel_param(bias).to(y.dtype)
+    return y
+
+
+def conv_input_packed(x_fine: torch.Tensor, wp: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fine (N, S, S, S, Ci) input -> the stride-1 stem conv's SHIFTED
+    packed output (N, S/2+1, ..., 8Co), `pack2_shifted` folded into one
+    k=4/stride-2/pad-2 conv (cuDNN; XLA's in JAX); wp from
+    `pack_input_weights`."""
+    return _stem_conv(x_fine, wp, bias, stride=2, pad=(2, 2))
+
+
+def pack_input_weights_s2(w: torch.Tensor) -> torch.Tensor:
+    """Fine (Co, Ci, 3, 3, 3) stride-2 kernel -> (5, 5, 5, Ci, 8Co) for
+    `conv_input_packed_s2`."""
+    ci, co = w.shape[1], w.shape[0]
+    wp = _gather_taps(w, "in_s2").permute(0, 1, 2, 6, 3, 4, 5, 7)
+    return wp.reshape(5, 5, 5, ci, 8 * co)
+
+
+def conv_input_packed_s2(x_fine: torch.Tensor, wp: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Fine (N, S, S, S, Ci) -> SHIFTED packed (N, S/4+1, ..., 8Co) at fine
+    S/2: a fine k=3/s=2/p=1 stem conv fused with `pack2_shifted` into one
+    k=5/stride-4/pad-(3, 2) conv (cuDNN).  The shifted pad voxels hold the
+    kernel's zero-pad extrapolation: `zero_shifted_pads` before batch
+    statistics.  Wired to no model, as in JAX (VoxResNet runs
+    `conv_input_packed_s2_p4`)."""
+    return _stem_conv(x_fine, wp, bias, stride=4, pad=(3, 2))
+
+
+def pack_input_weights_s2_p4(w: torch.Tensor) -> torch.Tensor:
+    """Fine (Co, Ci, 3, 3, 3) stride-2 stem kernel -> (2, 2, 2, 64Ci, 8Co)
+    for `conv_input_packed_s2_p4`: input channels (s4d, s4h, s4w, ci),
+    output channels (rd, rh, rw, co)."""
+    ci, co = w.shape[1], w.shape[0]
+    wp = _gather_taps(w, "in_s2_p4").permute(0, 1, 2, 3, 4, 5, 9, 6, 7, 8,
+                                              10)
+    return wp.reshape(2, 2, 2, 64 * ci, 8 * co)
+
+
+def conv_input_packed_s2_p4(x_fine: torch.Tensor, wk: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Fine (N, S, S, S, Ci) -> SHIFTED packed (N, S/4+1, ..., 8Co) at fine
+    S/2: the fine k=3/s=2/p=1 stem conv as `pack4` (data movement) and one
+    k=2 pad-1 aligned->shifted B1 launch over the pack4 cells
+    (`Conv3PackedAs`, bias fused; the input takes no gradient, so the
+    backward launches only dw).  The shifted pad voxels hold the zero-pad
+    extrapolation: `zero_shifted_pads` before batch statistics."""
+    return Conv3PackedAs.apply(pack4(x_fine), wk, bias)

@@ -1380,3 +1380,170 @@ def test_zoo_step_on_the_card_matches_cpu(cuda_device, no_tf32, name):
     on_card = adamw_step_on(model, g_cpu, cuda_device)
     for k, ref in p_cpu.items():
         assert (on_card[k] - ref).abs().max() <= ZOO_OPT_ATOL, k
+
+
+# ---------------------------------------------------------------------------
+# the packed encoders' kernel sites (VoxResNet's B1, the packed fader's B3)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [0, 1])
+def test_conv2_packed_tc_at_8ci_1024_over_3_cells(cuda_device, pad):
+    """VoxResNet's last stage at 192^3: 8Ci = 8Co = 1024 over 3^3 cells
+    (batch 10), forward and dx on the tensor cores."""
+    g = torch.Generator(device=cuda_device).manual_seed(41)
+    cells = 3 if pad else 4
+    x = torch.randn(10, cells, cells, cells, 1024, generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    wp = (torch.randn(2, 2, 2, 1024, 1024, generator=g, device=cuda_device)
+          / 90.0).to(torch.bfloat16)
+    before = K.conv2_packed.tc_launches
+    got = K.conv2_packed(x, wp, pad=pad)
+    gy = torch.randn(got.shape, generator=g,
+                     device=cuda_device).to(torch.bfloat16)
+    dx = K.conv2_packed_dx(gy, wp, pad=pad)
+    torch.cuda.synchronize()
+    assert K.conv2_packed.tc_launches == before + 2
+    for out, ref in ((got, K.conv2_packed_plain(x, wp, pad=pad)),
+                     (dx, K.conv2_packed_dx_plain(gy, wp, pad=pad))):
+        assert out.shape == ref.shape
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ci,co", [(torch.bfloat16, 32, 64),
+                                         (torch.bfloat16, 64, 128),
+                                         (torch.float32, 2, 4),
+                                         (torch.float32, 4, 8)])
+def test_downsample_and_pack4_stem_launches_match_plain(cuda_device, dtype,
+                                                        ci, co):
+    """`conv3s2_packed_aa`'s launch over the low-padded input and the pack4
+    stem's aligned->shifted launch, each against `conv2_packed_plain`, and
+    the downsample against the fine stride-2 conv (cuDNN, TF32 off)."""
+    from mri_epilepsy_diagnosis_torch.ops import packed as P
+
+    g = torch.Generator(device=cuda_device).manual_seed(ci + co)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    x = torch.randn(2, 12, 12, 12, 8 * ci, generator=g,
+                    device=cuda_device).to(dtype)
+    wk = (torch.randn(2, 2, 2, 8 * ci, co, generator=g, device=cuda_device)
+          / (8 * ci) ** 0.5).to(dtype)
+    xpad = torch.nn.functional.pad(x, (0, 0, 1, 0, 1, 0, 1, 0))
+    before = K.conv2_packed.launches
+    got = K.conv2_packed(xpad, wk, pad=0)
+    vol = torch.randn(2, 24, 24, 24, 1, generator=g,
+                      device=cuda_device).to(dtype)
+    w1 = torch.randn(ci, 1, 3, 3, 3, generator=g, device=cuda_device)
+    wp4 = P.pack_input_weights_s2_p4(w1).to(dtype)
+    stem = K.conv2_packed(P.pack4(vol), wp4, pad=1)
+    torch.cuda.synchronize()
+    assert K.conv2_packed.launches == before + 2
+    for out, ref in ((got, K.conv2_packed_plain(xpad, wk, pad=0)),
+                     (stem, K.conv2_packed_plain(P.pack4(vol), wp4, pad=1))):
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= tol * ref.float().abs().max().item()
+    if dtype == torch.float32:
+        # the downsample and its gradients (dx a B1 launch; Co = 4 runs on
+        # zero channels padded to 8) against the fine conv's
+        w = torch.randn(co, ci, 3, 3, 3, generator=g, device=cuda_device,
+                        requires_grad=True)
+        fine = torch.randn(2, 16, 16, 16, ci, generator=g, device=cuda_device,
+                           requires_grad=True)
+        gy = torch.randn(2, 8, 8, 8, co, generator=g, device=cuda_device)
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            ref = torch.nn.functional.conv3d(
+                fine.permute(0, 4, 1, 2, 3), w, stride=2,
+                padding=1).permute(0, 2, 3, 4, 1)
+            ref_g = torch.autograd.grad(ref, (fine, w), gy)
+        before = K.conv2_packed_dx.launches
+        out = P.unpack2(P.conv3s2_packed_aa(P.pack2(fine),
+                                            P.pack_weights2_s2(w)))
+        got_g = torch.autograd.grad(out, (fine, w), gy)
+        assert K.conv2_packed_dx.launches == before + 1
+        for a, r in zip((out, *got_g), (ref, *ref_g)):
+            assert (a - r).abs().max() <= 1e-5 * r.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cells,chans", [(48, (8, 64, 64, 64)),
+                                         (12, (64, 128, 128, 128)),
+                                         (6, (128, 256, 256, 256))],
+                         ids=["e0", "e1", "e2"])
+def test_packed_encoder_stacks_match_plain(cuda_device, dtype, cells,
+                                           chans):
+    """B3 at the packed fader encoder's stacks (Q = 4 cells, stride 2, pad
+    1; e0 at half its 192^3 extent), through whatever route
+    `_separable_route` gives, against `separable_conv3d_plain`."""
+    g = torch.Generator(device=cuda_device).manual_seed(cells)
+    x = torch.randn(2, cells, cells, cells, chans[0], generator=g,
+                    device=cuda_device).to(dtype)
+    ws = [(torch.randn(4, ci, co, generator=g, device=cuda_device)
+           / (4 * ci) ** 0.5).to(dtype) for ci, co in zip(chans, chans[1:])]
+    bs = tuple(torch.randn(co, generator=g, device=cuda_device)
+               for co in chans[1:])
+    kw = dict(stride=(2, 2, 2), pad=(1, 1, 1), biases=bs)
+    before = K.separable_conv3d.launches + K.conv_axis.launches
+    got = K.separable_conv3d(x, *ws, **kw)
+    torch.cuda.synchronize()
+    assert K.separable_conv3d.launches + K.conv_axis.launches > before
+    ref = K.separable_conv3d_plain(x, *ws, **kw)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_packed_voxresnet_bf16_step_on_the_card_matches_cpu(cuda_device):
+    """One bf16 `voxresnet_class_step_packed` (32^3, 32 filters, 3 stages,
+    batch 2, no dropout: a host generator seeds another mask on the card)
+    on the card, every conv on B1's tensor cores (17 forward, 16 dx),
+    against the same step on the CPU (plain versions): its loss,
+    probabilities and gradients (all but the pre-BN biases, whose true
+    gradient is 0, as one vector) differ from the CPU's by at most twice
+    what bf16 itself moves them, the CPU's bf16 step against its f32 step
+    (the last stage normalizes 16 values a channel, so that is
+    percents)."""
+    import copy
+
+    from mri_epilepsy_diagnosis_torch.models import VoxResNet
+    from mri_epilepsy_diagnosis_torch.models import voxresnet_packed as V
+    from mri_epilepsy_diagnosis_torch.train import TrainState
+    from mri_epilepsy_diagnosis_torch.train.optim import torch_adam
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = VoxResNet(input_shape=(32,) * 3, n_filters=32, n_blocks=3,
+                          n_fc_units=16, device="cpu")
+    x = torch.randn((2, 32, 32, 32, 1),
+                    generator=torch.Generator().manual_seed(5))
+    y = torch.tensor([0, 1])
+    skip = ("model.conv3d_1.bias", "model.conv3d_2.bias")
+    runs = []
+    for dev, dtype in (("cpu", torch.float32), ("cpu", torch.bfloat16),
+                       (cuda_device, torch.bfloat16)):
+        m = copy.deepcopy(model).to(dev)
+        state = TrainState(m, torch_adam(1e-5, weight_decay=0.01)(
+            m.parameters()))
+        K.reset_launch_counts()
+        _, loss, probs = V.voxresnet_class_step_packed(
+            state, x.to(dev, dtype), y.to(dev), None)
+        grad = torch.cat([p.grad.float().cpu().flatten()
+                          for n, p in m.named_parameters() if n not in skip])
+        runs.append((float(loss), probs.cpu(), grad,
+                     (K.conv2_packed.launches, K.conv2_packed.tc_launches,
+                      K.conv2_packed_dx.launches)))
+    (l32, p32, g32, _), (l16, p16, g16, _), (lc, pc, gc, counts) = runs
+    assert counts == (33, 33, 16)
+
+    def dist(a, b):
+        return (abs(a[0] - b[0]), float((a[1] - b[1]).abs().max()),
+                1 - float(torch.nn.functional.cosine_similarity(
+                    a[2], b[2], dim=0)))
+
+    bf16_own = dist((l16, p16, g16), (l32, p32, g32))
+    card = dist((lc, pc, gc), (l16, p16, g16))
+    for got, own in zip(card, bf16_own):
+        assert got <= 2 * own + 1e-6, (card, bf16_own)

@@ -38,7 +38,8 @@ def test_port_sources_found():
             "classification.py", "registration.py", "patches.py",
             "detection.py", "patch_model.py", "unet_packed_q.py",
             "bayes.py", "brats_unet.py", "modified_unet.py",
-            "residual_unet.py"} <= names
+            "residual_unet.py", "voxresnet_packed.py",
+            "fader_packed.py"} <= names
     port = ROOT / "mri_epilepsy_diagnosis_torch"
     for path in ("native/__init__.py", "train/fader.py",
                  "train/classification.py", "metrics/classification.py",
@@ -46,7 +47,8 @@ def test_port_sources_found():
                  "data/patches.py", "infer/detection.py",
                  "models/patch_model.py", "models/unet_packed_q.py",
                  "models/bayes.py", "models/brats_unet.py",
-                 "models/modified_unet.py", "models/residual_unet.py"):
+                 "models/modified_unet.py", "models/residual_unet.py",
+                 "models/voxresnet_packed.py", "models/fader_packed.py"):
         assert port / path in SOURCES
 
 
