@@ -242,6 +242,23 @@ Phases (each raises on failure, so the script exits nonzero):
       `_class_step`, ms, vol/s, peak memory, a profiled step each (idle
       share; B1 forward, B1 dx, dw GEMMs, cuDNN, other); one eval forward
       (22 B1, 9 with B2 fused).
+14. distribution: an NCCL process group of world size 1 (one card: NCCL
+   refuses two ranks on one device, so ranks > 1 are held on the CPU by
+   gloo in tests/test_torch_parallel.py) and a (data, spatial) = (1, 1)
+   mesh, through the code paths of the CPU tests:
+   a. one 192^3 batch-2 bf16 `packed_seg_train_step` under the mesh beside
+      the same step without it, from one state: loss, gradients and
+      running statistics at phase 6b's tolerances, parameters within one
+      AdamW step's bound, B1 23 per step either way (22 on tensor cores,
+      11 dx); ms per step with and without the mesh; the NCCL kernels'
+      count and device time in one profiled mesh step;
+   b. phase 4's volumes through `segment_volumes(..., sharding=
+      data_sharding(mesh))`: phase 4's masks and launch counts;
+   c. `sliding_window_predict` through `make_sharded_apply` in f32: logits
+      within phase 8e's tolerance of the unsharded call, equal counts;
+   d. fault C3's gate: the fine UNet3D and ResidualUNet3D forwards in
+      float32 with cuDNN allowed TF32 (torch's default) against the CPU,
+      1e-4 x max|ref|.
 
 It prints one line per check, then `{"kernels": [...]}` (the kernels of
 the served path: B1 on tensor cores, B2 fused into B1 on either route,
@@ -5018,6 +5035,298 @@ def voxresnet_train_phase(K, P, VP, gen, launch_counts):
     return out, rows
 
 
+# phase 14: distribution on the card.  One NCCL process group of world size
+# 1 (the machine has one card, and NCCL refuses two ranks on one device;
+# ranks > 1 are held on the CPU by the gloo tests), a (data, spatial) =
+# (1, 1) mesh, and the code paths of tests/test_torch_parallel.py: 14a the
+# 192^3 batch-2 bf16 packed step under the mesh beside the same step without
+# it (BatchNorm sums, dice sums and the gradients all-reduced through
+# NCCL); 14b phase 4's volumes served with `sharding=`; 14c the sliding
+# window through `make_sharded_apply`; 14d fault C3's gate: float32 fine
+# forwards with torch's TF32 default (cuDNN allowed TF32) against the CPU.
+DIST_TIMED_STEPS = 3
+DIST_PARAM_RTOL = 5e-7         # x |w|: a few float32 ulps of a weight
+DIST_SERVE_ORDER = ("plain", "mesh", "mesh", "plain", "plain", "mesh")
+DIST_SW_SIZE = 128             # f32 sliding window: 27 patches of PATCH^3
+DIST_SW_OVERLAP = 8
+DIST_SW_BATCH = 8
+C3_SIZE = 64
+C3_TOL = 1e-4                  # x max|ref|, card (TF32 allowed) vs CPU
+
+
+def _free_local_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_profile(fn):
+    """torch.profiler over one call of fn: the NCCL collectives the host
+    issued (the process group's `nccl:*` ranges, by name), the NCCL
+    kernels' count and device ms, and all device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows, calls = [], {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.key.startswith("nccl:"):
+                calls[e.key] = calls.get(e.key, 0) + e.count
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        rows.append((e.key, us / 1e3, e.count))
+    nccl = [r for r in rows if "nccl" in r[0].lower()]
+    device_ms = sum(r[1] for r in rows)
+    nccl_ms = sum(r[1] for r in nccl)
+    return {"nccl_host_calls": calls,
+            "nccl_kernels": sum(r[2] for r in nccl), "nccl_ms": nccl_ms,
+            "device_ms": device_ms,
+            "nccl_share": nccl_ms / device_ms if device_ms else None,
+            "nccl_names": sorted({r[0][:80] for r in nccl})}
+
+
+def _first_adamw_step_agrees(state, ref):
+    """Parameters after one AdamW step from zero moments on each state,
+    from the same weights: Adam's first update is `lr g / (|g| + eps)`, so
+    `state`'s parameters must lie within DIST_PARAM_RTOL x |w| plus that
+    update's difference between the two gradients (float64) of `ref`'s.
+    Returns (largest difference, worst difference / tolerance)."""
+    group = ref.optimizer.param_groups[0]
+    lr, eps = group["lr"], group["eps"]
+    pm = dict(state.model.named_parameters())
+    err = worst = 0.0
+    for k, p in ref.model.named_parameters():
+        g, gr = pm[k].grad.double(), p.grad.double()
+        du = lr * (g / (g.abs() + eps) - gr / (gr.abs() + eps)).abs()
+        diff = (pm[k].double() - p.double()).abs()
+        tol = DIST_PARAM_RTOL * p.double().abs() + du
+        err = max(err, diff.max().item())
+        worst = max(worst, (diff / tol.clamp_min(1e-30)).max().item())
+    return err, worst
+
+
+def distribution_phase(K, UNet3D, gen, launch_counts, serving_inputs,
+                       znorm_batch):
+    """Phase 14 (see the comment above DIST_TIMED_STEPS)."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from mri_epilepsy_diagnosis_torch.core.mesh import (
+        create_mesh, data_sharding, initialize_distributed)
+    from mri_epilepsy_diagnosis_torch.infer import (make_sharded_apply,
+                                                    segment_volumes,
+                                                    sliding_window_predict)
+    from mri_epilepsy_diagnosis_torch.models.unet_packed import (
+        fold_bn_inference, packed_unet_apply_v2, packed_unet_mask_v2)
+    from mri_epilepsy_diagnosis_torch.parallel import use_mesh
+    from mri_epilepsy_diagnosis_torch.train import (TrainState,
+                                                    packed_seg_train_step,
+                                                    torch_adamw)
+
+    if not initialize_distributed(f"127.0.0.1:{_free_local_port()}", 1, 0,
+                                  device="cuda"):
+        raise AssertionError("no process group")
+    out = {}
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"process group backend {backend}")
+        mesh = create_mesh(("data", "spatial"), (1, 1))
+        if mesh.device.type != "cuda" or not mesh.distributed:
+            raise AssertionError(f"mesh on {mesh.device}")
+
+        # 14a: the packed step with and without the mesh, from one state
+        model = UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
+                       out_channels_first_layer=OCFL, device="cuda")
+        random_state_dict(model, gen)
+        xb, lb = seg_batches(gen, 1, TRAIN_BATCH, SIZE)[0]
+        xb = torch.from_numpy(xb).cuda().to(torch.bfloat16)
+        lb = torch.from_numpy(lb).cuda()
+        states = {}
+        for name in ("plain", "mesh"):
+            m = copy.deepcopy(model)
+            states[name] = TrainState(m, torch_adamw()(m.parameters()))
+        del model
+
+        def step(name):
+            with use_mesh(mesh if name == "mesh" else None):
+                return packed_seg_train_step(states[name], xb, lb)[1]
+
+        losses, counts = {}, {}
+        for name in ("plain", "mesh"):
+            K.reset_launch_counts()
+            losses[name] = float(step(name))
+            counts[name] = launch_counts()
+            _expect_counts(f"14a {name} step", counts[name], TRAIN_PER_STEP)
+        parity = _grads_and_stats_agree(
+            "14a mesh step vs plain step (bf16, phase 6b tolerances)",
+            states["mesh"].model, states["plain"].model, losses["mesh"],
+            losses["plain"])
+        param_err, param_worst = _first_adamw_step_agrees(
+            states["mesh"], states["plain"])
+        n_bn = sum(isinstance(m, torch.nn.BatchNorm3d)
+                   for m in states["mesh"].model.modules())
+        # per BatchNorm two sums forward and two cotangents backward, the
+        # dice loss's global mean and its cotangent, one flat gradient
+        want_calls = {"nccl:all_reduce": 4 * n_bn + 2 + 1}
+        ms = {}
+        for name in ("plain", "mesh", "plain", "mesh"):
+            step(name)                                   # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DIST_TIMED_STEPS):
+                step(name)
+            torch.cuda.synchronize()
+            ms.setdefault(name, []).append(
+                (time.perf_counter() - t0) / DIST_TIMED_STEPS * 1e3)
+        prof = nccl_profile(lambda: step("mesh"))
+        out["train_step"] = {
+            "size": SIZE, "batch": TRAIN_BATCH, "dtype": "bf16",
+            "loss_plain": losses["plain"], "loss_mesh": losses["mesh"],
+            "parity": parity, "param_max_abs_diff": param_err,
+            "param_worst_err_over_tol": param_worst,
+            "nccl_host_calls_expected": want_calls,
+            "ms_per_step_plain": ms["plain"], "ms_per_step_mesh": ms["mesh"],
+            "launches_plain": counts["plain"],
+            "launches_mesh": counts["mesh"], "profile_mesh_step": prof}
+        log(f"14a distributed step: {json.dumps(out['train_step'])}")
+        if param_worst > 1:
+            raise AssertionError(f"14a parameters differ by {param_err} "
+                                 f"({param_worst} x the tolerance)")
+        if prof["nccl_host_calls"] != want_calls:
+            raise AssertionError(
+                f"14a: the mesh step issued NCCL collectives "
+                f"{prof['nccl_host_calls']}, not {want_calls}")
+        del states, xb, lb
+        torch.cuda.empty_cache()
+
+        # 14b: phase 4's volumes served data-parallel
+        vols, state4, masks4 = serving_inputs
+        params = fold_bn_inference(state4)
+        n_batches = -(-len(vols) // BATCH)
+
+        def serve(sharding):
+            return np.stack([r["mask"] for r in segment_volumes(
+                None, params, vols, batch_size=BATCH, dtype=torch.bfloat16,
+                device="cuda", device_preprocess=znorm_batch,
+                transfer_dtype=np.int16, mask_fn=packed_unet_mask_v2,
+                pack_masks=True, sharding=sharding)])
+
+        serve(data_sharding(mesh))                       # warm-up
+        K.reset_launch_counts()
+        masks = serve(data_sharding(mesh))
+        serve_counts = launch_counts()
+        _expect_counts("14b sharded serving", serve_counts,
+                       {k: v * n_batches for k, v in UNET_PER_BATCH.items()})
+        # phase 4's path (no sharding) and the sharded one in turns
+        vps = {}
+        for name in DIST_SERVE_ORDER:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve(data_sharding(mesh) if name == "mesh" else None)
+            vps.setdefault(name, []).append(
+                len(vols) / (time.perf_counter() - t0))
+        out["serving"] = {"volumes": len(vols), "batch": BATCH,
+                          "order": list(DIST_SERVE_ORDER),
+                          "vol_per_s": vps["mesh"],
+                          "vol_per_s_plain": vps["plain"],
+                          "masks_equal_phase4": bool(np.array_equal(
+                              masks, masks4)),
+                          "launches": serve_counts}
+        log(f"14b sharded serving: {json.dumps(out['serving'])}")
+        if not out["serving"]["masks_equal_phase4"]:
+            raise AssertionError("14b: sharded masks differ from phase 4's")
+        del params
+
+        # 14c: the sliding window through make_sharded_apply, in f32
+        sw_model = UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
+                          out_channels_first_layer=OCFL, device="cuda")
+        sw_params = fold_bn_inference(random_state_dict(sw_model, gen))
+        del sw_model
+        vol = torch.randn((DIST_SW_SIZE,) * 3 + (1,), generator=gen,
+                          device="cuda")
+        logits, sw_counts = {}, {}
+        with torch.inference_mode():
+            for name, fn in (("plain", packed_unet_apply_v2),
+                             ("mesh", make_sharded_apply(
+                                 packed_unet_apply_v2, mesh))):
+                K.reset_launch_counts()
+                logits[name] = sliding_window_predict(
+                    fn, sw_params, vol, PATCH, DIST_SW_OVERLAP,
+                    DIST_SW_BATCH)
+                sw_counts[name] = launch_counts()
+        sw_err = (logits["mesh"] - logits["plain"]).abs().max().item()
+        sw_max = logits["plain"].abs().max().item()
+        out["sliding_window"] = {
+            "size": DIST_SW_SIZE, "patch": PATCH,
+            "overlap": DIST_SW_OVERLAP, "batch": DIST_SW_BATCH,
+            "dtype": "f32", "max_abs_err": sw_err, "max_abs": sw_max,
+            "tol": SW_LOGIT_TOL, "launches": sw_counts["mesh"]}
+        log(f"14c sharded sliding window: "
+            f"{json.dumps(out['sliding_window'])}")
+        if sw_counts["mesh"] != sw_counts["plain"] or not sw_counts[
+                "mesh"]["conv2_packed"]:
+            raise AssertionError(f"14c launch counts {sw_counts}")
+        if sw_err > SW_LOGIT_TOL * sw_max:
+            raise AssertionError(f"14c: sharded logits differ by {sw_err}")
+        del logits, vol, sw_params
+        torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+    # 14d: C3, float32 fine forwards with torch's TF32 default for cuDNN
+    out["c3"] = c3_phase(UNet3D, gen)
+    return out
+
+
+def c3_phase(UNet3D, gen):
+    """The fine UNet3D and ResidualUNet3D forwards in float32 on the card
+    with cuDNN allowed TF32 (torch's default) against the same models on
+    the CPU: `ops/functional.py`'s convs must turn TF32 off themselves."""
+    import copy
+
+    import torch
+
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        rows = {}
+        x = torch.randn((1, C3_SIZE, C3_SIZE, C3_SIZE, 1), generator=gen,
+                        device="cuda")
+        unet = UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
+                      out_channels_first_layer=OCFL, device="cuda").eval()
+        random_state_dict(unet, gen)
+        zoo = zoo_model("residual_unet3d", "cuda").eval()
+        for name, model in (("unet3d", unet), ("residual_unet3d", zoo)):
+            cpu = copy.deepcopy(model).to("cpu")
+            with torch.inference_mode():
+                got = model(x).cpu()
+                ref = cpu(x.cpu())
+            err = (got - ref).abs().max().item()
+            rows[name] = {"size": C3_SIZE, "max_abs_err": err,
+                          "max_abs": ref.abs().max().item(), "tol": C3_TOL,
+                          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    log(f"14d C3 (f32 with TF32 allowed, card vs CPU): {json.dumps(rows)}")
+    bad = [k for k, r in rows.items()
+           if r["max_abs_err"] > C3_TOL * r["max_abs"]]
+    if bad:
+        raise AssertionError(f"14d: float32 forwards differ: {bad}")
+    return rows
+
+
 def s8_kernel_entries(k1_rows, k2_rows, errs, counts, serving):
     """The kernels-line entries of K1 (its wgmma route at 9 sites, its
     mma.sync route at the stem) and K2: launches from phase 11b's served
@@ -5410,9 +5719,12 @@ def main() -> int:
     # ---- 6. training
     from mri_epilepsy_diagnosis_torch.train import seg as TS
 
-    # phase 11 quantizes the served UNet and serves the same volumes, and
-    # phase 13 serves them through the packed encoder
+    # phase 11 quantizes the served UNet and serves the same volumes,
+    # phase 13 serves them through the packed encoder, and phase 14 serves
+    # them data-parallel
     int8_inputs = (vols, state, fine_masks)
+    dist_inputs = (vols, {k: v.clone() for k, v in state.items()},
+                   masks_int16)
     ensemble_inputs = (vols, probs, ens_masks)
     del vols, noise, model, params, enc, clf
     torch.cuda.empty_cache()
@@ -5630,6 +5942,15 @@ def main() -> int:
                                                 launch_counts)
     phase13_s = time.perf_counter() - t13
     log(f"phase 13: {phase13_s:.1f} s")
+
+    # ---- 14. distribution: an NCCL group of one rank on a (1, 1) mesh
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    distribution = distribution_phase(K, UNet3D, gen, launch_counts,
+                                      dist_inputs, znorm_batch)
+    del dist_inputs
+    phase14_s = time.perf_counter() - t14
+    log(f"phase 14: {phase14_s:.1f} s")
 
     # the kernels of the served path, one entry per kernel instantiation:
     # launches from the timed ensemble run, times summed over the sites
@@ -5925,7 +6246,12 @@ def main() -> int:
                  from_files["patches"]["launches_epoch"],
              "patch_train_steps": pt, "sliding_window_bf16": sw,
              "packed_ensemble": pens_counts, "voxresnet_packed_steps": vt,
-             "voxresnet_packed_eval": ve}
+             "voxresnet_packed_eval": ve,
+             "distributed_train_step":
+                 distribution["train_step"]["launches_mesh"],
+             "sharded_serving": distribution["serving"]["launches"],
+             "sharded_sliding_window_f32":
+                 distribution["sliding_window"]["launches"]}
     counted_as = {"conv2_packed_tc.train_forward": "conv2_packed_tc",
                   "conv2_packed.train_stem": "conv2_packed",
                   "conv2_packed.validate_f32": "conv2_packed",
@@ -6047,6 +6373,7 @@ def main() -> int:
                    "voxresnet_parity_f32": vox_parity,
                    "voxresnet_packed": voxresnet,
                    "voxresnet_sites": vox_rows, "phase13_s": phase13_s,
+                   "distribution": distribution, "phase14_s": phase14_s,
                    "build_s": build_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..parallel.sharding import local_shard
 
 
 def _to_channels_last(vol: np.ndarray) -> np.ndarray:
@@ -280,14 +281,21 @@ class DevicePrefetcher:
     uploads overlap the consumer's kernels.  A tensor already on the
     target device (a collate that standardizes on the card) passes
     through as it is.  On the CPU the batch is used as it is.
+
+    `sharding` (a `core.mesh.Sharding`) stages only this rank's shard of
+    each global batch: its rows, and its D slab of 5-D volumes.
     """
 
     _END = object()
     _ERR = object()
 
     def __init__(self, iterator: Iterable, size: int = 2,
-                 device: Optional[Union[str, torch.device]] = None):
-        self.device = resolve_device(device)
+                 device: Optional[Union[str, torch.device]] = None,
+                 sharding=None):
+        self.device = (sharding.mesh.device
+                       if sharding is not None and device is None
+                       else resolve_device(device))
+        self._sharding = sharding
         self._q: queue.Queue = queue.Queue(maxsize=size)
         self.exhausted = False
         self._stream = (torch.cuda.Stream(self.device)
@@ -298,6 +306,9 @@ class DevicePrefetcher:
 
     def _stage(self, batch):
         batch = _to_tensor(batch)
+        if self._sharding is not None:
+            batch = _map(batch, lambda t: local_shard(
+                t, self._sharding).contiguous())
         if self._stream is None:
             return _map(batch, lambda t: t.to(self.device)), None
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
@@ -342,3 +353,18 @@ class DevicePrefetcher:
             # allocator the consumer's stream uses them too
             _map(batch, lambda t: t.record_stream(consumer))
         return batch
+
+
+def prefetch_to_device(iterator: Iterable, size: int = 2, sharding=None,
+                       device: Optional[Union[str, torch.device]] = None):
+    """Overlap host batch preparation with device compute: a generator of
+    the batches of `iterator` staged `size` ahead on `device` by a worker
+    thread (`DevicePrefetcher`), or this rank's shards of them under
+    `sharding` (on the mesh's device)."""
+    pf = DevicePrefetcher(iterator, size=size, device=device,
+                          sharding=sharding)
+    while True:
+        item = pf.get()
+        if item is None:
+            return
+        yield item

@@ -4,6 +4,11 @@
 Volumes stream from the host through `DevicePrefetcher` (pinned memory, a
 side-stream upload) into a per-batch step on the device; masks stream
 back.  The step is a plain function under `torch.inference_mode()`.
+
+With `sharding` (a `core.mesh.Sharding` of a process mesh) every batch is
+split over the ``data`` axis: each rank stages and runs its rows, and the
+masks (bit-packed or not) and probabilities are all-gathered, so every
+rank yields the whole ordered stream, as one process does.
 """
 from __future__ import annotations
 
@@ -13,7 +18,9 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.mesh import Sharding
 from ..data.pipeline import DevicePrefetcher
+from ..parallel import sharding as _S
 
 
 def _packbits_device(mask: torch.Tensor) -> torch.Tensor:
@@ -121,7 +128,8 @@ def segment_volumes(apply_fn: Optional[Callable], params, volumes: Iterable,
                     transfer_dtype=None,
                     mask_fn: Optional[Callable] = None,
                     pack_masks: bool = False,
-                    transfer_quant: Optional[str] = None) -> Iterator[dict]:
+                    transfer_quant: Optional[str] = None,
+                    sharding: Optional[Sharding] = None) -> Iterator[dict]:
     """Stream (D,H,W) or (D,H,W,1) volumes -> dicts with 'mask' (uint8
     numpy, (D,H,W)) and optionally 'probs' from a classifier head.
 
@@ -147,6 +155,11 @@ def segment_volumes(apply_fn: Optional[Callable], params, volumes: Iterable,
 
     `device`: None is the current CUDA device (raises without one);
     "cpu" runs the whole path on the CPU.
+
+    `sharding` (data-parallel serving) splits every batch over the mesh's
+    ``data`` axis; `batch_size` must divide by that axis, `device`
+    defaults to the mesh's, and `params` must be the same on every rank.
+    Every rank yields every volume's result.
     """
     if transfer_dtype is not None and preprocess is not None:
         raise ValueError(
@@ -161,6 +174,13 @@ def segment_volumes(apply_fn: Optional[Callable], params, volumes: Iterable,
             raise ValueError(
                 "transfer_quant replaces transfer_dtype and is incompatible "
                 "with host preprocess (use device_preprocess)")
+    rows = None
+    if sharding is not None:
+        mesh = sharding.mesh
+        _S.check_shard_divisibility((batch_size,), mesh, "data")
+        rows = Sharding(mesh, ("data",))
+        if device is None:
+            device = mesh.device
     device = resolve_device(device)
 
     def prepare(vol):
@@ -212,7 +232,8 @@ def segment_volumes(apply_fn: Optional[Callable], params, volumes: Iterable,
     # compute.  When the producer has NOT staged the next batch yet, flush
     # the finished results at once instead of withholding them until more
     # traffic arrives.
-    staged = DevicePrefetcher(producer(), size=2, device=device)
+    staged = DevicePrefetcher(producer(), size=2, device=device,
+                              sharding=rows)
     pending = None
     try:
         while True:
@@ -227,6 +248,8 @@ def segment_volumes(apply_fn: Optional[Callable], params, volumes: Iterable,
             n, w = counts.pop(0), mask_w.pop(0)
             with torch.inference_mode():
                 out = step(params, batch)
+                if rows is not None:
+                    out = {k: _S.gather(v, rows) for k, v in out.items()}
             if pending is not None:
                 yield from drain(*pending)
             pending = (out, n, w)

@@ -13,7 +13,8 @@ patch 64^3, overlap 4, argmax -> aggregate):
   centre-crop paste ('crop': crop overlap // 2 on each face that does not
   touch the border, overwrite in grid order).
 
-`GridSampler` and `GridAggregator` are the host-side torchio facades.
+`GridSampler` and `GridAggregator` are the host-side torchio facades;
+`make_sharded_apply` runs each chunk's model call on a process mesh.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.device import as_device_tensor
+from ..parallel import sharding as _S
 
 
 def _axis_locations(size: int, patch: int, stride: int) -> np.ndarray:
@@ -53,6 +55,18 @@ def extract_patches(vol: torch.Tensor, locations, patch_size
                                                   (3,)))
     return torch.stack([vol[a:a + pd, b:b + ph, c:c + pw]
                         for a, b, c in np.asarray(locations).tolist()])
+
+
+def make_sharded_apply(apply_fn: Callable, mesh) -> Callable:
+    """Wrap a patch-batch `apply_fn(variables, patches)` so that each model
+    call inside `sliding_window_predict` runs data(+spatial)-parallel on
+    `mesh`: every rank takes its rows of the chunk (and its D slab of each
+    patch when the mesh's ``spatial`` axis is larger than 1), runs them
+    under `parallel.use_mesh(mesh)`, and the outputs are all-gathered, so
+    extraction and aggregation stay replicated, as in JAX.  The chunk size
+    must divide by ``data`` and the patch's D by ``spatial``: JAX's name
+    for `parallel.make_parallel_apply`."""
+    return _S.make_parallel_apply(apply_fn, mesh)
 
 
 def _coverage(spatial, locations, patch, device=None,

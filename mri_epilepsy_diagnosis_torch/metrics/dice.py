@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import sharding as _S
+
 
 def get_dice_score(output: torch.Tensor, target: torch.Tensor,
                    spatial_dimensions=(2, 3, 4),
@@ -20,13 +22,18 @@ def get_dice_score(output: torch.Tensor, target: torch.Tensor,
 
     `output`/`target`: probabilities and binary targets with the channel
     axis anywhere outside `spatial_dimensions` (the reference's NCDHW calls
-    use the default (2,3,4); channels-last callers pass (1,2,3))."""
+    use the default (2,3,4); channels-last callers pass (1,2,3)).  Under a
+    spatial mesh a channels-last 5-D volume's sums are all-reduced over
+    the spatial axis."""
     p0, g0 = output, target
     p1, g1 = 1 - p0, 1 - g0
     dims = tuple(spatial_dimensions)
     tp = (p0 * g0).sum(dim=dims)
     fp = (p0 * g1).sum(dim=dims)
     fn = (p1 * g0).sum(dim=dims)
+    if output.ndim == 5 and 1 in dims and _S.spatial_mesh() is not None:
+        # the volume's D is split over the spatial axis: whole-volume sums
+        tp, fp, fn = (_S.all_reduce(t, ("spatial",)) for t in (tp, fp, fn))
     return 2 * tp / (2 * tp + fp + fn + epsilon)
 
 

@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import functional as F
 from ..ops import packed as P
+from ..parallel import sharding as _S
 
 StateDict = Mapping[str, torch.Tensor]
 
@@ -204,7 +205,7 @@ def packed_unet_mask_v2(state_dict: StateDict, x: torch.Tensor,
 
 def _bn_train_packed(y, bn, block: str = "", *, valid: float,
                      pad_entries: float = 0.0, momentum: float = 0.1,
-                     eps: float = 1e-5):
+                     eps: float = 1e-5, owned=None):
     """Normalize packed `y` (pad voxels zeroed, or aligned) with its own
     fine-exact batch statistics: one pass of float32 sums E[x] and E[x^2],
     var = max(E[x^2] - E[x]^2, 0), `valid` = N*S^3 fine voxels per
@@ -217,7 +218,12 @@ def _bn_train_packed(y, bn, block: str = "", *, valid: float,
     and eps then apply.  Returns (normalized y, the new running statistics
     as new tensors, keyed like the state dict or, for a module, like its
     buffers), as the JAX package's `models/unet_packed.py::
-    _bn_train_packed`."""
+    _bn_train_packed`.
+
+    Under a mesh `valid` counts this rank's voxels; s1, s2 and the count
+    are summed over the ranks, so the statistics are the global batch's.
+    `owned` (default y) is the part of y whose voxels this rank counts: a
+    shifted slab leaves out the cell it shares with the next rank."""
     if isinstance(bn, nn.BatchNorm3d):
         prefix, momentum, eps = "", bn.momentum, bn.eps
         gamma, beta, rm, rv = bn.weight, bn.bias, bn.running_mean, \
@@ -228,9 +234,14 @@ def _bn_train_packed(y, bn, block: str = "", *, valid: float,
             "weight", "bias", "running_mean", "running_var"))
     del pad_entries
     c = y.shape[-1] // 8
-    yf = y.float()
+    yf = (y if owned is None else owned).float()
     s1 = yf.sum(dim=(0, 1, 2, 3)).reshape(8, c).sum(0)
     s2 = yf.square().sum(dim=(0, 1, 2, 3)).reshape(8, c).sum(0)
+    mesh = _S.current_mesh()
+    if mesh is not None:
+        over = _S.sharded_axes(y)
+        s1, s2 = _S.all_reduce(s1, over), _S.all_reduce(s2, over)
+        valid = valid * _S.shard_count(mesh, over)
     mean = s1 / valid
     # f32 cancellation can round E[x^2]-E[x]^2 slightly negative for a
     # near-constant channel with a large mean; rsqrt(var+eps) would NaN
@@ -247,12 +258,18 @@ def _block_train(y, sd: StateDict, block: str, *, shifted: bool,
                  valid: float):
     """Train-mode tail of a ConvBlock whose conv output is `y` (shifted or
     aligned packed): zero the pads, BN with batch statistics, PReLU, zero
-    the pads again.  Returns (activated y, new running statistics)."""
+    the pads again.  Returns (activated y, new running statistics).
+    Under a spatial mesh a shifted slab's last cell is counted by the next
+    rank, unless this rank holds the volume's last face."""
     stats = {}
+    owned = None
     if shifted:
         y = P.zero_shifted_pads(y)
+        if (_S.spatial_mesh() is not None
+                and not _S.spatial_edges()[1]):
+            owned = y.narrow(1, 0, y.shape[1] - 1)
     if f"{block}.norm_layer.weight" in sd:
-        y, stats = _bn_train_packed(y, sd, block, valid=valid)
+        y, stats = _bn_train_packed(y, sd, block, valid=valid, owned=owned)
     alpha = sd.get(f"{block}.activation_layer.weight")
     if alpha is not None:
         y = F.prelu(y, alpha)
@@ -291,9 +308,15 @@ def packed_unet_train_apply(state_dict: StateDict, x: torch.Tensor,
     if dec_up not in ("explicit", "composed", "hybrid"):
         raise ValueError(f"dec_up must be 'explicit', 'composed' or "
                          f"'hybrid', not {dec_up!r}")
+    if dec_up != "explicit" and _S.spatial_mesh() is not None:
+        raise NotImplementedError(
+            "under a spatial mesh the packed step runs dec_up='explicit'")
     sd = state_dict
     nb = num_encoding_blocks
-    n, s = x.shape[0], x.shape[1]
+    n = x.shape[0]
+    # this rank's fine voxels per sample at full scale (D is its slab);
+    # each pooling divides them by 8
+    s = x.shape[1] * x.shape[2] * x.shape[3]
 
     def conv_as(xp, block, w=None, bias=True):
         w = sd[f"{block}.conv_layer.weight"] if w is None else w
@@ -306,7 +329,7 @@ def packed_unet_train_apply(state_dict: StateDict, x: torch.Tensor,
             sd.get(f"{block}.conv_layer.bias"))
 
     def tail(y_s, blk, s):
-        valid = float(n) * s ** 3
+        valid = float(n) * s
         y, st1 = _block_train(y_s, sd, f"{blk}.conv1", shifted=True,
                               valid=valid)
         out, st2 = _block_train(conv_sa(y, f"{blk}.conv2"), sd,
@@ -343,11 +366,11 @@ def packed_unet_train_apply(state_dict: StateDict, x: torch.Tensor,
         new_stats.update(st)
         skips.append(xp)
         xp = P.maxpool2_packed(xp)
-        s //= 2
+        s //= 8
     xp, st = run(double_block, xp, "bottom_block", s)
     new_stats.update(st)
     for i in range(nb - 1):
-        s *= 2
+        s *= 8
         xp, st = run(dec_block, xp, skips[-(i + 1)],
                      f"decoder.decoding_blocks.{i}", s)
         new_stats.update(st)
@@ -364,7 +387,8 @@ def packed_dice_loss(logits_packed: torch.Tensor,
     axis (dice is a voxel sum, so the layout does not matter as long as
     probabilities and targets align; the targets are packed with `pack2`).
     Binary (0/1 float) targets for out_classes == 2, integer class labels
-    otherwise.  Mean over batch and classes."""
+    otherwise.  Mean over batch and classes (the global batch's, and
+    sums over the whole volume, under a mesh)."""
     from ..metrics.dice import get_dice_loss
 
     n, d2, h2, w2, c8 = logits_packed.shape
@@ -377,4 +401,5 @@ def packed_dice_loss(logits_packed: torch.Tensor,
     else:
         onehot = torch.nn.functional.one_hot(
             tp[..., 0].long(), co).to(probs.dtype)
-    return get_dice_loss(probs, onehot, spatial_dimensions=(1, 2, 3)).mean()
+    return _S.global_mean(get_dice_loss(probs, onehot,
+                                        spatial_dimensions=(1, 2, 3)))

@@ -43,6 +43,7 @@ from torch import nn
 
 from ..ops import functional as F
 from ..ops import packed as P
+from ..parallel import sharding as _S
 from .cnn import VoxResNet, _flatten_torch_order, _linear
 from .unet_packed import _bn_train_packed
 
@@ -113,10 +114,16 @@ def voxresnet_apply_packed(model: VoxResNet, x: torch.Tensor, *,
     mode is not read: `train` decides).  x: fine (N, S, S, S, 1); S /
     stride must be divisible by 2^(stages + 1), so that the packed cells
     stay even at every scale.  generator: the Dropout mask's, as for
-    `model(x, generator)`.
+    `model(x, generator)`.  Under a mesh it runs on the ``data`` axis
+    only: its stride-2 convs and its flatten would reach across a D slab,
+    so a spatial split raises.
     Returns (logits (N, num_classes), the new running statistics keyed
     like `model.state_dict()` when train, else None); differentiable in
     the model's parameters."""
+    if _S.spatial_mesh() is not None:
+        raise NotImplementedError(
+            "packed VoxResNet under a spatial mesh: it runs on the data "
+            "axis only (its stride-2 convs and flatten span the whole D)")
     m = model.model
     stride = m["conv3d_1"].stride[0]
     if stride not in (1, 2):
@@ -191,7 +198,7 @@ def voxresnet_class_step_packed(state, x: torch.Tensor, y: torch.Tensor,
     then the new running statistics stored in the model's buffers
     (`num_batches_tracked` counted).  `model` is `state.model`, the
     default.  Returns (state, loss, softmax probabilities), both detached,
-    the contract of `_class_step`."""
+    the contract of `_class_step` (on a mesh too: data axis only)."""
     from ..train.classification import cross_entropy
     from ..train.seg import _store_running_stats
 
@@ -203,7 +210,8 @@ def voxresnet_class_step_packed(state, x: torch.Tensor, y: torch.Tensor,
                                            generator=generator)
     loss = cross_entropy(logits, y)
     state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    _S.backward(loss)
+    _S.sync_gradients(model.parameters())
     state.optimizer.step()
     state.step += 1
     _store_running_stats(model, stats)

@@ -10,15 +10,51 @@ for the train-mode layers, the fader's `relu`/`l_relu` activations, and
 the shape utilities `pad_to` and `crop_or_pad`).  Every function takes and
 returns channels-last tensors, `(N, D, H, W, C)` or, for the 2-D ops,
 `(N, H, W, C)`; weights keep torch's layouts (`(O, I, kH, kW)`,
-`(out, in)`), where JAX's are channels-last."""
+`(out, in)`), where JAX's are channels-last.
+
+Under an active mesh (`parallel.use_mesh`) the ops that see more than
+their own shard become collective, as GSPMD makes them in JAX:
+BatchNorm's statistics are all-reduced over the ranks, and InstanceNorm's
+and GroupNorm's over the spatial ranks; `conv3d` and the trilinear x2
+`resize_linear` take a D halo from the spatial neighbours; `maxpool3d`,
+`avgpool3d`, `conv3d_transpose` and `resize_nearest` check that their
+D windows stay inside the slab and raise otherwise; and `dropout` draws
+its mask at the global shape and keeps the rank's block of it."""
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as TF
+
+from ..core.mesh import Sharding
+from ..parallel import sharding as _S
+
+
+@contextlib.contextmanager
+def _exact_f32_convs(dtype: torch.dtype):
+    """cuDNN convolutions without TF32 for float32 operands (torch's
+    default lets cuDNN round them to TF32), as the port's float32 paths
+    are held to float32 references; other dtypes run as they are."""
+    if dtype != torch.float32:
+        yield
+        return
+    with torch.backends.cudnn.flags(
+            enabled=torch.backends.cudnn.enabled,
+            benchmark=torch.backends.cudnn.benchmark,
+            deterministic=torch.backends.cudnn.deterministic,
+            allow_tf32=False):
+        yield
+
+
+def _global_count(x: torch.Tensor) -> int:
+    """Values per channel of channels-last `x` over every shard of the
+    active mesh (x's own count without one)."""
+    return x[..., 0].numel() * _S.shard_count(_S.current_mesh(),
+                                              _S.sharded_axes(x))
 
 
 def prelu(x: torch.Tensor, a) -> torch.Tensor:
@@ -40,11 +76,19 @@ def batch_norm(x, mean, var, gamma, beta, eps: float = 1e-5):
 def batch_moments(x: torch.Tensor):
     """Train-mode BatchNorm statistics of channels-last `x`: the float32
     per-channel mean and biased (centered) variance over every other axis,
-    differentiable (the JAX package's `ops/layers.py::BatchNorm`)."""
+    differentiable (the JAX package's `ops/layers.py::BatchNorm`).  Under
+    a mesh the moments are the global batch's: the sums are all-reduced
+    over the ranks the tensor is split over, first Σx for the mean, then
+    Σ(x - mean)² for the variance."""
     xf = x.float()
     axes = tuple(range(x.ndim - 1))
-    mean = xf.mean(dim=axes)
-    return mean, (xf - mean).square().mean(dim=axes)
+    if _S.distributed_mesh() is None:
+        mean = xf.mean(dim=axes)
+        return mean, (xf - mean).square().mean(dim=axes)
+    over, count = _S.sharded_axes(x), _global_count(x)
+    mean = _S.all_reduce(xf.sum(dim=axes), over) / count
+    var = _S.all_reduce((xf - mean).square().sum(dim=axes), over) / count
+    return mean, var
 
 
 def update_running_stats(running_mean, running_var, mean, var,
@@ -64,11 +108,11 @@ def module_batch_norm(bn, x: torch.Tensor) -> torch.Tensor:
     place (`update_running_stats`, `bn.momentum`, `num_batches_tracked`
     counted) and torch's refusal of a single value per channel; in eval
     mode, the running statistics.  The JAX package's `ops/layers.py::
-    BatchNorm`."""
+    BatchNorm`.  Under a mesh, the global batch's moments and count."""
     if not bn.training:
         return batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                           bn.bias, bn.eps)
-    count = x[..., 0].numel()
+    count = _global_count(x)
     if count <= 1:
         raise ValueError("Expected more than 1 value per channel when "
                          f"training, got input size {tuple(x.shape)}")
@@ -107,11 +151,22 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     The keep mask (`u < 1 - rate` for u uniform in [0, 1)) is drawn on
     x's device, from `generator_on(generator, x.device)` (torch's default
     generator of that device if None).  JAX draws other bits from its
-    keys (ROADMAP §C)."""
+    keys (ROADMAP §C).  Under a mesh the mask is drawn at the global shape
+    and each rank keeps its rows (and D slab), so the sharded step drops
+    what the unsharded one does."""
     if not training or rate == 0.0:
         return x
     gen = None if generator is None else generator_on(generator, x.device)
-    u = torch.rand(x.shape, generator=gen, device=x.device)
+    mesh = _S.current_mesh()
+    if mesh is None:
+        u = torch.rand(x.shape, generator=gen, device=x.device)
+    else:
+        axes = _S.sharded_axes(x)
+        shape = list(x.shape)
+        for dim, axis in enumerate(axes):
+            shape[dim] *= mesh.axis_size(axis)
+        u = _S.local_shard(torch.rand(shape, generator=gen, device=x.device),
+                           Sharding(mesh, axes))
     return dropout_core(x, u < 1.0 - rate, rate)
 
 
@@ -188,6 +243,12 @@ def maxpool3d(x: torch.Tensor, kernel: int = 2,
       pool refuses, take the max of the unfolded windows."""
     k = kernel
     s = k if stride is None else stride
+    if _S.spatial_mesh() is not None and (s != k or padding
+                                          or x.shape[1] % k):
+        raise ValueError(
+            f"maxpool3d under a spatial mesh needs stride == kernel, no "
+            f"padding and the local D slab ({x.shape[1]}) divisible by "
+            f"{k}")
     if padding == 0:
         if s == k and all(n % k == 0 for n in x.shape[1:4]):
             return _BlockMaxPool.apply(x, k)
@@ -217,11 +278,16 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, *, stride=1, padding=0,
            dilation=1, groups: int = 1) -> torch.Tensor:
     """torch `F.conv2d` on channels-last `(N, H, W, C)` with a weight in
     torch's `(O, I / groups, kH, kW)` layout; the weight and bias are cast
-    to x's dtype, as JAX casts them."""
-    y = TF.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype),
-                  None if b is None else b.to(x.dtype), stride=stride,
-                  padding=padding, dilation=dilation, groups=groups)
+    to x's dtype, as JAX casts them.  float32 runs without TF32."""
+    with _exact_f32_convs(x.dtype):
+        y = TF.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype),
+                      None if b is None else b.to(x.dtype), stride=stride,
+                      padding=padding, dilation=dilation, groups=groups)
     return y.permute(0, 2, 3, 1)
+
+
+def _triple(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v,) * 3
 
 
 def conv3d(x: torch.Tensor, w: torch.Tensor, b=None, *, stride=1,
@@ -229,11 +295,28 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, b=None, *, stride=1,
     """torch `F.conv3d` on channels-last `(N, D, H, W, C)` with a weight in
     torch's `(O, I / groups, kD, kH, kW)` layout (JAX's is `(kD, kH, kW,
     I / groups, O)`); the weight and bias are cast to x's dtype, as JAX
-    casts them.  cuDNN on the card: JAX's custom VJP for this conv
-    computes the same gradients."""
-    y = TF.conv3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype),
-                  None if b is None else b.to(x.dtype), stride=stride,
-                  padding=padding, dilation=dilation, groups=groups)
+    casts them.  cuDNN on the card, float32 without TF32: JAX's custom
+    VJP for this conv computes the same gradients.
+
+    Under a spatial mesh a conv that keeps D ("same" along D: stride 1,
+    padding (kD - 1) / 2) takes that many planes from each neighbour
+    (`halo_exchange`, zeros at the volume's faces) and runs with no D
+    padding; other convs along a split D raise."""
+    if _S.spatial_mesh() is not None and (w.shape[2] > 1 or
+                                          _triple(padding)[0]):
+        pd, ph, pw = _triple(padding)
+        if (_triple(stride)[0] != 1 or _triple(dilation)[0] != 1
+                or 2 * pd != w.shape[2] - 1):
+            raise NotImplementedError(
+                "conv3d under a spatial mesh needs a 'same' conv along D "
+                f"(stride 1, padding (kD - 1) / 2); got kD {w.shape[2]}, "
+                f"padding {padding}, stride {stride}")
+        x = _S.spatial_halo(x, pd)
+        padding = (0, ph, pw)
+    with _exact_f32_convs(x.dtype):
+        y = TF.conv3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype),
+                      None if b is None else b.to(x.dtype), stride=stride,
+                      padding=padding, dilation=dilation, groups=groups)
     return y.permute(0, 2, 3, 4, 1)
 
 
@@ -242,18 +325,40 @@ def conv3d_transpose(x: torch.Tensor, w: torch.Tensor, b=None, *, stride=1,
                      ) -> torch.Tensor:
     """torch `nn.ConvTranspose3d` on channels-last `x` with torch's `(I, O,
     kD, kH, kW)` weight (JAX stores `(kD, kH, kW, O, I)` and flips it
-    itself), the weight and bias cast to x's dtype."""
-    y = TF.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype),
-                            None if b is None else b.to(x.dtype),
-                            stride=stride, padding=padding,
-                            output_padding=output_padding,
-                            dilation=dilation)
+    itself), the weight and bias cast to x's dtype; float32 without
+    TF32.  Under a spatial mesh only a deconv whose D windows do not
+    overlap (stride == kernel along D, no padding) maps each slab to its
+    own output slab; others raise."""
+    if _S.spatial_mesh() is not None:
+        kd = w.shape[2]
+        if (_triple(stride)[0] != kd or _triple(padding)[0]
+                or _triple(output_padding)[0] or _triple(dilation)[0] != 1):
+            raise NotImplementedError(
+                "conv3d_transpose under a spatial mesh needs D windows that "
+                "do not overlap (stride == kernel along D, no padding or "
+                f"output padding); got kD {kd}, stride {stride}, padding "
+                f"{padding}, output_padding {output_padding}")
+    with _exact_f32_convs(x.dtype):
+        y = TF.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype),
+                                None if b is None else b.to(x.dtype),
+                                stride=stride, padding=padding,
+                                output_padding=output_padding,
+                                dilation=dilation)
     return y.permute(0, 2, 3, 4, 1)
 
 
 def avgpool3d(x: torch.Tensor, kernel=2, stride=None) -> torch.Tensor:
     """torch `nn.AvgPool3d(kernel, stride)` (no padding, floor mode) on
-    channels-last `x`: JAX's window sum over `prod(kernel)`."""
+    channels-last `x`: JAX's window sum over `prod(kernel)`.  Under a
+    spatial mesh the D windows must tile the local slab (stride ==
+    kernel along D, the slab's D divisible by it); others raise."""
+    kd = _triple(kernel)[0]
+    sd = kd if stride is None else _triple(stride)[0]
+    if _S.spatial_mesh() is not None and (sd != kd or x.shape[1] % kd):
+        raise NotImplementedError(
+            f"avgpool3d under a spatial mesh needs stride == kernel along D "
+            f"and the local D slab ({x.shape[1]}) divisible by {kd}; got "
+            f"kernel {kernel}, stride {stride}")
     y = TF.avg_pool3d(x.permute(0, 4, 1, 2, 3), kernel,
                       kernel if stride is None else stride)
     return y.permute(0, 2, 3, 4, 1)
@@ -267,15 +372,31 @@ def _affine(y: torch.Tensor, gamma, beta) -> torch.Tensor:
     return y
 
 
+def _sample_moments(x: torch.Tensor, xr: torch.Tensor, axes):
+    """Mean and biased (centred) variance of `xr`, a view of channels-last
+    `x`, over `axes` (each sample's own voxels), in x's dtype.  When `x`
+    is a volume split over D by the active mesh, the sums are all-reduced
+    over the spatial ranks, first Σx for the mean, then Σ(x - mean)², so
+    that every slab gets the whole volume's moments."""
+    if x.ndim != 5 or _S.spatial_mesh() is None:
+        mean = xr.mean(dim=axes, keepdim=True)
+        return mean, (xr - mean).square().mean(dim=axes, keepdim=True)
+    count = int(np.prod([xr.shape[a] for a in axes])) * _S.shard_count(
+        _S.current_mesh(), ("spatial",))
+    mean = _S.all_reduce(xr.sum(dim=axes, keepdim=True), ("spatial",)) / count
+    var = _S.all_reduce((xr - mean).square().sum(dim=axes, keepdim=True),
+                        ("spatial",)) / count
+    return mean, var
+
+
 def instance_norm(x: torch.Tensor, gamma=None, beta=None,
                   eps: float = 1e-5) -> torch.Tensor:
     """torch `nn.InstanceNorm3d` (no running statistics, affine if gamma
     and beta are given) on channels-last `x`: each (sample, channel)
     normalized over the spatial axes with its biased variance and
-    `rsqrt(var + eps)`, in x's dtype, as JAX computes it."""
-    axes = tuple(range(1, x.ndim - 1))
-    mean = x.mean(dim=axes, keepdim=True)
-    var = (x - mean).square().mean(dim=axes, keepdim=True)
+    `rsqrt(var + eps)`, in x's dtype, as JAX computes it; under a spatial
+    mesh, over the whole volume (`_sample_moments`)."""
+    mean, var = _sample_moments(x, x, tuple(range(1, x.ndim - 1)))
     return _affine((x - mean) * torch.rsqrt(var + eps), gamma, beta)
 
 
@@ -284,11 +405,11 @@ def group_norm(x: torch.Tensor, num_groups: int, gamma=None, beta=None,
     """torch `nn.GroupNorm` on channels-last `x`: channel c belongs to
     group `c // (C / num_groups)`, each (sample, group) normalized over
     its channels and the spatial axes with the biased variance, in x's
-    dtype, as JAX computes it."""
+    dtype, as JAX computes it; under a spatial mesh, over the whole
+    volume (`_sample_moments`)."""
     n, c = x.shape[0], x.shape[-1]
     xg = x.reshape(n, -1, num_groups, c // num_groups)
-    mean = xg.mean(dim=(1, 3), keepdim=True)
-    var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+    mean, var = _sample_moments(x, xg, (1, 3))
     y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
     return _affine(y, gamma, beta)
 
@@ -330,13 +451,30 @@ def _apply_axis_matrix(x: torch.Tensor, m: np.ndarray, axis: int):
 def resize_linear(x: torch.Tensor, out_spatial: Sequence[int], *,
                   align_corners: bool = False) -> torch.Tensor:
     """Separable tri-linear resize of channels-last `x`, PyTorch
-    `nn.Upsample(mode='trilinear')` semantics."""
+    `nn.Upsample(mode='trilinear')` semantics.
+
+    Under a spatial mesh a x2 resize of D (align_corners False, the
+    decoder's upsample) takes one edge-mode halo plane from each neighbour
+    (the clamp at the volume's faces), resizes the extended slab and
+    crops it back; any other resize of a split D raises."""
+    out_spatial = [int(o) for o in out_spatial]
+    crop = 0
+    if _S.spatial_mesh() is not None and x.ndim == 5 \
+            and out_spatial[0] != x.shape[1]:
+        if out_spatial[0] != 2 * x.shape[1] or align_corners:
+            raise NotImplementedError(
+                "resize_linear under a spatial mesh resizes D only by 2 "
+                "with align_corners=False")
+        x = _S.spatial_halo(x, 1, mode="edge")
+        out_spatial[0] = 2 * x.shape[1]
+        crop = 2
     for ax, out_sz in zip(range(1, x.ndim - 1), out_spatial):
         in_sz = x.shape[ax]
-        if in_sz != int(out_sz):
+        if in_sz != out_sz:
             x = _apply_axis_matrix(
-                x, _linear_matrix(in_sz, int(out_sz), bool(align_corners)),
-                ax)
+                x, _linear_matrix(in_sz, out_sz, bool(align_corners)), ax)
+    if crop:
+        x = x.narrow(1, crop, x.shape[1] - 2 * crop)
     return x
 
 
@@ -352,7 +490,14 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
 def resize_nearest(x: torch.Tensor,
                    out_spatial: Sequence[int]) -> torch.Tensor:
     """Nearest resize of channels-last `x`, torch `F.interpolate(mode=
-    'nearest')` semantics, as one gather per resized axis."""
+    'nearest')` semantics, as one gather per resized axis.  Under a
+    spatial mesh D is kept or doubled (each output plane then comes from
+    the slab's own plane); other resizes of D raise."""
+    if _S.spatial_mesh() is not None and x.ndim == 5 \
+            and int(out_spatial[0]) not in (x.shape[1], 2 * x.shape[1]):
+        raise NotImplementedError(
+            f"resize_nearest under a spatial mesh keeps or doubles D; got "
+            f"the local D {x.shape[1]} to {out_spatial[0]}")
     for ax, out_sz in zip(range(1, x.ndim - 1), out_spatial):
         in_sz = x.shape[ax]
         if in_sz != int(out_sz):

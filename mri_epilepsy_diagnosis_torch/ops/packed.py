@@ -24,10 +24,19 @@ that tail (kernel B2) is the epilogue of the aligned->shifted B1 launch
 
 Fine conv weights arrive in torch layout `(Co, Ci, 3, 3, 3)`; packed
 weights are `(2, 2, 2, 8Ci, 8Co)`, as in JAX.
+
+Under a spatial mesh (`parallel.use_mesh`) each rank holds a D slab of
+cells.  An aligned slab of L cells has a shifted form of L + 1 cells: its
+last cell straddles the next rank's slab and is held by both, whole.  So
+an aligned->shifted conv takes one cell from each neighbour
+(`halo_exchange`), launches B1 as it is and crops the two outer cells;
+a shifted->aligned conv needs no halo.  The shifted pad voxels lie only
+at the volume's faces, so the D pad mask follows the rank's place
+(`shifted_pad_mask_tensors`); the trilinear upsample takes an edge-mode
+halo cell.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Optional
 
@@ -35,8 +44,10 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from ..parallel import sharding as _S
 from . import cuda_kernels as K
 from . import functional as F
+from .functional import _exact_f32_convs
 
 # ---------------------------------------------------------------------------
 # packing / unpacking
@@ -382,8 +393,12 @@ def conv3_packed_as(xp_aligned: torch.Tensor, wp: torch.Tensor,
     xp_aligned: (N, S/2, ..., 8Ci); wp from `pack_weights2_as`.  Returns
     the shifted packed output (N, S/2+1, ..., 8Co), whose pad voxels hold
     the conv's zero-padded extrapolation (bias alone).  Differentiable
-    (`Conv3PackedAs`)."""
-    return Conv3PackedAs.apply(xp_aligned, wp, bias)
+    (`Conv3PackedAs`).  Under a spatial mesh: one halo cell from each
+    neighbour, the same launch, the outer cells cropped."""
+    if _S.spatial_mesh() is None:
+        return Conv3PackedAs.apply(xp_aligned, wp, bias)
+    y = Conv3PackedAs.apply(_S.spatial_halo(xp_aligned, 1), wp, bias)
+    return y.narrow(1, 1, y.shape[1] - 2)
 
 
 def conv3_packed_as_bn_act(xp_aligned: torch.Tensor, wp: torch.Tensor,
@@ -394,11 +409,28 @@ def conv3_packed_as_bn_act(xp_aligned: torch.Tensor, wp: torch.Tensor,
     """`bn_act_zero_pads(conv3_packed_as(xp_aligned, wp) + addend, scale,
     shift, alpha)` as one launch of B1 with B2 as its epilogue, the sum and
     the tail in float32 and one rounding.  addend: None or a shifted
-    (N, S/2+1, ..., 8Co) partial sum in the input's dtype."""
+    (N, S/2+1, ..., 8Co) partial sum in the input's dtype.  Under a
+    spatial mesh the launch runs on the haloed slab (the addend padded to
+    match), the outer cells are cropped and the D pad mask is applied
+    where the rank holds a face of the volume."""
     wp = wp.to(xp_aligned.dtype).contiguous()
-    return K.conv2_packed_as_bn_act(
+    mesh = _S.spatial_mesh()
+    if mesh is not None:
+        xp_aligned = _S.spatial_halo(xp_aligned, 1)
+        if addend is not None:
+            addend = TF.pad(addend, (0, 0, 0, 0, 0, 0, 1, 1))
+    y = K.conv2_packed_as_bn_act(
         xp_aligned.contiguous(), wp, scale, shift, alpha,
         addend=None if addend is None else addend.contiguous())
+    if mesh is None:
+        return y
+    y = y.narrow(1, 1, y.shape[1] - 2)
+    first, last = _S.spatial_edges(mesh)
+    if first or last:
+        md = _device_pad_masks(tuple(y.shape[1:4]), y.shape[-1], y.device,
+                               (first, last))[0]
+        y = y * md[:, None, None, :].to(y.dtype)
+    return y
 
 
 def conv1_packed_blockdiag(xp: torch.Tensor, w: torch.Tensor,
@@ -445,8 +477,12 @@ def batch_norm_packed(xp, mean, var, gamma, beta, eps: float = 1e-5):
 def maxpool2_packed(xp: torch.Tensor) -> torch.Tensor:
     """Fine 2x2x2/stride-2 maxpool, packed -> packed at the pooled scale:
     (N, S/2, ..., 8C) -> (N, S/4, ..., 8C).  The fine pooling windows are
-    the packed sub-positions, so this is a sub-axis max + repack."""
+    the packed sub-positions, so this is a sub-axis max + repack.  Under
+    a spatial mesh the slab's cells must be even."""
     n, d, h, w, c8 = xp.shape
+    if _S.spatial_mesh() is not None and d % 2:
+        raise ValueError(f"maxpool2_packed under a spatial mesh needs an "
+                         f"even number of D cells per rank, got {d}")
     pooled = xp.reshape(n, d, h, w, 8, c8 // 8).amax(dim=4)
     return pack2(pooled)
 
@@ -471,7 +507,28 @@ def upsample2_packed(xp: torch.Tensor) -> torch.Tensor:
     """Fine trilinear 2x upsample (align_corners=False), packed -> packed:
     cells of the coarse grid -> cells of the doubled grid.  Per axis: move
     that axis's sub bit next to its cell axis (the fine axis), apply the
-    fine interpolation matrix, re-fold the sub bit."""
+    fine interpolation matrix, re-fold the sub bit.
+
+    Under a spatial mesh the slab takes one halo cell from each neighbour;
+    at a face of the volume the halo cell repeats the boundary fine plane
+    in both subs (the clamp), and after the upsample the two outer cells
+    on each side are cropped."""
+    if _S.spatial_mesh() is None:
+        return _upsample2_packed(xp)
+    first, last = _S.spatial_edges()
+    xh = _S.spatial_halo(xp, 1)
+    n_d = xh.shape[1]
+    parts = [xh.narrow(1, 0, 1), xh.narrow(1, 1, n_d - 2),
+             xh.narrow(1, n_d - 1, 1)]
+    if first:
+        parts[0] = _broadcast_sub_plane(xh.narrow(1, 1, 1), 0, 0)
+    if last:
+        parts[2] = _broadcast_sub_plane(xh.narrow(1, n_d - 2, 1), 0, 1)
+    y = _upsample2_packed(torch.cat(parts, dim=1))
+    return y.narrow(1, 2, y.shape[1] - 4)
+
+
+def _upsample2_packed(xp: torch.Tensor) -> torch.Tensor:
     n = xp.shape[0]
     c8 = xp.shape[-1]
     y = xp.reshape(n, *xp.shape[1:4], 2, 2, 2, c8 // 8)
@@ -519,27 +576,37 @@ def _shifted_pad_masks(c8: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _shifted_pad_axis_mask(axis: int, cells: int, c8: int) -> np.ndarray:
+def _shifted_pad_axis_mask(axis: int, cells: int, c8: int, first: bool = True,
+                           last: bool = True) -> np.ndarray:
     """(cells, c8) multiplier: 1 everywhere except the pad sub-positions of
-    the first/last cell along `axis`."""
+    the first cell (if `first`: the tensor starts at the volume's face)
+    and of the last cell (if `last`) along `axis`."""
     lo, hi = _shifted_pad_masks(c8)[axis]
     m = np.ones((cells, c8), np.float32)
-    m[0] = lo
-    m[-1] = hi
+    if first:
+        m[0] = lo
+    if last:
+        m[-1] = hi
     return m
 
 
 @functools.lru_cache(maxsize=None)
-def _device_pad_masks(cells: tuple, c8: int, device: torch.device):
-    return tuple(_device_constant(_shifted_pad_axis_mask(a, cells[a], c8),
-                                  device=device) for a in range(3))
+def _device_pad_masks(cells: tuple, c8: int, device: torch.device,
+                      d_faces: tuple = (True, True)):
+    return tuple(_device_constant(_shifted_pad_axis_mask(
+        a, cells[a], c8, *(d_faces if a == 0 else (True, True))),
+        device=device) for a in range(3))
 
 
 def shifted_pad_mask_tensors(xs: torch.Tensor):
     """The three float32 (cells, C8) pad-mask planes of shifted tensor xs,
     on xs's device (made once per shape and device: a host-to-device copy
-    per call would stall the host behind the device's queue)."""
-    return _device_pad_masks(tuple(xs.shape[1:4]), xs.shape[-1], xs.device)
+    per call would stall the host behind the device's queue).  Under a
+    spatial mesh the D plane masks only the faces of the volume that this
+    rank's slab holds: the slab faces between ranks are real voxels."""
+    faces = _S.spatial_edges(_S.spatial_mesh())
+    return _device_pad_masks(tuple(xs.shape[1:4]), xs.shape[-1], xs.device,
+                             faces)
 
 
 def zero_shifted_pads(xs: torch.Tensor) -> torch.Tensor:
@@ -641,22 +708,6 @@ def _composed_conv_weight(wk: torch.Tensor) -> torch.Tensor:
     """(5, 5, 5, 8Ci, 8Co) composed kernel -> the flipped (8Ci, 8Co, 5, 5,
     5) weight of the transposed convolution that computes it."""
     return wk.permute(3, 4, 0, 1, 2).flip(2, 3, 4)
-
-
-@contextlib.contextmanager
-def _exact_f32_convs(dtype: torch.dtype):
-    """cuDNN convolutions without TF32 for float32 operands (torch's
-    default lets cuDNN round them to TF32), as the port's other float32
-    paths are held to float32 references."""
-    if dtype != torch.float32:
-        yield
-        return
-    with torch.backends.cudnn.flags(
-            enabled=torch.backends.cudnn.enabled,
-            benchmark=torch.backends.cudnn.benchmark,
-            deterministic=torch.backends.cudnn.deterministic,
-            allow_tf32=False):
-        yield
 
 
 def upconv_packed(x_aligned: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:

@@ -42,6 +42,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..data.pipeline import DataLoader, Subset
 from .checkpoint import load_checkpoint, save_checkpoint
+from ..parallel import sharding as _S
 from .optim import ReduceLROnPlateau, torch_adam
 from .seg import _device_batches, _not_ported
 from .state import TrainState
@@ -52,23 +53,28 @@ def cross_entropy(outputs: torch.Tensor, targets: torch.Tensor,
     """torch `nn.CrossEntropyLoss` (mean, optional class weights: the sum
     of w[y] * nll over the sum of w[y]), taken in float32.  The weights
     (a list, an array) enter as scalars: a tensor copied from the host
-    would make the host wait for the card."""
+    would make the host wait for the card.  Under a mesh, the global
+    batch's loss on every rank (both sums all-reduced over ``data``)."""
     logp = torch.log_softmax(outputs.float(), dim=-1)
     targets = targets.long()
     nll = -logp.gather(-1, targets[:, None])[:, 0]
     if weight is None:
-        return nll.mean()
+        return _S.global_mean(nll)
     w = torch.zeros_like(nll)
     for c, wc in enumerate(weight):
         w = torch.where(targets == c, float(wc), w)
-    return (w * nll).sum() / w.sum()
+    return (_S.all_reduce((w * nll).sum(), ("data",))
+            / _S.all_reduce(w.sum(), ("data",)))
 
 
 def _class_step(state: TrainState, x, y, rng, train: bool):
     """One train (forward, backward, optimizer step; BatchNorm on batch
     statistics) or eval step.  `rng`: the torch.Generator of the model's
     Dropout, or None.  Returns (state, loss, softmax probabilities), both
-    detached."""
+    detached.  Under a mesh (`parallel.use_mesh`) the batch is this
+    rank's rows: BatchNorm and the loss are the global batch's, the
+    gradients are summed over the ranks, the probabilities are the rank's
+    rows."""
     model = state.model
     model.train(train)
     with torch.set_grad_enabled(train):
@@ -76,7 +82,8 @@ def _class_step(state: TrainState, x, y, rng, train: bool):
         loss = cross_entropy(outputs, y)
     if train:
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        _S.backward(loss)
+        _S.sync_gradients(model.parameters())
         state.optimizer.step()
         state.step += 1
     return (state, loss.detach(),

@@ -25,6 +25,11 @@ Dropout draws from the `torch.Generator` passed as `rng` (JAX draws other
 bits from its keys; ROADMAP §C).  `input_dtype=torch.bfloat16` trains in
 mixed precision: bf16 activations, float32 master weights and Adam
 moments.
+
+`disc_step` and `enc_clf_step` run data-parallel under
+`parallel.use_mesh`: train-mode BatchNorm (BatchNorm1d too) and the
+losses are the global batch's, Dropout masks are drawn at the global
+shape, and each optimizer's gradients are summed over the ranks.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import torch
 
 from ..data.pipeline import DevicePrefetcher
 from ..metrics.classification import accuracy_score, roc_auc_score
+from ..parallel import sharding as _S
 from .classification import cross_entropy
 from .seg import _not_ported
 from .state import TrainState
@@ -49,7 +55,7 @@ def adv_loss(domains: torch.Tensor, pred_logits: torch.Tensor,
     in float32."""
     onehot = torch.nn.functional.one_hot(domains.long(), n_domains)
     logp = torch.log_softmax(pred_logits.float(), dim=-1)
-    return -torch.mean((1.0 - onehot) * logp)
+    return -_S.global_mean((1.0 - onehot) * logp)
 
 
 def fader_main_loss(clf_logits, y, disc_logits, domains, lambda_t,
@@ -85,11 +91,13 @@ def _frozen(model: torch.nn.Module):
 
 def _step(states, loss: torch.Tensor):
     """Backward of `loss` into the states' models, one optimizer step each;
-    their gradients are None before and after."""
+    their gradients are None before and after.  Under a mesh the loss is
+    the global batch's and the gradients are summed over the ranks."""
     for st in states:
         st.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    _S.backward(loss)
     for st in states:
+        _S.sync_gradients(st.model.parameters())
         st.optimizer.step()
         st.optimizer.zero_grad(set_to_none=True)
         st.step += 1

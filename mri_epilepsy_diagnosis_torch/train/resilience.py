@@ -14,6 +14,9 @@ epoch loop `train/seg.py::_train_loop`:
   failures abort.
 - **graceful preemption**: SIGTERM/SIGINT latch a stop flag; the loop
   checkpoints and returns at the next epoch boundary.
+
+On a process mesh (`sharding=`) the rollback and the stop are agreed by
+all ranks (an all-reduced flag), so no rank rolls back or stops alone.
 """
 from __future__ import annotations
 
@@ -113,8 +116,11 @@ def train_segmentation_resilient(
     """`train_segmentation` in elastic mode (see the module docstring).
 
     Returns (state, train losses, val losses, completed_epoch); rerun the
-    same call to continue after a kill.  `sharding` and `dashboard` are
-    not ported yet and must be None (ROADMAP A11, A12)."""
+    same call to continue after a kill.  `sharding` runs the loop on a
+    process mesh: rank 0 writes the checkpoints, every rank resumes from
+    them, and a rollback or a preemption stop happens on all ranks or on
+    none (`train/seg.py`).  `dashboard` is not ported yet and must be None
+    (ROADMAP A12)."""
     from .seg import _train_loop  # seg imports this module
 
     return _train_loop(

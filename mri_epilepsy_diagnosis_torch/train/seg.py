@@ -24,9 +24,16 @@ statistics.
 
 `manager` (a `train.resilience.CheckpointManager`) switches the loop to
 its elastic mode; `validate_dsc_asd` and `sweep_checkpoints` score
-checkpoints by per-subject DSC, average surface distance and IoU.  The
-JAX package's `sharding` and `dashboard` arguments are accepted and raise
-`NotImplementedError` unless None (ROADMAP A11, A12).
+checkpoints by per-subject DSC, average surface distance and IoU.
+
+`sharding` (a `core.mesh.Sharding`: `parallel.volume_sharding(mesh)` or
+`core.data_sharding(mesh)`) runs the loop on a process mesh: each rank
+stages its shard of every global batch, the steps run under
+`parallel.use_mesh`, so BatchNorm statistics and dice sums are the global
+batch's and the gradients are summed over the ranks; every rank logs the
+same global loss and keeps the same state; rank 0 writes the checkpoints.
+The JAX package's `dashboard` argument is accepted and raises
+`NotImplementedError` unless None (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -42,11 +49,13 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.mesh import Sharding
 from ..data.pipeline import DevicePrefetcher
 from ..metrics import (compute_average_surface_distance,
                        compute_dice_coefficient, compute_surface_distances,
                        get_dice_loss, get_iou_score)
 from ..models.unet import UNet3D
+from ..parallel import sharding as _S
 from ..models.unet_packed import (fold_bn_inference, packed_dice_loss,
                                   packed_unet_apply_v2, packed_unet_mask_v2,
                                   packed_unet_train_apply)
@@ -67,7 +76,8 @@ def _dice_loss_from_logits(logits, targets):
     """softmax over the channel (last) axis -> soft dice -> mean."""
     probs = torch.softmax(logits, dim=-1)
     onehot = torch.cat([1.0 - targets, targets], dim=-1)
-    return get_dice_loss(probs, onehot, spatial_dimensions=(1, 2, 3)).mean()
+    return _S.global_mean(get_dice_loss(probs, onehot,
+                                        spatial_dimensions=(1, 2, 3)))
 
 
 def _apply_gradients(state: TrainState, loss: torch.Tensor) -> TrainState:
@@ -75,13 +85,18 @@ def _apply_gradients(state: TrainState, loss: torch.Tensor) -> TrainState:
     loss does not reach (BraTSUnet's `conv2` / `bn2`) gets a zero
     gradient first: JAX's gradient of it is zero, so optax's AdamW still
     decays it and counts the step, where torch's skips a parameter whose
-    `.grad` is None."""
+    `.grad` is None.  Under a mesh the loss is the global one on every
+    rank: each backpropagates its share and the gradients are summed over
+    the ranks before the step (`parallel.sharding.backward`,
+    `sync_gradients`)."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    for group in state.optimizer.param_groups:
-        for p in group["params"]:
-            if p.requires_grad and p.grad is None:
-                p.grad = torch.zeros_like(p)
+    _S.backward(loss)
+    params = [p for group in state.optimizer.param_groups
+              for p in group["params"]]
+    for p in params:
+        if p.requires_grad and p.grad is None:
+            p.grad = torch.zeros_like(p)
+    _S.sync_gradients(params)
     state.optimizer.step()
     state.step += 1
     return state
@@ -191,24 +206,42 @@ def packed_seg_eval_step(state: TrainState, inputs, raw_labels):
     return _dice_loss_from_logits(logits, binarize_segmentation(raw_labels))
 
 
-def _device_batches(loader, prefetch: int, device: torch.device):
+def _device_batches(loader, prefetch: int, device: torch.device,
+                    sharding=None):
     """(inputs, labels) of each batch of `loader` as tensors on `device`,
     staged `prefetch` batches ahead (`DevicePrefetcher`), or copied one at
-    a time with `prefetch=0`."""
+    a time with `prefetch=0`; with `sharding`, this rank's shard of each
+    global batch."""
     pairs = (tuple(batch[:2]) for batch in loader)
     if prefetch <= 0:
         for batch in pairs:
-            yield tuple(torch.as_tensor(b).to(device) for b in batch)
+            if sharding is not None:
+                yield tuple(_S.shard_batch(batch, sharding.mesh, sharding))
+            else:
+                yield tuple(torch.as_tensor(b).to(device) for b in batch)
         return
-    staged = DevicePrefetcher(pairs, size=prefetch, device=device)
+    staged = DevicePrefetcher(pairs, size=prefetch, device=device,
+                              sharding=sharding)
     while (batch := staged.get()) is not None:
         yield batch
+
+
+def _mesh_of(sharding):
+    """The mesh of a `sharding` argument (None for None); anything but a
+    `core.mesh.Sharding` raises."""
+    if sharding is None:
+        return None
+    if not isinstance(sharding, Sharding):
+        raise TypeError("`sharding` must be a core.mesh.Sharding (for "
+                        "example parallel.volume_sharding(mesh)), got "
+                        f"{type(sharding).__name__}")
+    return sharding.mesh
 
 
 def _not_ported(**arguments) -> None:
     """Raise for a JAX parameter that the port accepts, so that positional
     calls bind as in JAX, but has not ported yet."""
-    roadmap = {"sharding": "A11", "dashboard": "A12"}
+    roadmap = {"dashboard": "A12"}
     for name, value in arguments.items():
         if value is not None:
             raise NotImplementedError(
@@ -226,9 +259,9 @@ def run_epoch(epoch_idx: int, action: Action, loader, state: TrainState,
     `packed=True` trains through the packed layout; `packed="remat"` also
     recomputes each two-conv block in the backward.  `input_dtype=
     torch.bfloat16` trains in mixed precision (see the module docstring).
-    `scheduler` is stepped by the epoch loop, not here; `sharding` must be
-    None."""
-    _not_ported(sharding=sharding)
+    `scheduler` is stepped by the epoch loop, not here.  `sharding` runs
+    the epoch on its mesh (see the module docstring); the losses are the
+    global batches'."""
     del epoch_idx, scheduler  # the signature of the JAX package's loop
     train_step = (functools.partial(packed_seg_train_step,
                                     remat=(packed == "remat"))
@@ -236,13 +269,16 @@ def run_epoch(epoch_idx: int, action: Action, loader, state: TrainState,
     eval_step = packed_seg_eval_step if packed else seg_eval_step
     is_training = action == Action.TRAIN
     epoch_losses = []
-    for inputs, labels in _device_batches(loader, prefetch, state.device):
+    mesh = _mesh_of(sharding)
+    for inputs, labels in _device_batches(loader, prefetch, state.device,
+                                          sharding):
         if input_dtype is not None:
             inputs = inputs.to(input_dtype)
-        if is_training:
-            state, loss = train_step(state, inputs, labels)
-        else:
-            loss = eval_step(state, inputs, labels)
+        with _S.use_mesh(mesh):
+            if is_training:
+                state, loss = train_step(state, inputs, labels)
+            else:
+                loss = eval_step(state, inputs, labels)
         loss_val = float(loss)
         epoch_losses.append(loss_val)
         if experiment:
@@ -267,7 +303,10 @@ def train_segmentation(num_epochs: int, training_loader, validation_loader,
     included), atomic rolling per-epoch checkpoints (in place of the
     `save_epoch` cadence), rollback on a non-finite train or validation
     epoch (an error past `max_failures` in a row), and a checkpointed stop
-    at the epoch boundary on SIGTERM/SIGINT.  `sharding` and `dashboard`
+    at the epoch boundary on SIGTERM/SIGINT.  `sharding` runs the loop on
+    its mesh (see the module docstring): rank 0 writes the checkpoints
+    while the others wait, every rank resumes from them, and rollback and
+    the preemption stop are decided by all ranks together.  `dashboard`
     must be None."""
     state, tr, va, _ = _train_loop(
         num_epochs, training_loader, validation_loader, state, scheduler,
@@ -283,11 +322,12 @@ def _train_loop(num_epochs, training_loader, validation_loader, state,
     """The one epoch loop behind `train_segmentation` and
     `train_segmentation_resilient`; returns (state, train_losses,
     val_losses, last_completed_epoch)."""
-    _not_ported(sharding=sharding, dashboard=dashboard)
+    _not_ported(dashboard=dashboard)
     start_time = time.time()
     epoch_train_loss, epoch_val_loss = [], []
     start_epoch, failures = 0, 0
-    kw = dict(packed=packed, input_dtype=input_dtype)
+    kw = dict(packed=packed, input_dtype=input_dtype, sharding=sharding)
+    mesh = _mesh_of(sharding)
 
     def _restore_with_scheduler():
         st, ep = manager.restore_latest(state)
@@ -298,13 +338,18 @@ def _train_loop(num_epochs, training_loader, validation_loader, state,
         return st, ep
 
     def _save(st, epoch):
+        # one writer; the other ranks wait until the file is in place
         if manager is not None:
-            extra = ({} if scheduler is None
-                     else {"scheduler": scheduler.state_dict()})
-            manager.save(st, epoch, **extra)
+            if _S.is_writer(mesh):
+                extra = ({} if scheduler is None
+                         else {"scheduler": scheduler.state_dict()})
+                manager.save(st, epoch, **extra)
+            _S.barrier(mesh)
         elif epoch > 0 and epoch % save_epoch == 0:
-            save_checkpoint(
-                f"{weights_dir}/{weights_stem}_epoch_{epoch}.ckpt", st)
+            if _S.is_writer(mesh):
+                save_checkpoint(
+                    f"{weights_dir}/{weights_stem}_epoch_{epoch}.ckpt", st)
+            _S.barrier(mesh)
 
     if manager is not None:
         state, start_epoch = _restore_with_scheduler()
@@ -315,7 +360,9 @@ def _train_loop(num_epochs, training_loader, validation_loader, state,
                 else contextlib.nullcontext())
     with guard_cm as guard:
         def stop():
-            return manager is not None and guard.stop_requested
+            # every rank stops at the same epoch boundary, or none does
+            return manager is not None and _S.any_rank(guard.stop_requested,
+                                                       mesh)
 
         if start_epoch == 0:  # the reference's initial VALIDATE epoch
             state, _ = run_epoch(0, Action.VALIDATE, validation_loader, state,
@@ -323,15 +370,17 @@ def _train_loop(num_epochs, training_loader, validation_loader, state,
             _save(state, 0)
 
         epoch_idx = start_epoch
-        while epoch_idx < num_epochs and not stop():
+        stopping = False
+        while epoch_idx < num_epochs and not (stopping := stop()):
             epoch_idx += 1
             state, tr = run_epoch(epoch_idx, Action.TRAIN, training_loader,
                                   state, scheduler, experiment, **kw)
             state, va = run_epoch(epoch_idx, Action.VALIDATE,
                                   validation_loader, state, scheduler,
                                   experiment, **kw)
-            if manager is not None and not (np.all(np.isfinite(tr))
-                                            and np.all(np.isfinite(va))):
+            if manager is not None and not _S.all_agree(
+                    bool(np.all(np.isfinite(tr)) and np.all(np.isfinite(va))),
+                    mesh):
                 failures += 1
                 if failures > max_failures:
                     raise RuntimeError(f"{failures} non-finite epochs; "
@@ -363,7 +412,7 @@ def _train_loop(num_epochs, training_loader, validation_loader, state,
             if experiment:
                 experiment.log_epoch_end(epoch_idx)
             _save(state, epoch_idx)
-        if manager is not None and stop() and verbose:
+        if manager is not None and stopping and verbose:
             print(f"preemption requested: checkpointed at epoch "
                   f"{epoch_idx}, exiting cleanly")
     return state, epoch_train_loss, epoch_val_loss, epoch_idx

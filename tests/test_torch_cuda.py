@@ -1547,3 +1547,119 @@ def test_packed_voxresnet_bf16_step_on_the_card_matches_cpu(cuda_device):
     card = dist((lc, pc, gc), (l16, p16, g16))
     for got, own in zip(card, bf16_own):
         assert got <= 2 * own + 1e-6, (card, bf16_own)
+
+
+# ---------------------------------------------------------------------------
+# distribution on the card: an NCCL group of one rank (one card: NCCL
+# refuses two ranks on one device; ranks > 1 are tested on the CPU with
+# gloo), and fault C3's gate
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A (data, spatial) = (1, 1) mesh over an NCCL group of world size 1,
+    torn down after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs on the card")
+    import socket
+
+    import torch.distributed as dist
+
+    from mri_epilepsy_diagnosis_torch.core.mesh import (
+        create_mesh, initialize_distributed)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert initialize_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield create_mesh(("data", "spatial"), (1, 1))
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_packed_step_matches_the_plain_step(nccl_mesh,
+                                                           no_tf32):
+    """The packed step under the NCCL mesh (BatchNorm and dice sums and
+    the gradients all-reduced) against the same step without it, f32 at
+    32^3 batch 2: loss 1e-5 relative, each gradient 1e-4 x its max plus
+    1e-6 x the largest, the same B1 launches (23 per step)."""
+    import copy
+
+    from mri_epilepsy_diagnosis_torch.parallel import use_mesh
+    from mri_epilepsy_diagnosis_torch.train import seg as TS
+    from mri_epilepsy_diagnosis_torch.train.optim import torch_adamw
+    from mri_epilepsy_diagnosis_torch.train.state import TrainState
+
+    model, x, labels = _seg_case(nccl_mesh.device, 32, 2, 5)
+    out = {}
+    for name, mesh in (("plain", None), ("mesh", nccl_mesh)):
+        m = copy.deepcopy(model)
+        state = TrainState(m, torch_adamw()(m.parameters()))
+        K.reset_launch_counts()
+        with use_mesh(mesh):
+            _, loss = TS.packed_seg_train_step(state, x, labels)
+        torch.cuda.synchronize()
+        out[name] = (loss.item(), {n: p.grad for n, p in
+                                   m.named_parameters()},
+                     K.conv2_packed.launches)
+    (lp, gp, cp), (lm, gm, cm) = out["plain"], out["mesh"]
+    assert cp == cm == 23
+    assert abs(lm - lp) <= 1e-5 * abs(lp)
+    largest = max(g.abs().max().item() for g in gp.values())
+    for n, g in gp.items():
+        err = (gm[n] - g).abs().max().item()
+        assert err <= 1e-4 * g.abs().max().item() + 1e-6 * largest, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["zeros", "edge"])
+def test_halo_exchange_world_one_on_cuda(nccl_mesh, mode):
+    """At one spatial rank both halos are the volume's faces, on CUDA
+    tensors: zero planes or the boundary plane, gradients folded back."""
+    from mri_epilepsy_diagnosis_torch.parallel import halo_exchange
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(2, 5, 3, 4, 8, generator=g,
+                    device="cuda").requires_grad_(True)
+    h = halo_exchange(x, nccl_mesh.group("spatial"), 2, dim=1, mode=mode)
+    idx = torch.arange(-2, 7, device="cuda")
+    ref = (x[:, idx.clamp(0, 4)] if mode == "edge" else
+           torch.nn.functional.pad(x, (0,) * 6 + (2, 2)))
+    assert h.is_cuda and torch.equal(h, ref)
+    cot = torch.randn(h.shape, generator=g, device="cuda")
+    (gh,) = torch.autograd.grad(h, x, cot)
+    (gr,) = torch.autograd.grad(ref, x, cot)
+    torch.testing.assert_close(gh, gr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["unet3d", "residual_unet3d"])
+def test_c3_f32_forwards_with_tf32_allowed_match_cpu(cuda_device, name):
+    """Fault C3: with cuDNN allowed TF32 (torch's default; no `no_tf32`
+    here), the float32 fine forwards of `ops/functional.py` run their
+    convs in full float32 on the card: logits within 1e-4 x max|ref| of
+    the CPU's."""
+    import copy
+
+    from mri_epilepsy_diagnosis_torch import models
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = (models.UNet3D(out_channels_first_layer=8, device="cpu")
+                     if name == "unet3d" else models.ResidualUNet3D(
+                         n_classes=2, n_channels=(1, 8, 16, 32, 64),
+                         device="cpu")).eval()
+        x = torch.randn(1, 32, 32, 32, 1,
+                        generator=torch.Generator().manual_seed(1))
+        with torch.inference_mode():
+            ref = model(x)
+            got = copy.deepcopy(model).to(cuda_device)(x.to(cuda_device))
+        err = (got.cpu() - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item(), err
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved

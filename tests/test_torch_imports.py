@@ -39,7 +39,8 @@ def test_port_sources_found():
             "detection.py", "patch_model.py", "unet_packed_q.py",
             "bayes.py", "brats_unet.py", "modified_unet.py",
             "residual_unet.py", "voxresnet_packed.py",
-            "fader_packed.py"} <= names
+            "fader_packed.py", "mesh.py", "config.py", "rngs.py",
+            "dtypes.py", "sharding.py", "multihost_demo.py"} <= names
     port = ROOT / "mri_epilepsy_diagnosis_torch"
     for path in ("native/__init__.py", "train/fader.py",
                  "train/classification.py", "metrics/classification.py",
@@ -48,7 +49,10 @@ def test_port_sources_found():
                  "models/patch_model.py", "models/unet_packed_q.py",
                  "models/bayes.py", "models/brats_unet.py",
                  "models/modified_unet.py", "models/residual_unet.py",
-                 "models/voxresnet_packed.py", "models/fader_packed.py"):
+                 "models/voxresnet_packed.py", "models/fader_packed.py",
+                 "core/mesh.py", "core/config.py", "core/rngs.py",
+                 "core/dtypes.py", "parallel/__init__.py",
+                 "parallel/sharding.py", "parallel/multihost_demo.py"):
         assert port / path in SOURCES
 
 

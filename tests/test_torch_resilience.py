@@ -469,15 +469,18 @@ def test_positional_factory_call_binds_as_in_jax():
 
 @pytest.mark.parametrize("name", ["sharding", "dashboard"])
 def test_unported_arguments_raise_by_name(tmp_path, name):
+    """`dashboard` is not ported and raises by name; `sharding` is ported
+    and refuses, by name, anything but a `core.mesh.Sharding`."""
     state = _make_state()
-    with pytest.raises(NotImplementedError, match=name):
+    error = TypeError if name == "sharding" else NotImplementedError
+    with pytest.raises(error, match=name):
         TS.train_segmentation(1, _Loader(), _Loader(), state, None, "x",
                               weights_dir=str(tmp_path), verbose=False,
                               **{name: object()})
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(error, match=name):
         _train(1, _Loader(), state, TR.CheckpointManager(str(tmp_path)),
                **{name: object()})
     if name == "sharding":
-        with pytest.raises(NotImplementedError, match=name):
+        with pytest.raises(error, match=name):
             TS.run_epoch(0, TS.Action.VALIDATE, _Loader(), state,
                          sharding=object())
