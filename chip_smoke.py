@@ -259,6 +259,35 @@ Phases (each raises on failure, so the script exits nonzero):
    d. fault C3's gate: the fine UNet3D and ResidualUNet3D forwards in
       float32 with cuDNN allowed TF32 (torch's default) against the CPU,
       1e-4 x max|ref|.
+15. observability and the examples (`obs/`, `examples/torch_*.py`), each
+   example called in this process through its `main(argv)`:
+   a. one served bf16 batch of phase 4 inside `obs.profile_trace`: the
+      trace reader (`obs/trace_summary.py`) counts every port kernel's
+      launches as the same profiler's `key_averages()` does (B1 12, 5 of
+      them with B2 fused), device ms within 1%, and attributes copies to
+      the port's source lines; in phase 14's profiled mesh step it counts
+      39 all-reduces.  The profiler drops a kernel's record now and then:
+      a window whose trace holds a launch without its kernel is traced
+      again (here and in b and e);
+   b. `torch_train_segmentation.py` at phase 6's configuration (192^3,
+      batch 2, bf16, packed): every step's launch counts (B1 23), the
+      first step's in the trace (23, 22 on tensor cores, 11 dx), one
+      finite logged loss a step, a checkpoint; `obs.StepTimer` times the
+      steps;
+   c. `torch_infer_whole_brain.py` on phase 4's weights as a `.pth` and
+      its first volume as NIfTI (f32, packed): the mask against phase 4's
+      served bf16 mask (>= 0.99) and the fine f32 one (>= 0.999), phase
+      7c's launch counts;
+   d. `obs.analysis.collect_latents` with phase 4's fader encoder and
+      classifier over the 16 volumes at batch 8 (4 fused B3 a batch),
+      f32 latents against the CPU's (1e-4 x max); `pca_embed` and t-SNE's
+      objective on the card against the CPU; full exact t-SNE runs on the
+      card and the CPU (on the latents recorded, on a curve gated: KL 1%,
+      trustworthiness 0.01);
+   e. `torch_train_fader.py --synthetic --img-size 192 --bf16` for one
+      epoch: each alternation batch's counts (phase 9's: fused B3 17, dx
+      20, dw 21, recomputes 14), the first batch's in the trace, the
+      validation forward's counted apart.
 
 It prints one line per check, then `{"kernels": [...]}` (the kernels of
 the served path: B1 on tensor cores, B2 fused into B1 on either route,
@@ -1344,6 +1373,59 @@ def calibrate_fader(enc, clf, x_few, latents_fn):
                                    -d.mean() / d.std()]))
 
 
+# the kernels of the port by their profiler names
+PORT_KERNELS = ("conv2_packed_tc_kernel", "conv2_packed_kernel",
+                "bn_act_zero_pads_kernel", "conv_axis_kernel",
+                "axis_fwd_tc_kernel", "separable_conv3d_kernel",
+                "conv_axis_dx_kernel", "conv_axis_dw_partial_kernel",
+                "conv_axis_dw_finish_kernel", "axis_dx_tc_kernel",
+                "axis_dw_tc_kernel", "axis_dw_tc_finish_kernel",
+                "conv2_packed_s8_kernel", "conv2_packed_s8_tc_kernel",
+                "upconv_packed_s8_kernel")
+
+
+def absorb_profiler_startup():
+    """A first, tiny profiled op on the card in a session of its own, to
+    absorb the profiler's start-up before a measured window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def trace_window(trace_dir):
+    """`obs.profile_trace(trace_dir)` opened after a start-up session of its
+    own (`absorb_profiler_startup`), as `profile_batch` opens its window."""
+    from mri_epilepsy_diagnosis_torch.obs import profile_trace
+
+    absorb_profiler_startup()
+    with profile_trace(trace_dir) as prof:
+        yield prof
+
+
+def device_rows(prof):
+    """(kernel or copy name, device ms, calls) of a finished profiler's
+    `key_averages()`, largest first: device-side events only (an aten
+    op's row repeats the time of the kernels it launched)."""
+    import torch
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            rows.append((e.key, us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
 def profile_batch(fn, top: int = 12, host_ops: bool = True,
                   name_len: int = 90, groups=None):
     """torch.profiler over one served batch: device time by kernel name,
@@ -1363,38 +1445,16 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True,
 
     acts = ([ProfilerActivity.CPU] if host_ops else []) + [
         ProfilerActivity.CUDA]
-    with profile(activities=acts):
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
+    absorb_profiler_startup()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()            # the trace is read from here
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies): an aten op's row
-        # repeats the time of the kernels it launched
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us:
-            rows.append((e.key, us / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof)
     device_ms = sum(r[1] for r in rows)
-    ours = {k: sum(r[1] for r in rows if k in r[0])
-            for k in ("conv2_packed_tc_kernel", "conv2_packed_kernel",
-                      "bn_act_zero_pads_kernel", "conv_axis_kernel",
-                      "axis_fwd_tc_kernel",
-                      "separable_conv3d_kernel", "conv_axis_dx_kernel",
-                      "conv_axis_dw_partial_kernel",
-                      "conv_axis_dw_finish_kernel", "axis_dx_tc_kernel",
-                      "axis_dw_tc_kernel", "axis_dw_tc_finish_kernel",
-                      "conv2_packed_s8_kernel", "conv2_packed_s8_tc_kernel",
-                      "upconv_packed_s8_kernel")}
+    ours = {k: sum(r[1] for r in rows if k in r[0]) for k in PORT_KERNELS}
     # the epilogue instantiations carry `true>` in their template arguments
     fused_tc = sum(r[1] for r in rows if "conv2_packed_tc_kernel" in r[0]
                    and "true>" in r[0])
@@ -5062,15 +5122,17 @@ def _free_local_port() -> int:
         return s.getsockname()[1]
 
 
-def nccl_profile(fn):
-    """torch.profiler over one call of fn: the NCCL collectives the host
-    issued (the process group's `nccl:*` ranges, by name), the NCCL
-    kernels' count and device ms, and all device time."""
+def nccl_profile(fn, trace_dir):
+    """torch.profiler over one call of fn, through the port's
+    `obs.profile_trace` (its trace kept under `trace_dir` for phase 15a's
+    reader): the NCCL collectives the host issued (the process group's
+    `nccl:*` ranges, by name), the NCCL kernels' count and device ms, and
+    all device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from mri_epilepsy_diagnosis_torch.obs import profile_trace
+
+    with profile_trace(trace_dir) as prof:
         fn()
         torch.cuda.synchronize()
     rows, calls = [], {}
@@ -5114,7 +5176,7 @@ def _first_adamw_step_agrees(state, ref):
 
 
 def distribution_phase(K, UNet3D, gen, launch_counts, serving_inputs,
-                       znorm_batch):
+                       znorm_batch, mesh_trace_dir):
     """Phase 14 (see the comment above DIST_TIMED_STEPS)."""
     import copy
 
@@ -5189,7 +5251,7 @@ def distribution_phase(K, UNet3D, gen, launch_counts, serving_inputs,
             torch.cuda.synchronize()
             ms.setdefault(name, []).append(
                 (time.perf_counter() - t0) / DIST_TIMED_STEPS * 1e3)
-        prof = nccl_profile(lambda: step("mesh"))
+        prof = nccl_profile(lambda: step("mesh"), mesh_trace_dir)
         out["train_step"] = {
             "size": SIZE, "batch": TRAIN_BATCH, "dtype": "bf16",
             "loss_plain": losses["plain"], "loss_mesh": losses["mesh"],
@@ -5325,6 +5387,475 @@ def c3_phase(UNet3D, gen):
     if bad:
         raise AssertionError(f"14d: float32 forwards differ: {bad}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# 15. observability and the examples (obs/, examples/torch_*.py) on the card
+# ---------------------------------------------------------------------------
+
+# 15a: the trace reader (`obs/trace_summary.py`) against the profiler's
+# own `key_averages()` over the same window: launches per port kernel
+# equal, device ms within 1%; phase 14's mesh step all-reduces as counted
+OBS_DEVICE_MS_RTOL = 0.01
+MESH_ALL_REDUCES = 39          # 9 BatchNorms x 4, dice mean and cotangent, 1
+# the profiler drops a kernel's record now and then (runs on this card:
+# about one launch in a few thousand, in one window of four), which the
+# reader sees as a host launch without its kernel (`lost_launches`): such
+# a window is traced again, at most this many times in all
+OBS_TRACE_ATTEMPTS = 4
+# 15b: phase 6's training run through `examples/torch_train_segmentation.py`
+OBS_TRAIN_ARGS = ("--synthetic", "--packed", "--bf16", "--img-size",
+                  str(SIZE), "--ocfl", str(OCFL), "--batch-size",
+                  str(TRAIN_BATCH), "--epochs", "1", "--weights-stem",
+                  "obs")
+OBS_TRAIN_STEPS = 8 // TRAIN_BATCH    # the example's 8 synthetic volumes
+# 15d: `obs.analysis` on phase 4's fader encoder and classifier
+OBS_LATENT_BATCH = BATCH
+OBS_CPU_VOLUMES = 2
+OBS_LATENT_TOL = 1e-4          # f32 card vs CPU, x max|ref|
+OBS_PCA_TOL = 1e-6             # card vs CPU float64, x max|ref|, up to sign
+OBS_OBJECTIVE_RTOL = 1e-9      # t-SNE's P, KL and gradient, card vs CPU
+# sklearn requires a perplexity below the number of points: 16 latents
+OBS_TSNE_PERPLEXITY = 5.0
+# full exact t-SNE runs, card vs CPU, gated on a curve: on the latents a
+# run is chaotic (float64 rounding moves the KL it ends at by per cents)
+TSNE_KL_RTOL = 0.01
+TSNE_TRUST_TOL = 0.01
+
+
+def load_example(name):
+    """An `examples/torch_*.py` script as a module (the directory is no
+    package), to call its `main(argv)` in this process."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@contextlib.contextmanager
+def working_dir(path):
+    """Run the enclosed examples in `path` (made if missing): they write
+    `weights/` and `logs/` where they run."""
+    old = os.getcwd()
+    os.makedirs(path, exist_ok=True)
+    os.chdir(path)
+    try:
+        yield path
+    finally:
+        os.chdir(old)
+
+
+def _kind_counts(rollup, names):
+    """Launches by kernel name of the trace reader's rollup by kind, whose
+    kinds keep their namespaces (`mri::tc::conv2_packed_tc_kernel`)."""
+    return {k: sum(c for kind, (_, c) in rollup.items()
+                   if kind.rsplit("::", 1)[-1] == k) for k in names}
+
+
+def trace_reader_phase(serve_batch, trace_dir, mesh_trace_dir):
+    """15a: one served bf16 batch inside `obs.profile_trace`; the trace
+    reader against `device_rows` of the same profiler (as `profile_batch`
+    reads it), the copies it attributes, and the collectives of phase
+    14's profiled mesh step."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.obs import trace_summary as TSum
+
+    serve_batch()                                   # warm-up
+    lost = []
+    for attempt in range(OBS_TRACE_ATTEMPTS):
+        window = os.path.join(trace_dir, str(attempt))
+        with trace_window(window) as prof:
+            serve_batch()
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events = TSum.load_events(window)
+        if not TSum.lost_launches(events):
+            break
+        lost.append(len(TSum.lost_launches(events)))
+        log(f"15a: the profiler dropped {lost[-1]} kernel records; the "
+            "batch is traced again")
+    else:
+        raise AssertionError(f"15a: every window lost kernel records {lost}")
+    rows = device_rows(prof)
+    rollup, total_us = TSum.summarize(events)
+    names = TSum.top_ops(events, top=10 ** 6)
+    read_s = time.perf_counter() - t0
+    prof_counts = {k: sum(c for n, _, c in rows if k in n)
+                   for k in PORT_KERNELS}
+    trace_counts = _kind_counts(rollup, PORT_KERNELS)
+
+    def fused(table):
+        return sum(c for n, _, c in table if "conv2_packed" in n
+                   and "true>" in n)
+
+    prof_ms = sum(r[1] for r in rows)
+    b1 = (trace_counts["conv2_packed_tc_kernel"]
+          + trace_counts["conv2_packed_kernel"])
+    copies = TSum.copy_rows(events)
+    sources = sorted({r[3] for r in copies
+                      if r[3].startswith(TSum.PACKAGE)})
+    mesh = TSum.collective_rows(TSum.load_events(mesh_trace_dir))
+    mesh_kinds = {}
+    for b, kind, _, _ in mesh:
+        n, nb = mesh_kinds.get(kind, (0, 0))
+        mesh_kinds[kind] = (n + 1, nb + b)
+    out = {"launches_trace": {k: v for k, v in trace_counts.items() if v},
+           "launches_profiler": {k: v for k, v in prof_counts.items() if v},
+           "b1_launches": b1, "b2_fused_trace": fused(names),
+           "b2_fused_profiler": fused(rows),
+           "device_ms_trace": total_us / 1e3, "device_ms_profiler": prof_ms,
+           "device_events_trace": sum(c for _, c in rollup.values()),
+           "device_events_profiler": sum(r[2] for r in rows),
+           "trace_read_s": read_s, "windows_with_lost_records": lost,
+           "copy_ops": len(copies),
+           "copy_bytes": sum(r[0] for r in copies),
+           "copy_sources": sources[:12], "copy_top": copies[:5],
+           "mesh_collectives": {k: {"count": n, "bytes": b}
+                                for k, (n, b) in mesh_kinds.items()}}
+    log(f"15a trace reader: {json.dumps(out)}")
+    if trace_counts != prof_counts:
+        raise AssertionError(f"15a: the trace reader counts {trace_counts}, "
+                             f"the profiler {prof_counts}")
+    if (b1, out["b2_fused_trace"]) != (len(B1_SITES), len(B2_SITES)) or (
+            out["b2_fused_profiler"] != len(B2_SITES)):
+        raise AssertionError(f"15a: B1 {b1} and B2 fused "
+                             f"{out['b2_fused_trace']} a batch")
+    if abs(total_us / 1e3 - prof_ms) > OBS_DEVICE_MS_RTOL * prof_ms:
+        raise AssertionError(f"15a: device ms {total_us / 1e3} in the trace "
+                             f"against {prof_ms} in the profiler")
+    if not sources:
+        raise AssertionError("15a: no copy attributed to the port's source")
+    if mesh_kinds.get("all_reduce", (0, 0))[0] != MESH_ALL_REDUCES:
+        raise AssertionError(f"15a: {mesh_kinds} collectives in the mesh "
+                             f"step, not {MESH_ALL_REDUCES} all-reduces")
+    return out
+
+
+@contextlib.contextmanager
+def instrumented(module, name, before, after):
+    """Replace `module.name` by a wrapper that calls `before(*args)` and
+    `after(result)` around the original."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        before(*args)
+        return after(orig(*args, **kw))
+
+    setattr(module, name, wrapper)
+    try:
+        yield orig
+    finally:
+        setattr(module, name, orig)
+
+
+def example_training_phase(K, launch_counts, workdir):
+    """15b: `examples/torch_train_segmentation.py` at phase 6's
+    configuration.  Each packed train step it runs is timed by
+    `obs.StepTimer` and counted by the launch counters; the first runs
+    inside `obs.profile_trace`, whose trace the reader counts (the next
+    ones too while the profiler has dropped a kernel record)."""
+    from mri_epilepsy_diagnosis_torch.obs import StepTimer
+    from mri_epilepsy_diagnosis_torch.obs import trace_summary as TSum
+    from mri_epilepsy_diagnosis_torch.train import seg as TS
+
+    example = load_example("torch_train_segmentation")
+    timer, steps, traced = StepTimer(), [], {}
+    window = contextlib.ExitStack()
+    complete = []                   # the events of a complete window
+
+    def trace_dir(i):
+        return os.path.join(workdir, f"trace_step{i}")
+
+    def before(*args):
+        if not complete and len(traced) < OBS_TRACE_ATTEMPTS:
+            traced[len(steps)] = None
+            window.enter_context(trace_window(trace_dir(len(steps))))
+        steps.append(launch_counts())
+        timer.start()
+
+    def after(result):
+        timer.stop(result[1])
+        window.close()
+        now = launch_counts()
+        i = len(steps) - 1
+        steps[i] = {k: now[k] - v for k, v in steps[i].items()}
+        if i in traced:
+            events = TSum.load_events(trace_dir(i))
+            traced[i] = len(TSum.lost_launches(events))
+            if not traced[i]:
+                complete.append(events)
+        return result
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with working_dir(workdir), instrumented(TS, "packed_seg_train_step",
+                                            before, after):
+        example.main(list(OBS_TRAIN_ARGS))
+    run_s = time.perf_counter() - t0
+    total = launch_counts()
+    if not complete:
+        raise AssertionError(f"15b: every traced step lost kernel records "
+                             f"{traced}")
+    events = complete[0]
+    kinds = _kind_counts(TSum.summarize(events)[0], PORT_KERNELS)
+    dx = _kind_counts(TSum.summarize_within(events, "): conv2_packed_dx")[0],
+                      PORT_KERNELS)
+    trace = {"b1": kinds["conv2_packed_tc_kernel"]
+             + kinds["conv2_packed_kernel"],
+             "b1_tc": kinds["conv2_packed_tc_kernel"],
+             "b1_dx": dx["conv2_packed_tc_kernel"] + dx["conv2_packed_kernel"]}
+    (log_path,) = [os.path.join(workdir, "logs", f)
+                   for f in os.listdir(os.path.join(workdir, "logs"))]
+    losses = [json.loads(line)["value"] for line in open(log_path)
+              if '"train_dice_loss"' in line]
+    ckpt = os.path.join(workdir, "weights", "obs_epoch_1.ckpt")
+    out = {"argv": list(OBS_TRAIN_ARGS), "run_s": run_s,
+           "steps": len(steps), "step_ms": [t * 1e3 for t in timer.times],
+           "step_ms_mean_after_first": float(np.mean(timer.times[1:])) * 1e3,
+           "traced_steps_lost_records": traced,
+           "trace_complete_step": trace, "train_losses": losses,
+           "checkpoint": os.path.exists(ckpt),
+           "launches_per_step": steps[1] if len(steps) > 1 else None,
+           "launches_run": total}
+    log(f"15b training example: {json.dumps(out)}")
+    for i, c in enumerate(steps):
+        _expect_counts(f"15b step {i}", c, TRAIN_PER_STEP)
+    want = {"b1": TRAIN_PER_STEP["conv2_packed"],
+            "b1_tc": TRAIN_PER_STEP["conv2_packed_tc"],
+            "b1_dx": TRAIN_PER_STEP["conv2_packed_dx"]}
+    if trace != want or len(steps) != OBS_TRAIN_STEPS:
+        raise AssertionError(f"15b: {len(steps)} steps, the trace reader "
+                             f"counts {trace}, not {want}")
+    if len(losses) != len(steps) or not np.isfinite(losses).all():
+        raise AssertionError(f"15b: logged train losses {losses}")
+    if not out["checkpoint"]:
+        raise AssertionError(f"15b: no checkpoint {ckpt}")
+    return out
+
+
+def example_serving_phase(K, launch_counts, workdir, state, vol,
+                          served_mask, fine_mask):
+    """15c: `examples/torch_infer_whole_brain.py` on phase 4's weights
+    (as a `.pth`) and first volume (as NIfTI) at 192^3: float32, the
+    packed layout, B1 with B2 fused; its mask against phase 4's served
+    bf16 mask and the fine float32 one at PERF.md's gates."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.utils.nifti import (load_nifti,
+                                                          save_nifti)
+
+    os.makedirs(workdir, exist_ok=True)
+    pth = os.path.join(workdir, "unet.pth")
+    torch.save({k: v.cpu() for k, v in state.items()}, pth)
+    image = os.path.join(workdir, "t1.nii")
+    out_path = os.path.join(workdir, "pred.nii")
+    save_nifti(image, vol, np.eye(4))
+    example = load_example("torch_infer_whole_brain")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with working_dir(workdir):
+        example.main(["--pth", pth, "--image", image, "--ocfl", str(OCFL),
+                      "--img-size", str(SIZE), "--coord-min", "0", "0", "0",
+                      "--out", out_path])
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    mask = np.asarray(load_nifti(out_path).data)
+    out = {"run_s": run_s, "foreground_share": float(mask.mean()),
+           "agreement_vs_served_bf16": float(np.mean(mask == served_mask)),
+           "agreement_vs_fine_f32": float(np.mean(mask == fine_mask)),
+           "launches": counts}
+    log(f"15c serving example: {json.dumps(out)}")
+    _expect_counts("15c", counts, VAL_PER_BATCH)
+    if out["agreement_vs_served_bf16"] < MASK_AGREEMENT_BF16 or (
+            out["agreement_vs_fine_f32"] < VAL_MASK_AGREEMENT):
+        raise AssertionError(f"15c: mask agreement {out}")
+    return out
+
+
+def _sign_aligned_err(got, ref):
+    return max(min(np.abs(got[:, k] - s * ref[:, k]).max() for s in (1, -1))
+               for k in range(ref.shape[1]))
+
+
+def latent_phase(K, launch_counts, enc, clf, vols, normalized):
+    """15d: `obs.analysis.collect_latents` over phase 4's volumes at batch
+    8 on the card (fused B3 per stack and batch), against the port on the
+    CPU; PCA and t-SNE of the latents on the card against the same calls
+    on the CPU (see the comment above OBS_TSNE_PERPLEXITY and PERF.md)."""
+    import copy
+
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.obs import analysis as A
+
+    domains = np.arange(len(vols)) % 3
+    targets = np.arange(len(vols)) % 2
+
+    def loader(device_volumes, n):
+        for i in range(0, n, OBS_LATENT_BATCH):
+            x = normalized(vols[i:min(i + OBS_LATENT_BATCH, n)])
+            yield (x if device_volumes else x.cpu(),
+                   targets[i:i + len(x)], domains[i:i + len(x)])
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    lat = A.collect_latents(enc, loader(True, len(vols)), clf=clf)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    counts = launch_counts()
+    n_batches = -(-len(vols) // OBS_LATENT_BATCH)
+    want = {**{k: 0 for k in UNET_PER_BATCH},
+            "separable_conv3d": len(B3_STACKS) * n_batches}
+    _expect_counts("15d collect_latents", counts, want)
+    cpu = A.collect_latents(copy.deepcopy(enc).cpu(),
+                            loader(False, OBS_CPU_VOLUMES),
+                            clf=copy.deepcopy(clf).cpu(), device="cpu")
+    lat_err = {k: float(np.abs(lat[k][:OBS_CPU_VOLUMES] - cpu[k]).max()
+                        / np.abs(cpu[k]).max()) for k in ("encoder", "clf")}
+    feats = lat["encoder"]
+    pca = {d: A.pca_embed(feats, device=d) for d in ("cuda", "cpu")}
+    pca_err = _sign_aligned_err(pca["cuda"], pca["cpu"]) / np.abs(
+        pca["cpu"]).max()
+    # t-SNE's objective, deterministic: P and (KL, gradient) at a fixed
+    # embedding; then full runs on the latents (reported) and on a curve
+    # with one layout to find (gated), as tests/test_torch_obs.py runs it
+    p = {d: A.joint_probabilities(feats, OBS_TSNE_PERPLEXITY, device=d)
+         for d in ("cuda", "cpu")}
+    y0 = np.random.default_rng(SEED).normal(size=(len(feats), 2))
+    kl = {d: A.kl_divergence(y0, p[d]) for d in p}
+    objective_err = {
+        "p": float((p["cuda"].cpu() - p["cpu"]).abs().max()
+                   / p["cpu"].abs().max()),
+        "kl": abs(float(kl["cuda"][0]) - float(kl["cpu"][0]))
+        / abs(float(kl["cpu"][0])),
+        "grad": float((kl["cuda"][1].cpu() - kl["cpu"][1]).abs().max()
+                      / kl["cpu"][1].abs().max())}
+
+    def tsne_runs(x, perplexity):
+        p_cpu = A.joint_probabilities(x, perplexity, device="cpu")
+        res = {}
+        for d in ("cuda", "cpu"):
+            t = time.perf_counter()
+            y = A.tsne_embed(x, perplexity=perplexity, device=d)
+            res[d] = {"s": time.perf_counter() - t,
+                      "kl": float(A.kl_divergence(y, p_cpu)[0]),
+                      "trust": A.trustworthiness(x, y, device="cpu"),
+                      "finite": bool(np.isfinite(y).all())}
+        return res
+
+    rng = np.random.default_rng(1)
+    t = np.linspace(0, 3 * np.pi, 60)
+    curve = (np.stack([np.cos(t), np.sin(t), t / 3], 1)
+             @ rng.normal(size=(3, 20)) + 1e-3 * rng.normal(size=(60, 20)))
+    runs = {"latents": tsne_runs(feats, OBS_TSNE_PERPLEXITY),
+            "curve": tsne_runs(curve, 30.0)}
+    out = {"volumes": len(vols), "batch": OBS_LATENT_BATCH,
+           "collect_s": collect_s, "launches": counts,
+           "latent_shapes": {k: list(v.shape) for k, v in lat.items()},
+           "latent_err_vs_cpu": lat_err, "pca_err": pca_err,
+           "tsne_objective_err": objective_err, "tsne_runs": runs}
+    log(f"15d latents: {json.dumps(out)}")
+    if max(lat_err.values()) > OBS_LATENT_TOL:
+        raise AssertionError(f"15d: latents differ from the CPU's {lat_err}")
+    if pca_err > OBS_PCA_TOL:
+        raise AssertionError(f"15d: PCA differs by {pca_err}")
+    if max(objective_err.values()) > OBS_OBJECTIVE_RTOL:
+        raise AssertionError(f"15d: t-SNE objective {objective_err}")
+    c = runs["curve"]
+    if not all(r["finite"] for v in runs.values() for r in v.values()) or (
+            abs(c["cuda"]["kl"] - c["cpu"]["kl"])
+            > TSNE_KL_RTOL * c["cpu"]["kl"]) or (
+            abs(c["cuda"]["trust"] - c["cpu"]["trust"]) > TSNE_TRUST_TOL):
+        raise AssertionError(f"15d: t-SNE runs {runs}")
+    return out
+
+
+def example_fader_phase(K, launch_counts, workdir):
+    """15e: `examples/torch_train_fader.py --synthetic --img-size 192
+    --bf16` for one epoch (one alternation batch of its 8 volumes, the
+    default --disc-loop 3).  Each alternation batch is counted by the
+    launch counters; the first runs inside `obs.profile_trace`, whose
+    trace the reader counts (the run is repeated while the profiler has
+    dropped a kernel record); the validation forward's launches are the
+    rest of the run's."""
+    import torch
+
+    from mri_epilepsy_diagnosis_torch.obs import trace_summary as TSum
+    from mri_epilepsy_diagnosis_torch.train import fader as TF
+
+    example = load_example("torch_train_fader")
+    per_batch = alternation_per_batch(FADER_DEPTH)
+
+    def run(attempt):
+        """One epoch of the example; returns (its alternation batches'
+        counts, the run's counts, the first batch's trace events, s)."""
+        cwd = os.path.join(workdir, str(attempt))
+        trace_dir = os.path.join(cwd, "trace_alternation")
+        window = contextlib.ExitStack()
+        batches, open_batch = [], []
+
+        def disc_before(*args):
+            if not open_batch:
+                if not batches:
+                    window.enter_context(trace_window(trace_dir))
+                open_batch.append(launch_counts())
+
+        def enc_after(result):
+            torch.cuda.synchronize()
+            window.close()
+            now = launch_counts()
+            batches.append({k: now[k] - v
+                            for k, v in open_batch.pop().items()})
+            return result
+
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with working_dir(cwd), \
+                instrumented(TF, "disc_step", disc_before, lambda r: r), \
+                instrumented(TF, "enc_clf_step", lambda *a: None, enc_after):
+            example.main(["--synthetic", "--img-size", str(SIZE), "--bf16",
+                          "--epochs", "1"])
+        run_s = time.perf_counter() - t0
+        for i, b in enumerate(batches):
+            _expect_counts(f"15e alternation batch {i}", b, per_batch)
+        return batches, launch_counts(), TSum.load_events(trace_dir), run_s
+
+    lost = []
+    for attempt in range(OBS_TRACE_ATTEMPTS):
+        batches, total, events, run_s = run(attempt)
+        if not TSum.lost_launches(events):
+            break
+        lost.append(len(TSum.lost_launches(events)))
+        log(f"15e: the profiler dropped {lost[-1]} kernel records; the "
+            "example runs again")
+    else:
+        raise AssertionError(f"15e: every window lost kernel records {lost}")
+    kinds = _kind_counts(TSum.summarize(events)[0], PORT_KERNELS)
+    trace = {"separable_conv3d": kinds["separable_conv3d_kernel"],
+             "conv_axis_dx": kinds["axis_dx_tc_kernel"]
+             + kinds["conv_axis_dx_kernel"],
+             "conv_axis_dw": kinds["axis_dw_tc_kernel"]
+             + kinds["conv_axis_dw_partial_kernel"],
+             "conv_axis": kinds["axis_fwd_tc_kernel"]
+             + kinds["conv_axis_kernel"]}
+    validation = {k: v - sum(b[k] for b in batches)
+                  for k, v in total.items()}
+    out = {"run_s": run_s, "alternation_batches": len(batches),
+           "runs_with_lost_records": lost, "trace_first_batch": trace,
+           "launches_per_batch": batches, "launches_validation": validation}
+    log(f"15e fader example: {json.dumps(out)}")
+    want = {k: per_batch[k] for k in trace}
+    if trace != want or not batches:
+        raise AssertionError(f"15e: the trace reader counts {trace}, not "
+                             f"{want}")
+    if validation["separable_conv3d"] <= 0 or validation["conv_axis_dw"]:
+        raise AssertionError(f"15e: validation launches {validation}")
+    return out
 
 
 def s8_kernel_entries(k1_rows, k2_rows, errs, counts, serving):
@@ -5589,6 +6120,7 @@ def main() -> int:
         max_logit = fine_logits.abs().max().item()
         del packed, fine_logits
     fine_masks = np.concatenate(fine_masks)
+    fine_mask0 = fine_masks[0].copy()              # phase 15c
     agree_bf16 = float(np.mean(masks_int16 == fine_masks))
     agree_u8 = float(np.mean(masks_u8 == masks_int16))
     fg = float(masks_int16.mean())
@@ -5642,6 +6174,7 @@ def main() -> int:
             enc(normalized(vols[i:i + BATCH]))[0]
             for i in range(0, N_VOLUMES, BATCH)]))
     ens_params = {"seg": params, "enc": enc, "clf": clf}
+    obs_models = (enc, clf)                        # phase 15d
 
     def serve_ensemble(volumes,
                        classify_fn=lambda p, x: p["clf"](p["enc"](x)[0])):
@@ -5725,6 +6258,7 @@ def main() -> int:
     int8_inputs = (vols, state, fine_masks)
     dist_inputs = (vols, {k: v.clone() for k, v in state.items()},
                    masks_int16)
+    obs_inputs = dist_inputs + (fine_mask0,)       # phase 15
     ensemble_inputs = (vols, probs, ens_masks)
     del vols, noise, model, params, enc, clf
     torch.cuda.empty_cache()
@@ -5946,11 +6480,46 @@ def main() -> int:
     # ---- 14. distribution: an NCCL group of one rank on a (1, 1) mesh
     torch.cuda.empty_cache()
     t14 = time.perf_counter()
-    distribution = distribution_phase(K, UNet3D, gen, launch_counts,
-                                      dist_inputs, znorm_batch)
-    del dist_inputs
-    phase14_s = time.perf_counter() - t14
-    log(f"phase 14: {phase14_s:.1f} s")
+    obs_dir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        distribution = distribution_phase(
+            K, UNet3D, gen, launch_counts, dist_inputs, znorm_batch,
+            os.path.join(obs_dir, "trace_mesh_step"))
+        del dist_inputs
+        phase14_s = time.perf_counter() - t14
+        log(f"phase 14: {phase14_s:.1f} s")
+
+        # ---- 15. observability and the examples: the trace reader against
+        # the profiler, then the examples' training and serving paths and
+        # the latent analysis at full width
+        torch.cuda.empty_cache()
+        t15 = time.perf_counter()
+        vols, state15, masks4, fine_mask0 = obs_inputs
+        params = fold_bn_inference(state15)
+        observability = {"trace_reader": trace_reader_phase(
+            lambda: serve(vols[:BATCH], transfer_dtype=np.int16),
+            os.path.join(obs_dir, "trace_served_batch"),
+            os.path.join(obs_dir, "trace_mesh_step"))}
+        del params
+        torch.cuda.empty_cache()
+        observability["training_example"] = example_training_phase(
+            K, launch_counts, os.path.join(obs_dir, "train"))
+        torch.cuda.empty_cache()
+        observability["serving_example"] = example_serving_phase(
+            K, launch_counts, os.path.join(obs_dir, "serve"), state15,
+            vols[0], masks4[0], fine_mask0)
+        torch.cuda.empty_cache()
+        observability["latents"] = latent_phase(
+            K, launch_counts, *obs_models, vols, normalized)
+        del vols, state15, masks4, obs_inputs, obs_models
+        torch.cuda.empty_cache()
+        observability["fader_example"] = example_fader_phase(
+            K, launch_counts, os.path.join(obs_dir, "fader"))
+    finally:
+        shutil.rmtree(obs_dir, ignore_errors=True)
+    phase15_s = time.perf_counter() - t15
+    observability.update(device=kind, nvidia_smi=smi)
+    log(f"phase 15: {phase15_s:.1f} s ({smi})")
 
     # the kernels of the served path, one entry per kernel instantiation:
     # launches from the timed ensemble run, times summed over the sites
@@ -6251,7 +6820,13 @@ def main() -> int:
                  distribution["train_step"]["launches_mesh"],
              "sharded_serving": distribution["serving"]["launches"],
              "sharded_sliding_window_f32":
-                 distribution["sliding_window"]["launches"]}
+                 distribution["sliding_window"]["launches"],
+             "example_train_step":
+                 observability["training_example"]["launches_per_step"],
+             "example_serving": observability["serving_example"]["launches"],
+             "collect_latents": observability["latents"]["launches"],
+             "example_fader_alternation":
+                 observability["fader_example"]["launches_per_batch"][0]}
     counted_as = {"conv2_packed_tc.train_forward": "conv2_packed_tc",
                   "conv2_packed.train_stem": "conv2_packed",
                   "conv2_packed.validate_f32": "conv2_packed",
@@ -6374,6 +6949,7 @@ def main() -> int:
                    "voxresnet_packed": voxresnet,
                    "voxresnet_sites": vox_rows, "phase13_s": phase13_s,
                    "distribution": distribution, "phase14_s": phase14_s,
+                   "observability": observability, "phase15_s": phase15_s,
                    "build_s": build_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

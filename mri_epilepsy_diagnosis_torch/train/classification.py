@@ -20,13 +20,17 @@ and finetune modes (counterpart of the JAX package's
   outside `head_name` (`requires_grad=False`, left out of the optimizer)
   and draws the head anew from `seed + 1`.
 - `cross_val_score` runs the folds of any `cv` object with
-  `.split(X, y)` (sklearn's splitters, for one), in scratch, transfer,
-  finetune or evaluation-only mode.
+  `.split(X, y)` (sklearn's splitters, or `StratifiedKFold` here), in
+  scratch, transfer, finetune or evaluation-only mode.
+- `StratifiedKFold` is sklearn's unshuffled splitter, fold for fold, in
+  numpy (the card's machine has no sklearn).
 
 `input_dtype=torch.bfloat16` trains in mixed precision: bf16 activations,
 float32 master weights and Adam moments.  Batches reach the model's
-device through `DevicePrefetcher`.  The JAX package's `dashboard` argument
-raises `NotImplementedError` unless None (ROADMAP A12).
+device through `DevicePrefetcher`.  `dashboard` (an
+`obs.TrainingDashboard`) is updated once per epoch with the epoch's mean
+losses and metrics, as in the JAX package; under a mesh only rank 0
+updates it.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ from ..data.pipeline import DataLoader, Subset
 from .checkpoint import load_checkpoint, save_checkpoint
 from ..parallel import sharding as _S
 from .optim import ReduceLROnPlateau, torch_adam
-from .seg import _device_batches, _not_ported
+from .seg import _device_batches
 from .state import TrainState
 
 
@@ -127,8 +131,9 @@ def train(state: TrainState, train_dataloader, val_dataloader, metric,
           dashboard=None, input_dtype=None):
     """The epoch loop; returns (state, last_train_loss, last_train_metric,
     last_val_loss, last_val_metric) of the best epoch.  `input_dtype` as
-    in `run_one_epoch`; `dashboard` must be None."""
-    _not_ported(dashboard=dashboard)
+    in `run_one_epoch`; `dashboard` gets `update(train_loss=, train_metric=,
+    val_loss=, val_metric=)` once per epoch (the validation values None
+    without a validation loader)."""
     patience = 0
     best_metric = 0.0
     etl, etm, evl, evm = [], [], [], []
@@ -162,6 +167,11 @@ def train(state: TrainState, train_dataloader, val_dataloader, metric,
             if val_dataloader is not None:
                 print(f"  validation loss: {evl[-1]:.6f}  "
                       f"metric: {evm[-1]:.4f}")
+        if dashboard is not None and _S.is_writer():
+            dashboard.update(
+                train_loss=etl[-1], train_metric=etm[-1],
+                val_loss=evl[-1] if val_dataloader is not None else None,
+                val_metric=evm[-1] if val_dataloader is not None else None)
 
         improved = ((val_dataloader is not None and evm[-1] > best_metric)
                     or (val_dataloader is None and etm[-1] >= best_metric))
@@ -269,6 +279,54 @@ def create_model_opt(model: nn.Module, sample_input,
     scheduler = ReduceLROnPlateau(state.optimizer, mode="min", factor=0.5,
                                   patience=patience, threshold=1e-3)
     return state, scheduler
+
+
+class StratifiedKFold:
+    """sklearn's `StratifiedKFold(n_splits)` without shuffling: classes are
+    numbered in order of first appearance, each fold's share of every class
+    comes from a round robin over the sorted labels, and each class's
+    samples go to the folds in blocks, in data order."""
+
+    def __init__(self, n_splits: int = 5):
+        if n_splits < 2:
+            raise ValueError(f"n_splits must be at least 2, got {n_splits}")
+        self.n_splits = n_splits
+
+    def get_n_splits(self, X=None, y=None, groups=None) -> int:
+        return self.n_splits
+
+    def _test_folds(self, y) -> np.ndarray:
+        y = np.asarray(y).ravel()
+        if self.n_splits > len(y):
+            raise ValueError(
+                f"Cannot have number of splits n_splits={self.n_splits} "
+                f"greater than the number of samples: n_samples={len(y)}.")
+        _, first, inverse = np.unique(y, return_index=True,
+                                      return_inverse=True)
+        y_encoded = np.argsort(np.argsort(first))[inverse.ravel()]
+        n_classes = len(first)
+        if np.all(self.n_splits > np.bincount(y_encoded)):
+            raise ValueError(f"n_splits={self.n_splits} cannot be greater "
+                             "than the number of members in each class.")
+        y_order = np.sort(y_encoded)
+        allocation = np.asarray([
+            np.bincount(y_order[i::self.n_splits], minlength=n_classes)
+            for i in range(self.n_splits)])
+        test_folds = np.empty(len(y), dtype=np.int64)
+        for k in range(n_classes):
+            test_folds[y_encoded == k] = np.arange(self.n_splits).repeat(
+                allocation[:, k])
+        return test_folds
+
+    def split(self, X, y, groups=None):
+        """(train indices, test indices) of each fold."""
+        del groups
+        folds = self._test_folds(y)
+        if len(folds) != len(X):
+            raise ValueError("X and y have different lengths")
+        index = np.arange(len(folds))
+        for i in range(self.n_splits):
+            yield index[folds != i], index[folds == i]
 
 
 def cross_val_score(model, train_dataset, cv, metric, sample_input,

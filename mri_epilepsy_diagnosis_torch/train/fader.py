@@ -44,7 +44,6 @@ from ..data.pipeline import DevicePrefetcher
 from ..metrics.classification import accuracy_score, roc_auc_score
 from ..parallel import sharding as _S
 from .classification import cross_entropy
-from .seg import _not_ported
 from .state import TrainState
 
 
@@ -184,8 +183,8 @@ def train_fader(fstate: FaderState, train_loader, val_loader, epochs: int,
     while step < max_step.  Dropout draws from a torch.Generator seeded
     with `rng_seed`.  Returns (fstate, history dict of per-step losses and
     per-epoch accuracy / ROC AUC / domain accuracy, the JAX package's
-    keys).  `dashboard` must be None."""
-    _not_ported(dashboard=dashboard)
+    keys).  `dashboard` (an `obs.FaderDashboard`) gets `update(hist)` after
+    each epoch (rank 0 alone under a mesh)."""
     gen = torch.Generator().manual_seed(rng_seed)
     device = fstate.encoder.device
     step = 0
@@ -249,6 +248,8 @@ def train_fader(fstate: FaderState, train_loader, val_loader, epochs: int,
             hist["acc_domain"].append(accuracy_score(gt_d, pred_d))
             hist["roc"].append(_score(roc_auc_score, gt, pred))
 
+        if dashboard is not None and _S.is_writer():
+            dashboard.update(hist)
         if verbose:
             print(f"epoch {epoch}: {time.time() - t0:.1f}s "
                   f"train acc {hist['acc_train'][-1]:.3f} "

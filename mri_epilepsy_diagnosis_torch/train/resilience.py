@@ -119,8 +119,8 @@ def train_segmentation_resilient(
     same call to continue after a kill.  `sharding` runs the loop on a
     process mesh: rank 0 writes the checkpoints, every rank resumes from
     them, and a rollback or a preemption stop happens on all ranks or on
-    none (`train/seg.py`).  `dashboard` is not ported yet and must be None
-    (ROADMAP A12)."""
+    none (`train/seg.py`).  `dashboard` gets `update(train_loss=,
+    val_loss=)` once per completed epoch (rank 0 alone under a mesh)."""
     from .seg import _train_loop  # seg imports this module
 
     return _train_loop(

@@ -32,8 +32,11 @@ stages its shard of every global batch, the steps run under
 `parallel.use_mesh`, so BatchNorm statistics and dice sums are the global
 batch's and the gradients are summed over the ranks; every rank logs the
 same global loss and keeps the same state; rank 0 writes the checkpoints.
-The JAX package's `dashboard` argument is accepted and raises
-`NotImplementedError` unless None (ROADMAP A12).
+
+`dashboard` (an `obs.TrainingDashboard`, or anything with its `update`)
+is updated once per completed epoch with its mean train and validation
+losses, as in the JAX package; under a mesh only rank 0 updates it, as
+only rank 0 writes checkpoints.
 """
 from __future__ import annotations
 
@@ -238,17 +241,6 @@ def _mesh_of(sharding):
     return sharding.mesh
 
 
-def _not_ported(**arguments) -> None:
-    """Raise for a JAX parameter that the port accepts, so that positional
-    calls bind as in JAX, but has not ported yet."""
-    roadmap = {"dashboard": "A12"}
-    for name, value in arguments.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"`{name}` is not ported yet (ROADMAP {roadmap[name]}); "
-                "pass None")
-
-
 def run_epoch(epoch_idx: int, action: Action, loader, state: TrainState,
               scheduler=None, experiment=None, prefetch: int = 2,
               sharding=None, packed=False,
@@ -307,7 +299,8 @@ def train_segmentation(num_epochs: int, training_loader, validation_loader,
     its mesh (see the module docstring): rank 0 writes the checkpoints
     while the others wait, every rank resumes from them, and rollback and
     the preemption stop are decided by all ranks together.  `dashboard`
-    must be None."""
+    gets `update(train_loss=, val_loss=)` once per completed epoch (rank 0
+    alone under a mesh)."""
     state, tr, va, _ = _train_loop(
         num_epochs, training_loader, validation_loader, state, scheduler,
         weights_stem, save_epoch, experiment, verbose, weights_dir, sharding,
@@ -322,7 +315,6 @@ def _train_loop(num_epochs, training_loader, validation_loader, state,
     """The one epoch loop behind `train_segmentation` and
     `train_segmentation_resilient`; returns (state, train_losses,
     val_losses, last_completed_epoch)."""
-    _not_ported(dashboard=dashboard)
     start_time = time.time()
     epoch_train_loss, epoch_val_loss = [], []
     start_epoch, failures = 0, 0
@@ -400,6 +392,9 @@ def _train_loop(num_epochs, training_loader, validation_loader, state,
             failures = 0
             epoch_train_loss.append(float(np.mean(tr)))
             epoch_val_loss.append(float(np.mean(va)))
+            if dashboard is not None and _S.is_writer(mesh):
+                dashboard.update(train_loss=epoch_train_loss[-1],
+                                 val_loss=epoch_val_loss[-1])
             if verbose:
                 print(f"Epoch {epoch_idx} of {num_epochs} took "
                       f"{time.time() - start_time:.3f}s")

@@ -316,7 +316,9 @@ def test_cross_val_score_runs_sklearn_folds(monkeypatch):
 
 def test_train_stops_and_checkpoints(tmp_path, variables):
     """`train` checkpoints the best epoch and stops on a train loss below
-    eps; `dashboard` is not ported."""
+    eps; its `dashboard` gets one update per epoch with JAX's keys (the
+    validation values None without a validation loader;
+    `test_torch_obs.py` holds the values to JAX's)."""
     batches = _batches(8, 1)
     path = str(tmp_path / "best.ckpt")
     state, tl, tm, vl, vm = TC.train(
@@ -324,8 +326,20 @@ def test_train_stops_and_checkpoints(tmp_path, variables):
         model_save_path=path, max_epoch=3, eps=1e9)
     assert (tm, vm) == (0.5, 0.5) and state.step == 1
     assert torch.load(path, weights_only=True)["step"] == 1
-    with pytest.raises(NotImplementedError, match="dashboard"):
-        TC.train(state, batches, None, TM.accuracy_score, dashboard=object())
+
+    class Dashboard:
+        calls = []
+
+        def update(self, **kw):
+            self.calls.append(kw)
+
+    dash = Dashboard()
+    TC.train(state, batches, None, TM.accuracy_score, max_epoch=2, eps=0.0,
+             dashboard=dash)
+    assert [sorted(c) for c in dash.calls] == [
+        ["train_loss", "train_metric", "val_loss", "val_metric"]] * 2
+    assert all(c["val_loss"] is None and c["val_metric"] is None
+               and np.isfinite(c["train_loss"]) for c in dash.calls)
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -1663,3 +1663,68 @@ def test_c3_f32_forwards_with_tf32_allowed_match_cpu(cuda_device, name):
         assert err <= 1e-4 * ref.abs().max().item(), err
     finally:
         torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_step_timer_waits_for_the_card(cuda_device):
+    """`StepTimer.stop(t)` synchronizes t's device before reading the
+    clock: a step of queued matmuls times as long as its synchronized run,
+    not as its enqueue."""
+    from mri_epilepsy_diagnosis_torch.obs import StepTimer
+
+    a = torch.randn(4096, 4096, device=cuda_device)
+
+    def work():
+        y = a
+        for _ in range(20):
+            y = a @ y / 64.0
+        return y
+
+    work()
+    torch.cuda.synchronize()
+    done = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    timer = StepTimer()
+    timer.start()
+    start.record()
+    y = work()
+    done.record()
+    timer.stop(y)
+    assert done.query()                      # the card had finished
+    assert timer.times[0] * 1e3 >= 0.9 * start.elapsed_time(done)
+
+
+@pytest.mark.cuda
+def test_collect_latents_runs_fused_b3_and_matches_cpu(cuda_device):
+    """`collect_latents` on the card: one fused separable launch per stack
+    and batch (the encoder's DownBlock and each head's stack), no one-axis
+    launch, and the CPU's latents within 1e-4 x max in float32."""
+    import copy
+
+    import numpy as np
+
+    from mri_epilepsy_diagnosis_torch.models import fader as TFd
+    from mri_epilepsy_diagnosis_torch.obs.analysis import collect_latents
+
+    down = dict(conv_k=6, conv_pad=2, conv_s=2, maxpool_k=2, maxpool_s=2,
+                batch_norm=True, act="l_relu")
+    enc_kw = dict(c_in=1, deapth=2, c_base=8, inc_size=2,
+                  down_block_kwargs=down)
+    head = dict(c_in=16, c_out=32, conv_k=3, conv_s=1, conv_pad=0, l_in=32,
+                l_out=16, batch_norm=True, act="relu", p_drop=0.5)
+    torch.manual_seed(0)
+    enc = TFd.make_encoder(enc_kw, device="cpu")
+    clf = TFd.Classificator(n_class=2, device="cpu", **head)
+    disc = TFd.Discriminator(n_domains=3, device="cpu", **head)
+    rng = np.random.default_rng(0)
+    batches = [(rng.normal(size=(2, 48, 48, 48, 1)).astype(np.float32),
+                np.array([0, 1]), np.array([2, 0])) for _ in range(2)]
+    ref = collect_latents(enc, batches, disc=disc, clf=clf, device="cpu")
+    on_card = [copy.deepcopy(m).to(cuda_device) for m in (enc, clf, disc)]
+    K.reset_launch_counts()
+    got = collect_latents(on_card[0], batches, disc=on_card[2],
+                          clf=on_card[1], device=cuda_device)
+    assert K.separable_conv3d.launches == 2 * (2 + 2)
+    assert K.conv_axis.launches == 0
+    for k in ("encoder", "disc", "clf"):
+        assert np.abs(got[k] - ref[k]).max() <= 1e-4 * np.abs(ref[k]).max()

@@ -397,7 +397,17 @@ def test_train_fader_schedule_and_history(monkeypatch):
                          "acc_domain"}
     assert len(hist["train_loss"]) == 12 and len(hist["acc"]) == 6
     assert all(np.isfinite(hist["train_loss"]))
-    with pytest.raises(NotImplementedError, match="dashboard"):
-        TF.train_fader(fs, _Loader(batches), None, 1, 0.0, 0.0, 1,
-                       N_DOMAINS, dashboard=object())
+    # the dashboard gets the history after each epoch, as in JAX
+    # (`test_torch_obs.py` holds its values to JAX's)
+    seen = []
+
+    class Dashboard:
+        def update(self, h):
+            seen.append({k: len(v) for k, v in h.items()})
+
+    TF.train_fader(fs, _Loader(batches), None, 2, 0.0, 0.0, 1, N_DOMAINS,
+                   dashboard=Dashboard(), verbose=False)
+    assert len(seen) == 2 and set(seen[0]) == set(hist)
+    assert [s["train_loss"] for s in seen] == [2, 4]
+    assert [s["acc_train"] for s in seen] == [1, 2]
 

@@ -1,8 +1,10 @@
-"""The PyTorch port stands alone: no module of `mri_epilepsy_diagnosis_torch`
-and not `chip_smoke.py` imports JAX, flax, optax, msgpack (the port reads
-flax checkpoints with its own decoder), pandas, sklearn or nibabel (the
-card's machine has none of them: the port reads CSVs with `csv` and NIfTI
-with its own codec) or the JAX package.
+"""The PyTorch port stands alone: no module of `mri_epilepsy_diagnosis_torch`,
+none of its examples (`examples/torch_*.py`) and not `chip_smoke.py`
+imports JAX, flax, optax, msgpack (the port reads flax checkpoints with its
+own decoder), pandas, sklearn or nibabel (the card's machine has none of
+them: the port reads CSVs with `csv` and NIfTI with its own codec) or the
+JAX package.  matplotlib, which the card's machine lacks too, is imported
+only inside the functions that draw.
 
 Checked statically with `ast`: a `sys.modules` check cannot work in a
 process whose start-up may already have imported jax."""
@@ -14,8 +16,9 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas",
              "sklearn", "nibabel", "mri_epilepsy_diagnosis_tpu")
-SOURCES = sorted((ROOT / "mri_epilepsy_diagnosis_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "mri_epilepsy_diagnosis_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+DRAWING = ("matplotlib",)
 
 
 def imported_modules(path: Path):
@@ -40,7 +43,12 @@ def test_port_sources_found():
             "bayes.py", "brats_unet.py", "modified_unet.py",
             "residual_unet.py", "voxresnet_packed.py",
             "fader_packed.py", "mesh.py", "config.py", "rngs.py",
-            "dtypes.py", "sharding.py", "multihost_demo.py"} <= names
+            "dtypes.py", "sharding.py", "multihost_demo.py", "logger.py",
+            "profile.py", "trace_summary.py", "dashboard.py", "analysis.py",
+            "viz_tools.py", "torch_detection_pipeline.py",
+            "torch_train_segmentation.py", "torch_infer_whole_brain.py",
+            "torch_validate_checkpoints.py", "torch_train_ae.py",
+            "torch_train_fader.py", "torch_classification_cv.py"} <= names
     port = ROOT / "mri_epilepsy_diagnosis_torch"
     for path in ("native/__init__.py", "train/fader.py",
                  "train/classification.py", "metrics/classification.py",
@@ -52,8 +60,13 @@ def test_port_sources_found():
                  "models/voxresnet_packed.py", "models/fader_packed.py",
                  "core/mesh.py", "core/config.py", "core/rngs.py",
                  "core/dtypes.py", "parallel/__init__.py",
-                 "parallel/sharding.py", "parallel/multihost_demo.py"):
+                 "parallel/sharding.py", "parallel/multihost_demo.py",
+                 "obs/__init__.py", "obs/logger.py", "obs/profile.py",
+                 "obs/trace_summary.py", "obs/dashboard.py",
+                 "obs/analysis.py", "utils/viz_tools.py"):
         assert port / path in SOURCES
+    examples = {p.name for p in SOURCES if p.parent == ROOT / "examples"}
+    assert len(examples) == 7
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -62,6 +75,41 @@ def test_no_jax_imports(path):
     bad = [m for m in imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def module_level_imports(path: Path):
+    """Modules imported outside every function body of `path`."""
+    def walk(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            inside = in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+            if not inside and isinstance(child, ast.Import):
+                yield from (alias.name for alias in child.names)
+            elif (not inside and isinstance(child, ast.ImportFrom)
+                  and child.level == 0):
+                yield child.module
+            yield from walk(child, inside)
+
+    yield from walk(ast.parse(path.read_text(), str(path)), False)
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_drawing_imported_only_inside_functions(path):
+    bad = [m for m in module_level_imports(path)
+           if m.split(".")[0] in DRAWING]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad} at module level"
+
+
+def test_drawing_check_sees_module_level_imports(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import os\ntry:\n    import matplotlib.pyplot\n"
+                     "except ImportError:\n    pass\n"
+                     "def f():\n    import matplotlib\n"
+                     "class A:\n    from matplotlib import cm\n"
+                     "    def g(self):\n        from matplotlib import cm\n")
+    assert list(module_level_imports(probe)) == [
+        "os", "matplotlib.pyplot", "matplotlib"]
 
 
 def test_check_catches_a_jax_import(tmp_path):

@@ -736,9 +736,13 @@ def test_train_segmentation_on_mesh_checkpoints_and_resumes(case):
     on 2x1: every rank logs the global losses, which match an unsharded
     run; rank 0 writes one checkpoint an epoch; epoch 2 from the epoch-1
     checkpoint, loaded into a fresh state on both ranks, repeats the
-    uninterrupted epoch 2."""
+    uninterrupted epoch 2.  Only rank 0 updates the dashboard, once an
+    epoch with the global losses."""
     r0, r1 = (r["loop"] for r in _ranks(case, "2x1"))
     assert r0["tr"] == r1["tr"] and r0["va"] == r1["va"]
+    assert r0["dashboard"] == [{"train_loss": t, "val_loss": v}
+                               for t, v in zip(r0["tr"], r0["va"])]
+    assert r1["dashboard"] == []
     # four AdamW steps: Adam turns the float32 noise of near-zero
     # gradients into steps of up to lr, so the losses drift apart by more
     # than one step's 1e-5 (the gradients are held to 1e-4 above)

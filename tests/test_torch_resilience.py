@@ -469,18 +469,39 @@ def test_positional_factory_call_binds_as_in_jax():
 
 @pytest.mark.parametrize("name", ["sharding", "dashboard"])
 def test_unported_arguments_raise_by_name(tmp_path, name):
-    """`dashboard` is not ported and raises by name; `sharding` is ported
-    and refuses, by name, anything but a `core.mesh.Sharding`."""
+    """`sharding` refuses, by name, anything but a `core.mesh.Sharding`;
+    `dashboard` is ported: both loops update it once per completed epoch
+    with JAX's keys (`test_torch_obs.py` holds the values to JAX's)."""
     state = _make_state()
-    error = TypeError if name == "sharding" else NotImplementedError
-    with pytest.raises(error, match=name):
+    if name == "dashboard":
+        class Dashboard:
+            def __init__(self):
+                self.calls = []
+
+            def update(self, **kw):
+                self.calls.append(kw)
+
+        for run in (lambda d: TS.train_segmentation(
+                        2, _Loader(), _Loader(seed=1), state, None, "x",
+                        weights_dir=str(tmp_path), verbose=False,
+                        dashboard=d),
+                    lambda d: _train(2, _Loader(), state,
+                                     TR.CheckpointManager(str(tmp_path)),
+                                     dashboard=d)):
+            dash = Dashboard()
+            run(dash)
+            assert [sorted(c) for c in dash.calls] == [
+                ["train_loss", "val_loss"]] * 2
+            assert all(np.isfinite(list(c.values())).all()
+                       for c in dash.calls)
+        return
+    with pytest.raises(TypeError, match=name):
         TS.train_segmentation(1, _Loader(), _Loader(), state, None, "x",
                               weights_dir=str(tmp_path), verbose=False,
-                              **{name: object()})
-    with pytest.raises(error, match=name):
+                              sharding=object())
+    with pytest.raises(TypeError, match=name):
         _train(1, _Loader(), state, TR.CheckpointManager(str(tmp_path)),
-               **{name: object()})
-    if name == "sharding":
-        with pytest.raises(error, match=name):
-            TS.run_epoch(0, TS.Action.VALIDATE, _Loader(), state,
-                         sharding=object())
+               sharding=object())
+    with pytest.raises(TypeError, match=name):
+        TS.run_epoch(0, TS.Action.VALIDATE, _Loader(), state,
+                     sharding=object())

@@ -320,6 +320,16 @@ class _Preempt:
         pass
 
 
+class _Dashboard:
+    """Records the loop's per-epoch updates."""
+
+    def __init__(self):
+        self.calls = []
+
+    def update(self, **kw):
+        self.calls.append(kw)
+
+
 def loop_checks(mesh, rank, out_dir):
     vs = S.volume_sharding(mesh)
     shared = os.path.join(out_dir, "loop")
@@ -331,10 +341,12 @@ def loop_checks(mesh, rank, out_dir):
         return state, sched
 
     state, sched = fresh()
+    dashboard = _Dashboard()
     state, tr, va = train_segmentation(
         2, _loader(2), _loader(1), state, sched, weights_stem="mesh",
-        weights_dir=shared, verbose=False, sharding=vs)
+        weights_dir=shared, verbose=False, sharding=vs, dashboard=dashboard)
     res["tr"], res["va"] = tr, va
+    res["dashboard"] = dashboard.calls
     res["files"] = sorted(os.listdir(shared))
     res["state"] = _sd(state.model)
     plain_state, plain_sched = fresh()
