@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..obs import span
 from ..parallel.sharding import local_shard
 
 
@@ -284,6 +285,10 @@ class DevicePrefetcher:
 
     `sharding` (a `core.mesh.Sharding`) stages only this rank's shard of
     each global batch: its rows, and its D slab of 5-D volumes.
+
+    Under `obs.profile_trace` the producer's thread shows `data::draw`
+    (the host iterator's `next`), `data::stage` (pinning and enqueueing
+    the copies) and `data::queue_full` (waiting for room in the queue).
     """
 
     _END = object()
@@ -326,8 +331,19 @@ class DevicePrefetcher:
 
     def _produce(self, iterator):
         try:
-            for batch in iterator:
-                self._q.put(self._stage(batch))
+            iterator = iter(iterator)
+            while True:
+                with span("data::draw"):
+                    batch = next(iterator, self._END)
+                if batch is self._END:
+                    break
+                with span("data::stage"):
+                    item = self._stage(batch)
+                try:
+                    self._q.put_nowait(item)
+                except queue.Full:
+                    with span("data::queue_full"):
+                        self._q.put(item)
             self._q.put(self._END)
         except BaseException as e:  # propagate host-side failures to consumer
             self._q.put((self._ERR, e))

@@ -22,6 +22,9 @@ package's `obs/trace_summary.py`, for torch.profiler's Kineto traces).
 - `collective_rows`: the c10d collectives the process groups ran (the
   backends' `nccl:*` / `gloo:*` ranges, else `record_param_comms`), with
   their bytes and kind: the counterpart of `hlo_collective_rows`.
+- `span_rows`: the host's named ranges (`obs.span`'s `seg::` and `data::`
+  spans, any `record_function`) with their count, host time and the
+  device idle time inside them: which host work the card waited on.
 
 CLI:
     python -m mri_epilepsy_diagnosis_torch.obs.trace_summary LOGDIR \\
@@ -319,6 +322,50 @@ def collective_rows(events: List[dict]) -> List[Tuple[int, str, str, str]]:
     return rows
 
 
+def _busy_intervals(events: List[dict]) -> List[Tuple[float, float]]:
+    """The union of the device events' intervals, sorted."""
+    ivs = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+                 for e in events
+                 if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES)
+    out: List[List[float]] = []
+    for a, b in ivs:
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
+
+
+def span_rows(events: List[dict]
+              ) -> List[Tuple[str, int, float, Optional[float]]]:
+    """Every host range (`user_annotation`: `obs.span`, `record_function`)
+    by name as (name, count, host us, device idle us), by host time: the
+    idle us are the time inside the name's ranges in which no kernel, copy
+    or memset ran on any card (None in a trace without device events).  A
+    range inside another counts in both names' rows."""
+    busy = _busy_intervals(events)
+    starts = [a for a, _ in busy]
+    rows: Dict[str, List[float]] = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") != "user_annotation":
+            continue
+        a = float(e["ts"])
+        b = a + float(e.get("dur", 0.0))
+        covered = 0.0
+        for s, t in busy[max(bisect.bisect_right(starts, a) - 1, 0):]:
+            if s >= b:
+                break
+            covered += max(0.0, min(t, b) - max(s, a))
+        row = rows.setdefault(e.get("name", "?"), [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += b - a
+        row[2] += (b - a) - covered
+    out = [(name, int(c), t, idle if busy else None)
+           for name, (c, t, idle) in rows.items()]
+    out.sort(key=lambda r: (-r[2], r[0]))
+    return out
+
+
 def print_copy_report(rows: List[Tuple[int, str, str, str]], top: int = 25,
                       by_src_top: int = 20) -> None:
     """Top copies by bytes, and a rollup by source frame."""
@@ -383,6 +430,14 @@ def print_summary(path: str, top: int = 25, iters: Optional[int] = None,
     copies = copy_rows(events)
     if copies:
         print_copy_report(copies, top=min(top, 15))
+    spans = span_rows(events)
+    if spans:
+        print(f"\n== host spans: {unit}, and the device idle inside ==")
+        for name, c, t, idle in spans[:top]:
+            idle_s = ("-" if idle is None
+                      else f"{idle / div / 1e3:9.2f} {unit} idle")
+            print(f"{name:42.42s} {t / div / 1e3:9.2f} {unit} {c:7d}  "
+                  f"{idle_s}")
     collectives = collective_rows(events)
     if collectives:
         kinds: Dict[str, Tuple[int, int]] = {}

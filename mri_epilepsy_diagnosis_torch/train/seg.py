@@ -37,6 +37,13 @@ same global loss and keeps the same state; rank 0 writes the checkpoints.
 is updated once per completed epoch with its mean train and validation
 losses, as in the JAX package; under a mesh only rank 0 updates it, as
 only rank 0 writes checkpoints.
+
+Under a torch profiler (`obs.profile_trace`) every step of `run_epoch` is
+one `seg::step` span on the loop's thread, holding in order
+`seg::next_batch`, `seg::cast` (with `input_dtype`), `seg::forward`,
+`seg::backward`, `seg::optimizer`, `seg::stats` (packed training),
+`seg::loss_sync` (the host waits for the card) and `seg::log`
+(`obs.span`).
 """
 from __future__ import annotations
 
@@ -58,6 +65,7 @@ from ..metrics import (compute_average_surface_distance,
                        compute_dice_coefficient, compute_surface_distances,
                        get_dice_loss, get_iou_score)
 from ..models.unet import UNet3D
+from ..obs import span
 from ..parallel import sharding as _S
 from ..models.unet_packed import (fold_bn_inference, packed_dice_loss,
                                   packed_unet_apply_v2, packed_unet_mask_v2,
@@ -92,15 +100,17 @@ def _apply_gradients(state: TrainState, loss: torch.Tensor) -> TrainState:
     rank: each backpropagates its share and the gradients are summed over
     the ranks before the step (`parallel.sharding.backward`,
     `sync_gradients`)."""
-    state.optimizer.zero_grad(set_to_none=True)
-    _S.backward(loss)
-    params = [p for group in state.optimizer.param_groups
-              for p in group["params"]]
-    for p in params:
-        if p.requires_grad and p.grad is None:
-            p.grad = torch.zeros_like(p)
-    _S.sync_gradients(params)
-    state.optimizer.step()
+    with span("seg::backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        _S.backward(loss)
+    with span("seg::optimizer"):
+        params = [p for group in state.optimizer.param_groups
+                  for p in group["params"]]
+        for p in params:
+            if p.requires_grad and p.grad is None:
+                p.grad = torch.zeros_like(p)
+        _S.sync_gradients(params)
+        state.optimizer.step()
     state.step += 1
     return state
 
@@ -138,8 +148,10 @@ def seg_train_step(state: TrainState, inputs, raw_labels):
     its random streams from `step_generators(state.step)` on the model's
     device.  Returns (state, loss), the loss a detached scalar tensor on
     the device."""
-    loss = seg_loss(state.model, inputs, binarize_segmentation(raw_labels),
-                    **step_generators(state.step, state.device))
+    with span("seg::forward"):
+        loss = seg_loss(state.model, inputs,
+                        binarize_segmentation(raw_labels),
+                        **step_generators(state.step, state.device))
     return _apply_gradients(state, loss), loss.detach()
 
 
@@ -180,11 +192,13 @@ def packed_seg_train_step(state: TrainState, inputs, raw_labels,
     only.  `remat=True` recomputes each two-conv block in the backward;
     `dec_up` picks the decoder's up branch ("explicit", the default,
     "composed" or "hybrid": `packed_unet_train_apply`)."""
-    loss, stats = packed_seg_loss(state.model, inputs,
-                                  binarize_segmentation(raw_labels), remat,
-                                  dec_up)
+    with span("seg::forward"):
+        loss, stats = packed_seg_loss(state.model, inputs,
+                                      binarize_segmentation(raw_labels),
+                                      remat, dec_up)
     state = _apply_gradients(state, loss)
-    _store_running_stats(state.model, stats)
+    with span("seg::stats"):
+        _store_running_stats(state.model, stats)
     return state, loss.detach()
 
 
@@ -193,20 +207,24 @@ def seg_eval_step(state: TrainState, inputs, raw_labels):
     """Dice loss of the model in eval mode (running statistics, no
     Dropout).  Bayesian layers sample in eval mode too, from a fresh
     generator seeded with 0 (JAX's `key(0)`), so two evaluations agree."""
-    state.model.eval()
-    gen = torch.Generator(device=state.device).manual_seed(0)
-    logits = state.model(inputs, sample_generator=gen)
-    return _dice_loss_from_logits(logits, binarize_segmentation(raw_labels))
+    with span("seg::forward"):
+        state.model.eval()
+        gen = torch.Generator(device=state.device).manual_seed(0)
+        logits = state.model(inputs, sample_generator=gen)
+        return _dice_loss_from_logits(logits,
+                                      binarize_segmentation(raw_labels))
 
 
 @torch.no_grad()
 def packed_seg_eval_step(state: TrainState, inputs, raw_labels):
     """Validation through the served packed forward with BatchNorm left
     unfolded (B1 with its B2 epilogue at the aligned->shifted convs)."""
-    logits = packed_unet_apply_v2(
-        state.model.state_dict(), inputs,
-        num_encoding_blocks=_num_encoding_blocks(state.model))
-    return _dice_loss_from_logits(logits, binarize_segmentation(raw_labels))
+    with span("seg::forward"):
+        logits = packed_unet_apply_v2(
+            state.model.state_dict(), inputs,
+            num_encoding_blocks=_num_encoding_blocks(state.model))
+        return _dice_loss_from_logits(logits,
+                                      binarize_segmentation(raw_labels))
 
 
 def _device_batches(loader, prefetch: int, device: torch.device,
@@ -262,21 +280,31 @@ def run_epoch(epoch_idx: int, action: Action, loader, state: TrainState,
     is_training = action == Action.TRAIN
     epoch_losses = []
     mesh = _mesh_of(sharding)
-    for inputs, labels in _device_batches(loader, prefetch, state.device,
-                                          sharding):
-        if input_dtype is not None:
-            inputs = inputs.to(input_dtype)
-        with _S.use_mesh(mesh):
-            if is_training:
-                state, loss = train_step(state, inputs, labels)
-            else:
-                loss = eval_step(state, inputs, labels)
-        loss_val = float(loss)
-        epoch_losses.append(loss_val)
-        if experiment:
-            experiment.log_metric(
-                "train_dice_loss" if is_training else "validate_dice_loss",
-                loss_val)
+    batches = _device_batches(loader, prefetch, state.device, sharding)
+    while True:
+        with span("seg::step"):
+            with span("seg::next_batch"):
+                # no name holds the batch's tuple: the uncast inputs are
+                # freed at the cast
+                inputs, labels = next(batches, (None, None))
+            if inputs is None:
+                break
+            if input_dtype is not None:
+                with span("seg::cast"):
+                    inputs = inputs.to(input_dtype)
+            with _S.use_mesh(mesh):
+                if is_training:
+                    state, loss = train_step(state, inputs, labels)
+                else:
+                    loss = eval_step(state, inputs, labels)
+            with span("seg::loss_sync"):
+                loss_val = float(loss)
+            epoch_losses.append(loss_val)
+            if experiment:
+                with span("seg::log"):
+                    experiment.log_metric(
+                        "train_dice_loss" if is_training
+                        else "validate_dice_loss", loss_val)
     return state, np.array(epoch_losses)
 
 

@@ -89,6 +89,13 @@ def _fixture():
             cat="user_annotation"),
         _op("c10d::allreduce_", 1990.0, 20.0, [[[1024]], []],
             ["TensorList", ""]),
+        # the loop's spans (`obs.span`), one nested in another, and the
+        # prefetcher's on its own thread
+        _op("seg::step", 0.0, 600.0, [], [], cat="user_annotation"),
+        _op("seg::forward", 0.0, 250.0, [], [], cat="user_annotation"),
+        _op("seg::loss_sync", 250.0, 350.0, [], [], cat="user_annotation"),
+        _op("data::stage", 100.0, 20.0, [], [], tid=2,
+            cat="user_annotation"),
     ]
 
 
@@ -188,6 +195,35 @@ def test_copy_rows_attribute_bytes_to_package_frames(capsys):
     assert TS.shape_bytes([2, 4, 8], "c10::BFloat16") == (
         JTS.hlo_shape_bytes("bf16[2,4,8]{2,1,0}"))
     assert TS.shape_bytes([10], "float") == JTS.hlo_shape_bytes("f32[10]")
+
+
+def test_span_rows_give_host_time_and_device_idle_inside():
+    """Each span name's count, host time and the time inside its ranges in
+    which no kernel, copy or memset ran on any card.  The fixture's cards
+    are busy over [0, 110], [120, 170], [200, 240], [300, 305],
+    [310, 317], [400, 402] and [500, 1500]."""
+    rows = {r[0]: r[1:] for r in TS.span_rows(_fixture())}
+    assert rows["seg::forward"] == (1, 250.0, 10.0 + 30.0 + 10.0)
+    assert rows["seg::loss_sync"] == (1, 350.0, 50.0 + 5.0 + 83.0 + 98.0)
+    assert rows["seg::step"] == (1, 600.0, 286.0)
+    assert rows["data::stage"] == (1, 20.0, 10.0)
+    # the collective ranges are host ranges too
+    assert rows["nccl:all_reduce"][:2] == (2, 10.0)
+    assert [r[0] for r in TS.span_rows(_fixture())][:2] == ["seg::step",
+                                                            "seg::loss_sync"]
+    # a host-only trace has no idle to give
+    host = [e for e in _fixture() if e.get("pid") == 100]
+    assert {r[3] for r in TS.span_rows(host)} == {None}
+
+
+def test_print_summary_prints_the_span_table(tmp_path, capsys):
+    with gzip.open(tmp_path / "host_1.1.pt.trace.json.gz", "wt") as fh:
+        json.dump({"traceEvents": _fixture()}, fh)
+    TS.print_summary(str(tmp_path), iters=2)
+    out = capsys.readouterr().out
+    assert "host spans" in out
+    line, = [x for x in out.splitlines() if x.startswith("seg::step")]
+    assert line.split()[1:5] == ["0.30", "ms/iter", "1", "0.14"]
 
 
 def test_collective_rows_count_backend_ranges():
