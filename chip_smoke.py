@@ -56,7 +56,14 @@ Phases (each raises on failure, so the script exits nonzero):
       8 cuBLAS GEMMs with a float32 result each).  Each site's forward at
       batch 2 and dx at batch 1 and 2, in f32 and bf16, is held against
       the plain version, dw against an f32 einsum, and all three are timed
-      beside cuDNN's `convolution_backward` of the same packed conv;
+      beside cuDNN's `convolution_backward` of the same packed conv; the
+      step's BatchNorm tail (`BnActTrainPacked`, `csrc/bn_train_packed.cu`:
+      9 statistics, 10 apply, 10 backward reduction and 10 dx passes) is
+      recorded too, and each pass at its shape is held against its plain
+      version and timed beside it and its byte bound, on parameters
+      built as the Function builds them (the dx pass's statistics term
+      at least 16 bf16 steps of max|dy|, so a dx kernel that dropped it
+      would fail);
    b. f32 parity at 64^3, batch 1, TF32 off: the packed step's loss,
       gradients and running statistics against the fine UNet3D train
       step (cuDNN);
@@ -65,8 +72,9 @@ Phases (each raises on failure, so the script exits nonzero):
       batch, a checkpoint into `chiprun_out/` that is reloaded), then 1
       warm-up and 5 timed `packed_seg_train_step`s: finite and falling
       losses, float32 master weights, exact launch counts per step (B1 23,
-      22 on tensor cores, 11 of them input gradients; B2 0), ms per step,
-      vol/s, peak memory, and the B1-forward / B1-dx / dw / other split
+      22 on tensor cores, 11 of them input gradients; B2 0; the tail's
+      passes 9, 10, 10, 10 and no call of their plain versions), ms per
+      step, vol/s, peak memory, and the B1-forward / B1-dx / dw / other split
       of one profiled step;
 7. training as users run it:
    a. gradient accumulation (`packed_seg_train_step_accum`): in f32 at
@@ -104,10 +112,12 @@ Phases (each raises on failure, so the script exits nonzero):
       with a collate that preprocesses on the card, one
       `train_segmentation` epoch, `validate_dsc_asd`), then 64^3 patches
       (`PatchQueue` with 2 workers, `batched(16)`) through the same
-      trainer; every B1 launch of a batch-16 patch step against its plain
-      version; 5 timed steps with exact launch counts (B1 23, 22 on
-      tensor cores, 11 dx), the device split of a step, and the device
-      idle share of a profiled epoch from files;
+      trainer; every B1 launch and every pass of the BatchNorm tail of a
+      batch-16 patch step against its plain version (the tail's passes
+      timed beside theirs and their byte bound); 5 timed steps with exact
+      launch counts (B1 23, 22 on tensor cores, 11 dx; the tail's passes
+      9, 10, 10, 10, no plain call), the device split of a step, and the
+      device idle share of a profiled epoch from files;
    e. `sliding_window_predict` of one 192^3 volume, patch 64, overlap 4
       (64 patches, one batch-64 call of the BN-folded packed UNet), bf16
       and f32, crop and average, with exact launch counts per call (B1
@@ -266,7 +276,7 @@ Phases (each raises on failure, so the script exits nonzero):
       launches as the same profiler's `key_averages()` does (B1 12, 5 of
       them with B2 fused), device ms within 1%, and attributes copies to
       the port's source lines; in phase 14's profiled mesh step it counts
-      39 all-reduces.  The profiler drops a kernel's record now and then:
+      21 all-reduces.  The profiler drops a kernel's record now and then:
       a window whose trace holds a launch without its kernel is traced
       again (here and in b and e);
    b. `torch_train_segmentation.py` at phase 6's configuration (192^3,
@@ -293,6 +303,7 @@ It prints one line per check, then `{"kernels": [...]}` (the kernels of
 the served path: B1 on tensor cores, B2 fused into B1 on either route,
 fused B3; of the training path: B1's forward on tensor cores, the
 stem's forward on CUDA cores, B1 as input gradient; of f32 validation;
+of the BatchNorm tail's passes on the training and patch-training paths;
 of phase 8's sliding window and patch training; of phase 9's fader
 training: fused B3, B3's dx and dw and the `conv_axis` recomputes on
 tensor cores; of phase 11's int8 serving: K1 on its wgmma route and on
@@ -372,18 +383,24 @@ UNET_PER_BATCH = {"conv2_packed": len(B1_SITES),
                   "bn_act_zero_pads": 0, "conv_axis": 0,
                   "conv_axis_tc": 0, "separable_conv3d": 0,
                   "conv_axis_dx": 0, "conv_axis_dw": 0,
-                  "conv_axis_dx_tc": 0, "conv_axis_dw_tc": 0}
+                  "conv_axis_dx_tc": 0, "conv_axis_dw_tc": 0,
+                  "bn_train_stats": 0, "bn_train_apply": 0,
+                  "bn_train_reduce": 0, "bn_train_dx": 0}
 ENSEMBLE_PER_BATCH = {**UNET_PER_BATCH, "separable_conv3d": len(B3_STACKS)}
 
 # training (phase 6): a packed train step launches B1 for each of the 12
 # convs (none with the B2 epilogue: BN needs the batch statistics of the
 # conv's output) and for each input gradient but the stem's input (11).
 # In bf16 all but the 8Ci = 8 stem forward take the tensor cores: every
-# dx has 8Ci and 8Co multiples of 64.
+# dx has 8Ci and 8Co multiples of 64.  The tail of each of the 10
+# ConvBlocks is one `BnActTrainPacked`: an apply pass forward and a
+# reduction and a dx pass backward each, a statistics pass for all but
+# the stem's conv1, which has no BatchNorm.
 TRAIN_BATCH = 2
 TRAIN_BATCHES = 3              # training loader of train_segmentation
 TIMED_STEPS = 5
 DX_SITES = B1_SITES[1:]
+BN_TAILS = 2 * (2 * (BLOCKS - 1) + 1)   # two ConvBlocks a block
 TRAIN_PER_STEP = {"conv2_packed": len(B1_SITES) + len(DX_SITES),
                   "conv2_packed_tc": len(B1_SITES) - 1 + len(DX_SITES),
                   "conv2_packed_dx": len(DX_SITES),
@@ -392,7 +409,11 @@ TRAIN_PER_STEP = {"conv2_packed": len(B1_SITES) + len(DX_SITES),
                   "bn_act_zero_pads": 0, "conv_axis": 0,
                   "conv_axis_tc": 0, "separable_conv3d": 0,
                   "conv_axis_dx": 0, "conv_axis_dw": 0,
-                  "conv_axis_dx_tc": 0, "conv_axis_dw_tc": 0}
+                  "conv_axis_dx_tc": 0, "conv_axis_dw_tc": 0,
+                  "bn_train_stats": BN_TAILS - 1, "bn_train_apply": BN_TAILS,
+                  "bn_train_reduce": BN_TAILS, "bn_train_dx": BN_TAILS}
+BN_PASSES = ("bn_train_stats", "bn_train_apply", "bn_train_reduce",
+             "bn_train_dx")
 # dw sums K = N x cells ~ 1.8M products per entry in f32 in an order that
 # neither side controls; sequential f32 accumulation errs by about
 # sqrt(K) 2^-24 ~ 1e-4 of a typical entry, a few times less of the
@@ -789,8 +810,6 @@ def record_sites(K, P, fn):
     """Every B1 launch the served forward `fn()` makes, in call order, with
     its shapes and whether B2 runs as its epilogue (and with an addend);
     and the standalone B2 calls (none on the served path)."""
-    import types
-
     sites = {"conv2_packed": [], "bn_act_zero_pads": []}
     conv, fused, epi = (K.conv2_packed, K.conv2_packed_as_bn_act,
                         K.bn_act_zero_pads)
@@ -812,10 +831,8 @@ def record_sites(K, P, fn):
         return epi(xs, scale, shift, alpha, masks)
 
     # the packed ops reach the kernels through their module's `K`
-    P.K = types.SimpleNamespace(conv2_packed=rec_conv,
-                                conv2_packed_as_bn_act=rec_fused,
-                                bn_act_zero_pads=rec_epi,
-                                conv2_packed_dx=K.conv2_packed_dx)
+    P.K = k_proxy(K, conv2_packed=rec_conv, conv2_packed_as_bn_act=rec_fused,
+                  bn_act_zero_pads=rec_epi)
     try:
         fn()
     finally:
@@ -1381,7 +1398,10 @@ PORT_KERNELS = ("conv2_packed_tc_kernel", "conv2_packed_kernel",
                 "conv_axis_dw_finish_kernel", "axis_dx_tc_kernel",
                 "axis_dw_tc_kernel", "axis_dw_tc_finish_kernel",
                 "conv2_packed_s8_kernel", "conv2_packed_s8_tc_kernel",
-                "upconv_packed_s8_kernel")
+                "upconv_packed_s8_kernel", "bn_train_stats_kernel",
+                "bn_train_apply_kernel", "bn_train_reduce_kernel",
+                "bn_train_dx_kernel", "bn_train_fold_kernel")
+BN_KERNELS = PORT_KERNELS[-5:]
 
 
 def absorb_profiler_startup():
@@ -1415,7 +1435,11 @@ def device_rows(prof):
 
     rows = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a range (`obs.span`, `record_function`) around work on the card
+        # also has a device-side row, over the kernels it holds: not an
+        # event of its own (torch's own table leaves it out too)
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1495,6 +1519,7 @@ def profile_batch(fn, top: int = 12, host_ops: bool = True,
             + ours["conv2_packed_s8_tc_kernel"],
             "conv2_packed_s8_tc_ms": ours["conv2_packed_s8_tc_kernel"],
             "upconv_packed_s8_ms": ours["upconv_packed_s8_kernel"],
+            "bn_train_ms": sum(ours[k] for k in BN_KERNELS),
             "other_kernels_ms": device_ms - copy_ms - sum(ours.values()),
             "groups_ms": _group_ms(rows, groups or {}),
             "top": [{"name": k[:name_len], "ms": ms, "calls": n}
@@ -1513,14 +1538,31 @@ def _group_ms(rows, groups):
     return out
 
 
-def record_train_sites(K, P, fn):
-    """The B1 launches (forward and input gradient) and the dw
-    contractions of one packed train step `fn()`, in call order, with
-    their shapes."""
+def k_proxy(K, **over):
+    """The kernels module's public names with `over` in place of some:
+    what a recorder installs as a packed module's `K`."""
     import types
 
-    sites = {"forward": [], "dx": [], "dw": []}
+    return types.SimpleNamespace(**{
+        **{k: getattr(K, k) for k in dir(K) if not k.startswith("__")},
+        **over})
+
+
+def record_train_sites(K, P, fn):
+    """The B1 launches (forward and input gradient), the dw contractions
+    and the passes of the BatchNorm tail (`bn`: pass, tensor shape, dtype
+    and keywords) of one packed train step `fn()`, in call order, with
+    their shapes."""
+    sites = {"forward": [], "dx": [], "dw": [], "bn": []}
     conv, dx, dw = K.conv2_packed, K.conv2_packed_dx, P._dw_packed_qgroup
+
+    def rec_bn(name):
+        def run(y, *args, **kw):
+            sites["bn"].append({"pass": name, "y": tuple(y.shape),
+                                "dtype": str(y.dtype).split(".")[-1],
+                                **kw})
+            return getattr(K, name)(y, *args, **kw)
+        return run
 
     def rec_conv(x, wp, bias=None, *, pad=0):
         sites["forward"].append({"x": tuple(x.shape), "wp": tuple(wp.shape),
@@ -1538,9 +1580,8 @@ def record_train_sites(K, P, fn):
 
     # the packed convs reach B1 through their module's `K` and dw through
     # the module-level `_dw_packed_qgroup`
-    P.K = types.SimpleNamespace(conv2_packed=rec_conv, conv2_packed_dx=rec_dx,
-                                conv2_packed_as_bn_act=K.conv2_packed_as_bn_act,
-                                bn_act_zero_pads=K.bn_act_zero_pads)
+    P.K = k_proxy(K, conv2_packed=rec_conv, conv2_packed_dx=rec_dx,
+                  **{k: rec_bn(k) for k in BN_PASSES})
     P._dw_packed_qgroup = rec_dw
     try:
         fn()
@@ -1848,15 +1889,14 @@ def parity_phase(TS, UNet3D, gen):
 
 def step_split(K, P, fn):
     """Device time of the B1 forward launches, the B1 input-gradient
-    launches and the dw contractions of one call of fn, from CUDA events
+    launches, the dw contractions and the passes of the BatchNorm tail
+    of one call of fn, from CUDA events
     recorded around each call on the stream (the wrappers' own weight
     re-layouts included).  Returns fn's result and a function that reads
     the sums (after a synchronize)."""
-    import types
-
     import torch
 
-    pairs = {"b1_forward": [], "b1_dx": [], "dw": []}
+    pairs = {"b1_forward": [], "b1_dx": [], "dw": [], "bn_tail": []}
 
     def bracket(key, f):
         def run(*args, **kw):
@@ -1870,11 +1910,10 @@ def step_split(K, P, fn):
         return run
 
     dw = P._dw_packed_qgroup
-    P.K = types.SimpleNamespace(
-        conv2_packed=bracket("b1_forward", K.conv2_packed),
-        conv2_packed_dx=bracket("b1_dx", K.conv2_packed_dx),
-        conv2_packed_as_bn_act=K.conv2_packed_as_bn_act,
-        bn_act_zero_pads=K.bn_act_zero_pads)
+    P.K = k_proxy(K, conv2_packed=bracket("b1_forward", K.conv2_packed),
+                  conv2_packed_dx=bracket("b1_dx", K.conv2_packed_dx),
+                  **{k: bracket("bn_tail", getattr(K, k))
+                     for k in BN_PASSES})
     P._dw_packed_qgroup = bracket("dw", dw)
     try:
         out = fn()
@@ -1942,9 +1981,10 @@ def training_phase(K, P, UNet3D, gen, launch_counts):
     K.reset_launch_counts()
     losses = []
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        state, loss = Tr.packed_seg_train_step(state, xb, lb)
-        losses.append(float(loss))
+    with no_plain_bn(K, f"{TIMED_STEPS} train steps"):
+        for _ in range(TIMED_STEPS):
+            state, loss = Tr.packed_seg_train_step(state, xb, lb)
+            losses.append(float(loss))
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     counts = launch_counts()
@@ -1970,7 +2010,8 @@ def training_phase(K, P, UNet3D, gen, launch_counts):
     prof = profile_batch(profiled_step)
     split = box["read"]()
     split["other_kernels_ms"] = (prof["kernel_ms"] - split["b1_forward_ms"]
-                                 - split["b1_dx_ms"] - split["dw_ms"])
+                                 - split["b1_dx_ms"] - split["dw_ms"]
+                                 - split["bn_tail_ms"])
     out = {"size": SIZE, "batch": TRAIN_BATCH, "dtype": "bf16",
            "ocfl": OCFL, "dec_up": "explicit", "remat": False,
            "foreground_share": fg,
@@ -1995,11 +2036,185 @@ def training_phase(K, P, UNet3D, gen, launch_counts):
     return out
 
 
+@contextlib.contextmanager
+def no_plain_bn(K, label):
+    """Counts the calls of the BatchNorm tail's plain passes while the
+    block runs: a CUDA tensor never takes them, so there must be none."""
+    calls = []
+    saved = {k: getattr(K, k + "_plain") for k in BN_PASSES}
+
+    def counting(name, f):
+        def run(*args, **kw):
+            calls.append(name)
+            return f(*args, **kw)
+        return run
+
+    for k, f in saved.items():
+        setattr(K, k + "_plain", counting(k, f))
+    try:
+        yield
+    finally:
+        for k, f in saved.items():
+            setattr(K, k + "_plain", f)
+    log(f"plain BatchNorm-tail passes ({label}): {len(calls)} (expected 0)")
+    if calls:
+        raise AssertionError(f"{label}: plain passes ran on the card: "
+                             f"{sorted(set(calls))}")
+
+
+def bn_step_sites(sites):
+    """The recorded tail passes of one train step, their count by pass
+    gated at TRAIN_PER_STEP's."""
+    got = {k: sum(s["pass"] == k for s in sites["bn"]) for k in BN_PASSES}
+    want = {k: TRAIN_PER_STEP[k] for k in BN_PASSES}
+    if got != want:
+        raise AssertionError(f"BatchNorm-tail passes per step {got} != {want}")
+    return sites["bn"]
+
+
+# bytes each pass of the tail moves, in units of the tensor's size: stats
+# reads y; apply reads y and writes out; reduce reads y and g; dx reads y
+# and g and writes dy
+BN_PASS_BYTES = {"bn_train_stats": 1, "bn_train_apply": 2,
+                 "bn_train_reduce": 2, "bn_train_dx": 3}
+
+
+# the dx pass's statistics term against dy, at the check's parameters:
+# at least this share of max|dy| (16 bf16 steps), so that a dx kernel that
+# dropped the term, flipped it or put it on other cells fails the check
+BN_STAT_SHARE_MIN = 16 * 2.0 ** -7
+
+
+def bn_check_inputs(K, P, shape, dtype, gen, kw):
+    """y, a cotangent g and the (8, C) parameter rows of a check of the
+    tail's passes, built as `BnActTrainPacked` builds them: mean and rstd
+    from y's statistics over the owned cells, gamma, beta, alpha drawn,
+    k2 and k3 from the reduction of a g that follows yh (so the dx pass's
+    statistics term is of the size of its other term)."""
+    import torch
+
+    c = shape[-1] // 8
+    faces = {"shifted": kw["shifted"], "d_faces": kw["d_faces"]}
+    owned = kw.get("owned_d", shape[1])
+    y = (torch.randn(shape, generator=gen, device="cuda") * 2
+         + 0.5).to(dtype)
+    valid = K.bn_train_stats_plain(torch.ones_like(y), owned_d=owned,
+                                   **faces)[0, 0].item()
+    mean, _, rstd, kept = P.bn_train_moments(
+        K.bn_train_stats_plain(y, owned_d=owned, **faces), valid)
+    prm = torch.stack([mean, rstd,
+                       torch.rand(c, generator=gen, device="cuda") + 0.5,
+                       torch.randn(c, generator=gen, device="cuda"),
+                       torch.rand(c, generator=gen, device="cuda") * 0.5])
+    yh = (y.float() - mean.repeat(8)) * rstd.repeat(8)
+    g = (torch.randn(shape, generator=gen, device="cuda") + yh).to(dtype)
+    del yh
+    sums = K.bn_train_reduce_plain(y, g, prm, **faces)
+    return y, g, P.bn_train_dx_rows(prm, sums[:2], valid, kept)
+
+
+def bn_tail_rows(K, P, sites, label, reps=20, plain_reps=3):
+    """Each distinct pass of the BatchNorm tail recorded in one train step
+    (`record_train_sites(...)["bn"]`) at its shape and dtype, on the
+    inputs of `bn_check_inputs`: the kernel against its plain version (the
+    sums to float32 summation order over the sums of magnitudes, the
+    elementwise passes to one rounding of the dtype; the dx pass's
+    statistics term at least BN_STAT_SHARE_MIN of max|dy|), timed with
+    CUDA events beside the plain version and the byte bound
+    (BN_PASS_BYTES at HBM_BYTES_PER_S).  Returns the rows and, by pass,
+    the step's launches, ms, bound_ms and plain_ms (each row times the
+    calls that share it).  Its inputs come from a generator of its own, so
+    the phases after it draw what they drew before it was added."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    groups = {}
+    for site in sites:
+        key = json.dumps(site, sort_keys=True)
+        groups.setdefault(key, [site, 0])[1] += 1
+    rows = []
+    for site, calls in groups.values():
+        name = site["pass"]
+        dtype = getattr(torch, site["dtype"])
+        kw = {k: v for k, v in site.items()
+              if k not in ("pass", "y", "dtype")}
+        y, g, prm = bn_check_inputs(K, P, site["y"], dtype, gen, kw)
+        args = {"bn_train_stats": (y,), "bn_train_apply": (y, prm[:5]),
+                "bn_train_reduce": (y, g, prm[:5]),
+                "bn_train_dx": (y, g, prm)}[name]
+        kernel, plain = getattr(K, name), getattr(K, name + "_plain")
+        got = kernel(*args, **kw)
+        ref = plain(*args, **kw)
+        diff = (got.float() - ref.float()).abs()
+        stat_share = None
+        if name in ("bn_train_stats", "bn_train_reduce"):
+            mag = K.bn_train_sum_scale(*args, **kw)
+            err = (diff / (mag + 1e-30)).max().item()
+            ok = bool((diff <= 1e-5 * mag + 1e-6).all())
+        else:
+            err = (diff.max() / ref.float().abs().max()).item()
+            ok = err <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+        if name == "bn_train_dx":
+            no_stat = prm.clone()
+            no_stat[6:] = 0
+            stat_share = ((plain(y, g, no_stat, **kw).float()
+                           - ref.float()).abs().max()
+                          / ref.float().abs().max()).item()
+            ok = ok and stat_share >= BN_STAT_SHARE_MIN
+        abs_err = diff.max().item()
+        del got, ref, diff
+        ms = time_ms(lambda: kernel(*args, **kw), reps)
+        plain_ms = time_ms(lambda: plain(*args, **kw), plain_reps)
+        nbytes = BN_PASS_BYTES[name] * y.numel() * y.element_size()
+        rows.append({"pass": name, "y": site["y"], "dtype": site["dtype"],
+                     **kw, "calls": calls, "ms": ms, "plain_ms": plain_ms,
+                     "bytes": nbytes,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes", "library_ms": None,
+                     "max_rel_err": err, "max_abs_err": abs_err,
+                     "stat_share": stat_share})
+        del y, g, args
+        if not ok:
+            raise AssertionError(f"{label} {name} {site}: kernel against "
+                                 f"plain {err}, statistics term "
+                                 f"{stat_share} of max|dy|")
+    torch.cuda.empty_cache()
+    totals = {name: {k: sum(r[k] * (r["calls"] if k != "calls" else 1)
+                            for r in rows if r["pass"] == name)
+                     for k in ("calls", "ms", "bound_ms", "plain_ms")}
+              for name in BN_PASSES}
+    for t in totals.values():
+        t["share_of_bound"] = t["bound_ms"] / t["ms"] if t["ms"] else None
+    log(f"BatchNorm tail ({label}): {json.dumps(totals)}")
+    return rows, totals
+
+
+def bn_tail_entry(rows, totals, launches, **extra):
+    """A kernels-line entry for `csrc/bn_train_packed.cu` on one path: its
+    rows of `bn_tail_rows` summed over the calls of one step, the passes'
+    totals beside."""
+    src = "mri_epilepsy_diagnosis_torch/csrc/bn_train_packed.cu"
+    step_rows = [{k: r[k] * r["calls"] for k in ("ms", "plain_ms",
+                                                 "bound_ms")}
+                 | {"bound_by": "bytes", "library_ms": None} for r in rows]
+    errs = {dn: max((r["max_abs_err"] for r in rows if r["dtype"] == dt),
+                    default=None)
+            for dn, dt in (("bf16", "bfloat16"), ("f32", "float32"))}
+    return kernel_entry(
+        "bn_train_packed." + extra["path"], src,
+        "mri_epilepsy_diagnosis_tpu/models/unet_packed.py:339 "
+        "(_block_train, and its autograd)", step_rows, errs, launches,
+        sum(TRAIN_PER_STEP[k] for k in BN_PASSES), passes=totals,
+        stat_share_min=min(r["stat_share"] for r in rows
+                           if r["stat_share"] is not None), **extra)
+
+
 def _counted_b1(c):
     """B1 launches of a counts dict per kernel instantiation (the entries
     of the kernels line): tensor-core plain store (forward, no dx),
     tensor-core with B2 fused, CUDA-core plain store (the stem and all of
-    f32), CUDA-core with B2 fused, tensor-core input gradients."""
+    f32), CUDA-core with B2 fused, tensor-core input gradients; and the
+    other kernels' (`bn_train_packed`: the BatchNorm tail's passes)."""
     return {"conv2_packed_tc": c["conv2_packed_tc"]
             - c["conv2_packed_as_bn_act_tc"] - c["conv2_packed_dx_tc"],
             "conv2_packed_tc_bn_act": c["conv2_packed_as_bn_act_tc"],
@@ -2014,7 +2229,8 @@ def _counted_b1(c):
             "conv_axis_dx": c["conv_axis_dx"],
             "conv_axis_dw": c["conv_axis_dw"],
             "conv_axis_dx_tc": c["conv_axis_dx_tc"],
-            "conv_axis_dw_tc": c["conv_axis_dw_tc"]}
+            "conv_axis_dw_tc": c["conv_axis_dw_tc"],
+            "bn_train_packed": sum(c.get(k, 0) for k in BN_PASSES)}
 
 
 def _expect_counts(label, counts, want):
@@ -2730,6 +2946,9 @@ def files_training_phase(K, P, UNet3D, gen, launch_counts, ds, landmarks,
     bwd_rows, bwd_err = backward_site_rows(K, P, sites["forward"], gen,
                                            "patch train", [(None, "bf16")],
                                            (None, "bf16"))
+    bn_rows, bn_totals = bn_tail_rows(
+        K, P, bn_step_sites(sites),
+        f"patch train step, {PATCH}^3 batch {PATCH_BATCH} bf16")
 
     pstate, loss = Tr.packed_seg_train_step(pstate, xb, lb)     # warm-up
     warm_loss = float(loss)
@@ -2737,9 +2956,10 @@ def files_training_phase(K, P, UNet3D, gen, launch_counts, ds, landmarks,
     K.reset_launch_counts()
     losses = []
     t0 = time.perf_counter()
-    for _ in range(PATCH_STEPS):
-        pstate, loss = Tr.packed_seg_train_step(pstate, xb, lb)
-        losses.append(float(loss))
+    with no_plain_bn(K, f"{PATCH_STEPS} patch train steps"):
+        for _ in range(PATCH_STEPS):
+            pstate, loss = Tr.packed_seg_train_step(pstate, xb, lb)
+            losses.append(float(loss))
     step_s = (time.perf_counter() - t0) / PATCH_STEPS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_counts = launch_counts()
@@ -2756,7 +2976,8 @@ def files_training_phase(K, P, UNet3D, gen, launch_counts, ds, landmarks,
     split = box["read"]()
     split["other_kernels_ms"] = (step_prof["kernel_ms"]
                                  - split["b1_forward_ms"]
-                                 - split["b1_dx_ms"] - split["dw_ms"])
+                                 - split["b1_dx_ms"] - split["dw_ms"]
+                                 - split["bn_tail_ms"])
     # the same steady state for the queue, which fills past max_length
     # several times over the repeated subjects
     long_queue = PatchQueue(cohort, max_length=PATCH_QUEUE_LENGTH,
@@ -2794,7 +3015,8 @@ def files_training_phase(K, P, UNet3D, gen, launch_counts, ds, landmarks,
                        "profile_epoch_steps": -(-len(long_queue)
                                                 // PATCH_BATCH),
                        "forward_max_abs_err": fwd_err,
-                       "dx_max_abs_err": bwd_err["dx"]}}
+                       "dx_max_abs_err": bwd_err["dx"],
+                       "bn_tail": bn_totals, "bn_tail_sites": bn_rows}}
     log(f"training from files: {json.dumps(out)}")
     if not np.isfinite(tr + va + ptr + pva + losses).all():
         raise AssertionError("non-finite losses from files")
@@ -5141,6 +5363,8 @@ def nccl_profile(fn, trace_dir):
             if e.key.startswith("nccl:"):
                 calls[e.key] = calls.get(e.key, 0) + e.count
             continue
+        if getattr(e, "is_user_annotation", False):     # as `device_rows`
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -5238,9 +5462,10 @@ def distribution_phase(K, UNet3D, gen, launch_counts, serving_inputs,
             states["mesh"], states["plain"])
         n_bn = sum(isinstance(m, torch.nn.BatchNorm3d)
                    for m in states["mesh"].model.modules())
-        # per BatchNorm two sums forward and two cotangents backward, the
-        # dice loss's global mean and its cotangent, one flat gradient
-        want_calls = {"nccl:all_reduce": 4 * n_bn + 2 + 1}
+        # per BatchNorm its (Σy, Σy²) forward and its two cotangent sums
+        # backward (`BnActTrainPacked`, one all-reduce each), the dice
+        # loss's global mean and its cotangent, one flat gradient
+        want_calls = {"nccl:all_reduce": 2 * n_bn + 2 + 1}
         ms = {}
         for name in ("plain", "mesh", "plain", "mesh"):
             step(name)                                   # warm-up
@@ -5397,7 +5622,7 @@ def c3_phase(UNet3D, gen):
 # own `key_averages()` over the same window: launches per port kernel
 # equal, device ms within 1%; phase 14's mesh step all-reduces as counted
 OBS_DEVICE_MS_RTOL = 0.01
-MESH_ALL_REDUCES = 39          # 9 BatchNorms x 4, dice mean and cotangent, 1
+MESH_ALL_REDUCES = 21          # 9 BatchNorms x 2, dice mean and cotangent, 1
 # the profiler drops a kernel's record now and then (runs on this card:
 # about one launch in a few thousand, in one window of four), which the
 # reader sees as a host launch without its kernel (`lost_launches`): such
@@ -5526,8 +5751,11 @@ def trace_reader_phase(serve_batch, trace_dir, mesh_trace_dir):
         raise AssertionError(f"15a: B1 {b1} and B2 fused "
                              f"{out['b2_fused_trace']} a batch")
     if abs(total_us / 1e3 - prof_ms) > OBS_DEVICE_MS_RTOL * prof_ms:
+        in_trace = {n: c for n, _, c in names}
+        unmatched = [r for r in rows if in_trace.get(r[0]) != r[2]]
         raise AssertionError(f"15a: device ms {total_us / 1e3} in the trace "
-                             f"against {prof_ms} in the profiler")
+                             f"against {prof_ms} in the profiler; rows "
+                             f"whose count differs: {unmatched[:8]}")
     if not sources:
         raise AssertionError("15a: no copy attributed to the port's source")
     if mesh_kinds.get("all_reduce", (0, 0))[0] != MESH_ALL_REDUCES:
@@ -6080,7 +6308,8 @@ def main() -> int:
                 "conv_axis_dx": K.conv_axis_dx.launches,
                 "conv_axis_dw": K.conv_axis_dw.launches,
                 "conv_axis_dx_tc": K.conv_axis_dx.tc_launches,
-                "conv_axis_dw_tc": K.conv_axis_dw.tc_launches}
+                "conv_axis_dw_tc": K.conv_axis_dw.tc_launches,
+                **{k: getattr(K, k).launches for k in BN_PASSES}}
 
     def counted(fn, per_batch):
         """Run fn with every launch count at 0 before it; each count after
@@ -6275,6 +6504,11 @@ def main() -> int:
     dx_names, dw_names = name_train_sites(train_sites)
     del rec_model, xr, yr
     torch.cuda.empty_cache()
+    # every pass of the BatchNorm tail of that step, against its plain
+    # version and timed
+    bn_train_rows, bn_train = bn_tail_rows(
+        K, P, bn_step_sites(train_sites),
+        f"train step, {SIZE}^3 batch {TRAIN_BATCH} bf16")
     # every forward site at TRAIN_BATCH, every dx at batch 1 and
     # TRAIN_BATCH, in f32 and bf16; dw in f32 at batch 1 and in bf16 at
     # TRAIN_BATCH; timed at TRAIN_BATCH in bf16
@@ -6596,6 +6830,9 @@ def main() -> int:
                      "(_conv3_packed_as_bwd)",
                      max_abs_err_f32_cuda_core=train_errs["dx"]["cuda_core"]
                      ["f32"]),
+        bn_tail_entry(bn_train_rows, bn_train,
+                      sum(t[k] for k in BN_PASSES), path="training",
+                      shapes=per_step),
     ]
     # the f32 validation forward of phase 7c: B1 on the CUDA-core kernel,
     # with B2 fused at the aligned->shifted sites
@@ -6683,6 +6920,10 @@ def main() -> int:
                      path="patch_training", shapes=per_patch,
                      gradient_of="mri_epilepsy_diagnosis_tpu/ops/packed.py:"
                      "230 (_conv3_packed_bwd), :479 (_conv3_packed_as_bwd)"),
+        bn_tail_entry(from_files["patches"]["bn_tail_sites"],
+                      from_files["patches"]["bn_tail"],
+                      sum(pt[k] for k in BN_PASSES), path="patch_training",
+                      shapes=per_patch),
     ]
     # phase 9: the B3 backward of the fader alternation, summed over the
     # calls of one batch (3 disc_step + 1 enc_clf_step, batch 35, bf16)
@@ -6846,7 +7087,9 @@ def main() -> int:
                   "conv2_packed_tc_bn_act.voxresnet_eval":
                       "conv2_packed_tc_bn_act",
                   "separable_conv3d.packed_ensemble": "separable_conv3d",
-                  "conv_axis_tc.packed_ensemble": "conv_axis_tc"}
+                  "conv_axis_tc.packed_ensemble": "conv_axis_tc",
+                  "bn_train_packed.training": "bn_train_packed",
+                  "bn_train_packed.patch_training": "bn_train_packed"}
     for entry in kernels:
         key = counted_as.get(entry["name"], entry["name"])
         entry["launches_by_path"] = {p: _counted_b1(n)[key]
@@ -6916,6 +7159,8 @@ def main() -> int:
                    "train_site_names": {"dx": dx_names, "dw": dw_names},
                    "train_forward_sites": train_rows["forward"],
                    "train_dx_sites": train_rows["dx"],
+                   "bn_tail_train": bn_train,
+                   "bn_tail_train_sites": bn_train_rows,
                    "train_dw_sites": dw_rows, "dw": dw,
                    "train_errs": train_errs, "parity_f32": parity,
                    "training": training, "training_phase_s": train_s,

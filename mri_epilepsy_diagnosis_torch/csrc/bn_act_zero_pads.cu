@@ -9,8 +9,8 @@
 //   y = y >= 0 ? y : alpha[c] * y
 //   out = y * md[d, c] * mh[h, c] * mw[w, c]
 // in float32, stored in x's dtype.  The masks zero the pad sub-positions of
-// the first and last cell along each axis (`ops/packed.py::
-// _shifted_pad_axis_mask`).  In BN-folded serving scale is 1 and shift the
+// the first and last cell along each axis (`ops/cuda_kernels.py::
+// shifted_pad_keep`).  In BN-folded serving scale is 1 and shift the
 // tiled conv bias.
 //
 // Bound on the H100: bytes.  It reads x once and writes it once (about

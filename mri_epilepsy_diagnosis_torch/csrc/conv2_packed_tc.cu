@@ -46,8 +46,8 @@
 //   mask is index arithmetic on the output cell and the channel's packed
 //   sub-position (sub = channel / (8Co / 8), bit 2 for D, 1 for H, 0 for
 //   W): on the last cell of an axis a sub with the bit set is a pad voxel,
-//   on the first cell one with the bit clear (`ops/packed.py::
-//   _shifted_pad_axis_mask`).  So B2 costs no pass of its own over the
+//   on the first cell one with the bit clear (`ops/cuda_kernels.py::
+//   shifted_pad_keep`).  So B2 costs no pass of its own over the
 //   shifted tensor, and the decoder's two partial sums meet in registers.
 //
 // Bound on the H100: operations (989 TFLOP/s dense bf16) at every site it

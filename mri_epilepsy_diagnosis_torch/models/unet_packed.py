@@ -24,7 +24,9 @@ both compute the same function.
 The train-mode forward (`packed_unet_train_apply`) runs the same 12 convs
 through B1 without the epilogue, since BatchNorm normalizes with the
 statistics of the conv's output; its backward runs every input gradient
-but the stem's through B1 as well (`ops/packed.py::Conv3Packed`).
+but the stem's through B1 as well (`ops/packed.py::Conv3Packed`).  The
+BN/PReLU/pad-mask tail of each of its ConvBlocks is one
+`ops/packed.py::BnActTrainPacked` (four hand-written passes).
 
 `state_dict` arguments are the `UNet3D` state dict, optionally BN-folded
 by `fold_bn_inference`: a flat mapping of fepegar keys to tensors.
@@ -258,24 +260,22 @@ def _block_train(y, sd: StateDict, block: str, *, shifted: bool,
                  valid: float):
     """Train-mode tail of a ConvBlock whose conv output is `y` (shifted or
     aligned packed): zero the pads, BN with batch statistics, PReLU, zero
-    the pads again.  Returns (activated y, new running statistics).
-    Under a spatial mesh a shifted slab's last cell is counted by the next
-    rank, unless this rank holds the volume's last face."""
-    stats = {}
-    owned = None
-    if shifted:
-        y = P.zero_shifted_pads(y)
-        if (_S.spatial_mesh() is not None
-                and not _S.spatial_edges()[1]):
-            owned = y.narrow(1, 0, y.shape[1] - 1)
-    if f"{block}.norm_layer.weight" in sd:
-        y, stats = _bn_train_packed(y, sd, block, valid=valid, owned=owned)
-    alpha = sd.get(f"{block}.activation_layer.weight")
-    if alpha is not None:
-        y = F.prelu(y, alpha)
-    if shifted:
-        y = P.zero_shifted_pads(y)
-    return y, stats
+    the pads again, as one `ops/packed.py::BnActTrainPacked` (four
+    hand-written passes on CUDA).  Returns (activated y, new running
+    statistics).  Under a spatial mesh a shifted slab's last cell is
+    counted by the next rank, unless this rank holds the volume's last
+    face."""
+    norm = f"{block}.norm_layer."
+    gamma = sd.get(norm + "weight")
+    running = (None if gamma is None else
+               (sd[norm + "running_mean"], sd[norm + "running_var"]))
+    y, new = P.bn_act_train_packed(
+        y, gamma, sd.get(norm + "bias"),
+        sd.get(f"{block}.activation_layer.weight"), running,
+        shifted=shifted, valid=valid)
+    if new is None:
+        return y, {}
+    return y, {norm + "running_mean": new[0], norm + "running_var": new[1]}
 
 
 def packed_unet_train_apply(state_dict: StateDict, x: torch.Tensor,

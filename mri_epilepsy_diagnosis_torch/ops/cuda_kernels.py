@@ -13,6 +13,7 @@ launch counters and build.
 | `conv_axis_dw`      | the same two sources (two passes each, no atomics) | the weight and bias gradients of `conv_axis_last` |
 | `conv2_packed_s8` (K1) | `csrc/conv2_packed_s8_tc.cu` (8Ci and 8Co multiples of 64: int8 wgmma + TMA, `s8_wgmma.cuh`), `csrc/conv2_packed_s8.cu` (the rest, the 8Ci = 8 stem: int8 mma.sync, `s8_igemm.cuh`); int32 out, or JAX's `_epilogue` fused to int8 | `models/unet_packed_q.py::conv_int8` (XLA in JAX) |
 | `upconv_packed_s8` (K2) | `csrc/upconv_packed_s8.cu` (the wgmma GEMM of `s8_wgmma.cuh` per output parity class, one persistent launch) | `models/unet_packed_q.py::upconv_int8` (XLA in JAX) |
+| `bn_train_stats`, `bn_train_apply`, `bn_train_reduce`, `bn_train_dx` | `csrc/bn_train_packed.cu` (the four passes of the train-mode BatchNorm + PReLU + pad-zero tail, `ops/packed.py::BnActTrainPacked`) | `models/unet_packed.py::_block_train` and its autograd (XLA in JAX) |
 
 `conv_one_axis` and `separable_conv3d` keep the signatures of their JAX
 namesakes (without the Mosaic workarounds `interpret` and `max_taps`).
@@ -40,7 +41,10 @@ tensor-core route (`_axis_fwd_route`), `conv_axis_dx.tc_launches` and
 (`_axis_bwd_route`); `conv2_packed_s8.launches` the int8 packed convs
 (`.fused_launches` those with the epilogue, `.wgmma_launches` those on
 the wgmma route of `_conv2_s8_route`), `upconv_packed_s8.launches` the
-int8 composed up-convs.
+int8 composed up-convs, `bn_train_stats.launches`, `bn_train_apply.launches`,
+`bn_train_reduce.launches` and `bn_train_dx.launches` the passes of the
+train-mode tail (the statistics and backward reduction passes count one
+each for their two launches).
 
 The kernels are CUDA C++ for `sm_90a` with a plain C interface, compiled
 by `nvcc` at first use (one process per source, all started together) and
@@ -69,7 +73,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("conv2_packed.cu", "conv2_packed_tc.cu", "bn_act_zero_pads.cu",
            "conv_axis.cu", "separable_conv3d.cu", "conv_axis_bwd.cu",
            "conv_axis_bwd_tc.cu", "conv_axis_tc.cu", "conv2_packed_s8.cu",
-           "conv2_packed_s8_tc.cu", "upconv_packed_s8.cu")
+           "conv2_packed_s8_tc.cu", "upconv_packed_s8.cu",
+           "bn_train_packed.cu")
 HEADERS = ("common.cuh", "tc_common.cuh", "hopper_tma.cuh", "s8_igemm.cuh",
            "s8_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -180,6 +185,14 @@ def load() -> ctypes.CDLL:
     lib.mri_conv2_packed_s8_tc.restype = i
     lib.mri_upconv_packed_s8.argtypes = [vp, vp, vp, ll] + [i] * 10 + [vp]
     lib.mri_upconv_packed_s8.restype = i
+    lib.mri_bn_train_stats.argtypes = [vp] * 3 + [i, ll] + [i] * 9 + [vp]
+    lib.mri_bn_train_stats.restype = i
+    lib.mri_bn_train_apply.argtypes = [vp] * 3 + [i, ll] + [i] * 8 + [vp]
+    lib.mri_bn_train_apply.restype = i
+    lib.mri_bn_train_reduce.argtypes = [vp] * 5 + [i, ll] + [i] * 8 + [vp]
+    lib.mri_bn_train_reduce.restype = i
+    lib.mri_bn_train_dx.argtypes = [vp] * 4 + [i, ll] + [i] * 9 + [vp]
+    lib.mri_bn_train_dx.restype = i
     return lib
 
 
@@ -483,17 +496,23 @@ conv2_packed_dx.tc_launches = 0
 # ---------------------------------------------------------------------------
 
 
-def shifted_pad_keep(axis: int, cells: int, c8: int,
-                     device=None) -> torch.Tensor:
+def shifted_pad_keep(axis: int, cells: int, c8: int, device=None,
+                     first: bool = True, last: bool = True) -> torch.Tensor:
     """(cells, c8) bool: False at the pad voxels of a shifted packed tensor
     along `axis` (0 = D, 1 = H, 2 = W), from the index arithmetic of the
-    fused epilogue: with sub = channel // (c8 // 8) and bit = (sub >> (2 -
-    axis)) & 1, the last cell drops the subs with the bit set, the first
-    cell (if it is not also the last) those with it clear.  The same planes
-    as `ops.packed._shifted_pad_axis_mask`."""
+    fused epilogue and `csrc/bn_train_packed.cu`: with sub = channel //
+    (c8 // 8) and bit = (sub >> (2 - axis)) & 1, the last cell drops the
+    subs with the bit set, the first cell (if it is not also the last)
+    those with it clear.  `first` / `last` False keep that cell whole (a
+    spatial slab's faces between ranks are real voxels).  The one pad-mask
+    rule of the port (`ops.packed.shifted_pad_mask_tensors` takes its
+    planes from here)."""
     cell = torch.arange(cells, device=device)[:, None]
     bit = ((torch.arange(c8, device=device) // (c8 // 8)) >> (2 - axis)) & 1
-    return torch.where(cell == cells - 1, bit == 0, (cell != 0) | (bit == 1))
+    drop_last = (cell == cells - 1) & last
+    drop_first = (cell == 0) & first & ~drop_last
+    return torch.where(drop_last, bit == 0,
+                       torch.where(drop_first, bit == 1, True))
 
 
 def conv2_packed_as_bn_act_plain(x: torch.Tensor, wp: torch.Tensor, scale,
@@ -590,7 +609,7 @@ def bn_act_zero_pads(xs: torch.Tensor, scale: torch.Tensor,
     shifted packed tensor xs (N, D, H, W, C8), computed in float32 and
     stored in xs.dtype.  scale, shift, alpha: (C8,) per packed channel;
     masks: the three (D, C8), (H, C8), (W, C8) planes of
-    `ops.packed._shifted_pad_axis_mask`."""
+    `shifted_pad_keep` as float32 (`ops.packed.shifted_pad_mask_tensors`)."""
     if xs.ndim != 5:
         raise ValueError(f"bn_act_zero_pads needs (N,D,H,W,C8), got "
                          f"{tuple(xs.shape)}")
@@ -633,6 +652,259 @@ def bn_act_zero_pads(xs: torch.Tensor, scale: torch.Tensor,
 
 
 bn_act_zero_pads.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# train-mode BatchNorm + PReLU + shifted pad zeroing: the four passes of
+# `ops/packed.py::BnActTrainPacked`
+# ---------------------------------------------------------------------------
+
+# The passes take their per-fine-channel float32 parameters as the rows
+# of one (rows, C) tensor: mean, rstd, gamma, beta, alpha (the apply and
+# reduction passes: 5 rows), then for the dx pass p = gamma * rstd and the
+# statistics term's k2, k3 (8 rows).
+_BN_MAX_C = 256        # fine channels a block of 256 threads can cover
+
+
+def _bn_keep_plain(y: torch.Tensor, shifted: bool,
+                   d_faces: Tuple[bool, bool]) -> torch.Tensor:
+    """The kernels' pad mask as a float32 multiplier broadcast over y: the
+    product of the three `shifted_pad_keep` planes of a shifted y (on D
+    only at the faces in `d_faces`), 1 everywhere in an aligned y."""
+    if not shifted:
+        return torch.ones((), device=y.device)
+    md, mh, mw = (shifted_pad_keep(a, y.shape[1 + a], y.shape[-1], y.device,
+                                   *(d_faces if a == 0 else (True, True)))
+                  .float() for a in range(3))
+    return md[:, None, None, :] * mh[None, :, None, :] * mw[None, None, :, :]
+
+
+def _bn_z(yf: torch.Tensor, prm: torch.Tensor):
+    """yh = (y - mean) * rstd and z = gamma * yh + beta, float32."""
+    mean, rstd, gamma, beta = (prm[i].repeat(8) for i in range(4))
+    yh = (yf - mean) * rstd
+    return yh, yh * gamma + beta
+
+
+def _bn_fold(sums: torch.Tensor) -> torch.Tensor:
+    """(S, N, D, H, W, 8C) -> (S, C): every axis but the channels summed,
+    then the 8 sub-positions."""
+    s = sums.sum(dim=(1, 2, 3, 4))
+    return s.reshape(s.shape[0], 8, -1).sum(1)
+
+
+def bn_train_stats_plain(y: torch.Tensor, *, shifted: bool,
+                         d_faces: Tuple[bool, bool],
+                         owned_d: int) -> torch.Tensor:
+    """Plain version of `bn_train_stats`."""
+    yf = (y.float() * _bn_keep_plain(y, shifted, d_faces)).narrow(
+        1, 0, owned_d)
+    return _bn_fold(torch.stack([yf, yf.square()]))
+
+
+def bn_train_apply_plain(y: torch.Tensor, prm: torch.Tensor, *,
+                         shifted: bool,
+                         d_faces: Tuple[bool, bool]) -> torch.Tensor:
+    """Plain version of `bn_train_apply`."""
+    _, z = _bn_z(y.float(), prm)
+    alpha = prm[4].repeat(8)
+    out = torch.where(z >= 0, z, z * alpha)
+    return (out * _bn_keep_plain(y, shifted, d_faces)).to(y.dtype)
+
+
+def _bn_gz(y, g, prm, shifted, d_faces):
+    yh, z = _bn_z(y.float(), prm)
+    gk = g.float() * _bn_keep_plain(y, shifted, d_faces)
+    return yh, z, gk, torch.where(z >= 0, gk, gk * prm[4].repeat(8))
+
+
+def _bn_reduce_terms(y, g, prm, shifted, d_faces):
+    """The three terms per entry that `bn_train_reduce` sums."""
+    yh, z, gk, gz = _bn_gz(y, g, prm, shifted, d_faces)
+    return torch.stack([gz, gz * yh, torch.where(z < 0, gk * z, 0.0)])
+
+
+def bn_train_reduce_plain(y: torch.Tensor, g: torch.Tensor,
+                          prm: torch.Tensor, *, shifted: bool,
+                          d_faces: Tuple[bool, bool]) -> torch.Tensor:
+    """Plain version of `bn_train_reduce`."""
+    return _bn_fold(_bn_reduce_terms(y, g, prm, shifted, d_faces))
+
+
+def bn_train_dx_plain(y: torch.Tensor, g: torch.Tensor, prm: torch.Tensor,
+                      *, shifted: bool, d_faces: Tuple[bool, bool],
+                      owned_d: int) -> torch.Tensor:
+    """Plain version of `bn_train_dx`."""
+    yh, _, _, gz = _bn_gz(y, g, prm, shifted, d_faces)
+    p, k2, k3 = (prm[i].repeat(8) for i in (5, 6, 7))
+    owned = (torch.arange(y.shape[1], device=y.device) < owned_d).float()
+    stat = (k2 + yh * k3) * owned[:, None, None, None]
+    dy = (p * gz - stat) * _bn_keep_plain(y, shifted, d_faces)
+    return dy.to(y.dtype)
+
+
+def bn_train_sum_scale(y: torch.Tensor, g: Optional[torch.Tensor] = None,
+                       prm: Optional[torch.Tensor] = None, *, shifted: bool,
+                       d_faces: Tuple[bool, bool] = (True, True),
+                       owned_d: Optional[int] = None) -> torch.Tensor:
+    """The sums of the magnitudes of the terms that `bn_train_stats` (g
+    None) or `bn_train_reduce` adds up, by their plain versions'
+    arithmetic: the scale of their float32 summation error, to which the
+    checks of the kernels against the plain versions hold them."""
+    if g is None:
+        return bn_train_stats_plain(
+            y.abs(), shifted=shifted, d_faces=d_faces,
+            owned_d=y.shape[1] if owned_d is None else owned_d)
+    return _bn_fold(_bn_reduce_terms(y, g, prm, shifted, d_faces).abs())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _bn_launch_args(name: str, y: torch.Tensor, prm, rows: int,
+                    tensors=()):
+    """Checks shared by the four passes (`tensors`: (name, tensor) pairs
+    shaped like y, in its dtype); returns (n, d, h, w, c, grid): a block
+    per 256 // c cells, at most 8 blocks per SM."""
+    if y.ndim != 5 or y.shape[-1] % 8:
+        raise ValueError(f"{name} needs a packed (N,D,H,W,8C) tensor, got "
+                         f"{tuple(y.shape)}")
+    n, d, h, w, c8 = y.shape
+    c = c8 // 8
+    if prm is not None and tuple(prm.shape) != (rows, c):
+        raise ValueError(f"{name} needs ({rows}, {c}) parameters, got "
+                         f"{tuple(prm.shape)}")
+    if y.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {y.device}")
+    if y.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name} takes float32 or bfloat16, not {y.dtype}")
+    if c > _BN_MAX_C:
+        raise ValueError(f"{name} serves at most {_BN_MAX_C} fine channels, "
+                         f"got {c}")
+    cells = n * d * h * w
+    if cells >= 2 ** 31:
+        raise ValueError(f"{name} serves fewer than 2^31 cells, got {cells}")
+    _check_cuda("y", y, y.dtype, y.device)
+    for tname, t in tensors:
+        if t.shape != y.shape:
+            raise ValueError(f"{tname} {tuple(t.shape)} != y "
+                             f"{tuple(y.shape)}")
+        _check_cuda(tname, t, y.dtype, y.device)
+    if prm is not None:
+        _check_cuda("prm", prm, torch.float32, y.device)
+    cpb = 256 // c
+    grid = max(1, min(-(-cells // cpb), 8 * _sm_count(y.device)))
+    return n, d, h, w, c, grid
+
+
+def bn_train_stats(y: torch.Tensor, *, shifted: bool,
+                   d_faces: Tuple[bool, bool] = (True, True),
+                   owned_d: Optional[int] = None) -> torch.Tensor:
+    """(2, C) float32 (Σy, Σy²) per fine channel of packed y (N, D, H, W,
+    8C), over the cells d < owned_d (default all), the pad sub-positions
+    of a shifted y left out: the statistics pass of `BnActTrainPacked`
+    (`csrc/bn_train_packed.cu`: per-block partials, then a launch that
+    sums them in a fixed order)."""
+    owned_d = y.shape[1] if owned_d is None else owned_d
+    if y.device.type == "cpu":
+        return bn_train_stats_plain(y, shifted=shifted, d_faces=d_faces,
+                                    owned_d=owned_d)
+    n, d, h, w, c, grid = _bn_launch_args("bn_train_stats", y, None, 0)
+    partial = torch.empty((grid, 2, 8 * c), device=y.device)
+    out = torch.empty((2, c), device=y.device)
+    with torch.cuda.device(y.device):
+        rc = load().mri_bn_train_stats(
+            y.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[y.dtype], n, d, h, w, c, int(shifted),
+            int(d_faces[0]), int(d_faces[1]), owned_d, grid,
+            torch.cuda.current_stream(y.device).cuda_stream)
+    _raise_on(rc, "bn_train_stats")
+    bn_train_stats.launches += 1
+    return out
+
+
+bn_train_stats.launches = 0
+
+
+def bn_train_apply(y: torch.Tensor, prm: torch.Tensor, *, shifted: bool,
+                   d_faces: Tuple[bool, bool] = (True, True)) -> torch.Tensor:
+    """keep * prelu(gamma * (y - mean) * rstd + beta, alpha) in float32,
+    one rounding to y's dtype; prm: (5, C) float32 rows mean, rstd, gamma,
+    beta, alpha.  The apply pass of `BnActTrainPacked`."""
+    if y.device.type == "cpu":
+        return bn_train_apply_plain(y, prm, shifted=shifted, d_faces=d_faces)
+    n, d, h, w, c, grid = _bn_launch_args("bn_train_apply", y, prm, 5)
+    out = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        rc = load().mri_bn_train_apply(
+            y.data_ptr(), prm.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[y.dtype], n, d, h, w, c, int(shifted),
+            int(d_faces[0]), int(d_faces[1]), grid,
+            torch.cuda.current_stream(y.device).cuda_stream)
+    _raise_on(rc, "bn_train_apply")
+    bn_train_apply.launches += 1
+    return out
+
+
+bn_train_apply.launches = 0
+
+
+def bn_train_reduce(y: torch.Tensor, g: torch.Tensor, prm: torch.Tensor, *,
+                    shifted: bool,
+                    d_faces: Tuple[bool, bool] = (True, True)
+                    ) -> torch.Tensor:
+    """(3, C) float32 per fine channel: Σgz, Σgz·yh and Σ keep·g·z·[z < 0],
+    with gz = keep * g * (z >= 0 ? 1 : alpha), over every cell of y; g is
+    the output's cotangent, in y's dtype; prm as for `bn_train_apply`.
+    The backward reduction pass of `BnActTrainPacked`."""
+    if y.device.type == "cpu":
+        return bn_train_reduce_plain(y, g, prm, shifted=shifted,
+                                     d_faces=d_faces)
+    n, d, h, w, c, grid = _bn_launch_args("bn_train_reduce", y, prm, 5,
+                                          (("g", g),))
+    partial = torch.empty((grid, 3, 8 * c), device=y.device)
+    out = torch.empty((3, c), device=y.device)
+    with torch.cuda.device(y.device):
+        rc = load().mri_bn_train_reduce(
+            y.data_ptr(), g.data_ptr(), prm.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), _DTYPE_CODE[y.dtype], n, d, h, w, c,
+            int(shifted), int(d_faces[0]), int(d_faces[1]), grid,
+            torch.cuda.current_stream(y.device).cuda_stream)
+    _raise_on(rc, "bn_train_reduce")
+    bn_train_reduce.launches += 1
+    return out
+
+
+bn_train_reduce.launches = 0
+
+
+def bn_train_dx(y: torch.Tensor, g: torch.Tensor, prm: torch.Tensor, *,
+                shifted: bool, d_faces: Tuple[bool, bool] = (True, True),
+                owned_d: Optional[int] = None) -> torch.Tensor:
+    """dy = keep * (p * gz - [d < owned_d] * (k2 + k3 * yh)) in y's dtype;
+    prm: (8, C) float32, `bn_train_apply`'s rows, then p, k2, k3.  The
+    backward dx pass of `BnActTrainPacked`."""
+    owned_d = y.shape[1] if owned_d is None else owned_d
+    if y.device.type == "cpu":
+        return bn_train_dx_plain(y, g, prm, shifted=shifted,
+                                 d_faces=d_faces, owned_d=owned_d)
+    n, d, h, w, c, grid = _bn_launch_args("bn_train_dx", y, prm, 8,
+                                          (("g", g),))
+    dy = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        rc = load().mri_bn_train_dx(
+            y.data_ptr(), g.data_ptr(), prm.data_ptr(), dy.data_ptr(),
+            _DTYPE_CODE[y.dtype], n, d, h, w, c, int(shifted),
+            int(d_faces[0]), int(d_faces[1]), owned_d, grid,
+            torch.cuda.current_stream(y.device).cuda_stream)
+    _raise_on(rc, "bn_train_dx")
+    bn_train_dx.launches += 1
+    return dy
+
+
+bn_train_dx.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -2236,7 +2508,8 @@ upconv_packed_s8.launches = 0
 
 KERNELS = (conv2_packed, bn_act_zero_pads, conv_axis, conv2_packed_as_bn_act,
            conv2_packed_dx, separable_conv3d, conv_axis_dx, conv_axis_dw,
-           conv2_packed_s8, upconv_packed_s8)
+           conv2_packed_s8, upconv_packed_s8, bn_train_stats, bn_train_apply,
+           bn_train_reduce, bn_train_dx)
 
 
 def reset_launch_counts():

@@ -20,7 +20,10 @@ weight gradient is 8 float32 GEMMs (`_dw_packed_qgroup`).  The shifted
 layout carries one pad voxel per axis (fine -1 and S); after the
 aligned->shifted conv's BN/PReLU they are re-zeroed.  On the served path
 that tail (kernel B2) is the epilogue of the aligned->shifted B1 launch
-(`conv3_packed_as_bn_act`); `bn_act_zero_pads` runs it standalone.
+(`conv3_packed_as_bn_act`); `bn_act_zero_pads` runs it standalone.  In
+training the tail normalizes with the batch statistics of the conv's
+output, after both parities' convs: `BnActTrainPacked`, four passes of
+`csrc/bn_train_packed.cu` with a hand-written gradient.
 
 Fine conv weights arrive in torch layout `(Co, Ci, 3, 3, 3)`; packed
 weights are `(2, 2, 2, 8Ci, 8Co)`, as in JAX.
@@ -559,43 +562,16 @@ def concat_channels_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _shifted_pad_masks(c8: int):
-    """Channel masks (numpy, (8C,)) keeping only NON-pad sub-positions for
-    the first/last cell along each axis of a shifted tensor: the first
-    cell's sub 0 of axis a is fine voxel -1 (pad); the last cell's sub 1 is
-    fine S."""
-    masks = []
-    c = c8 // 8
-    for axis in range(3):
-        sub = np.arange(c8) // c
-        bitval = (sub >> (2 - axis)) & 1
-        lo = (bitval == 1).astype(np.float32)   # first cell: keep sub 1
-        hi = (bitval == 0).astype(np.float32)   # last cell: keep sub 0
-        masks.append((lo, hi))
-    return masks
-
-
-@functools.lru_cache(maxsize=None)
-def _shifted_pad_axis_mask(axis: int, cells: int, c8: int, first: bool = True,
-                           last: bool = True) -> np.ndarray:
-    """(cells, c8) multiplier: 1 everywhere except the pad sub-positions of
-    the first cell (if `first`: the tensor starts at the volume's face)
-    and of the last cell (if `last`) along `axis`."""
-    lo, hi = _shifted_pad_masks(c8)[axis]
-    m = np.ones((cells, c8), np.float32)
-    if first:
-        m[0] = lo
-    if last:
-        m[-1] = hi
-    return m
-
-
-@functools.lru_cache(maxsize=None)
 def _device_pad_masks(cells: tuple, c8: int, device: torch.device,
                       d_faces: tuple = (True, True)):
-    return tuple(_device_constant(_shifted_pad_axis_mask(
-        a, cells[a], c8, *(d_faces if a == 0 else (True, True))),
-        device=device) for a in range(3))
+    """The three float32 planes of `cuda_kernels.shifted_pad_keep`, made
+    once per shape and device, outside inference mode (autograd may save
+    them)."""
+    with torch.inference_mode(False):
+        return tuple(K.shifted_pad_keep(
+            a, cells[a], c8, device,
+            *(d_faces if a == 0 else (True, True))).float()
+            for a in range(3))
 
 
 def shifted_pad_mask_tensors(xs: torch.Tensor):
@@ -622,6 +598,154 @@ def bn_act_zero_pads(xs, scale, shift, alpha) -> torch.Tensor:
     (8C,) scale, shift and alpha: kernel B2 on CUDA tensors."""
     return K.bn_act_zero_pads(xs.contiguous(), scale, shift, alpha,
                               shifted_pad_mask_tensors(xs))
+
+
+# ---------------------------------------------------------------------------
+# the train-mode tail of a packed ConvBlock
+# ---------------------------------------------------------------------------
+
+# the UNet's BatchNorm3d defaults
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
+
+
+def bn_train_moments(s: torch.Tensor, valid: float):
+    """(mean, var, rstd, var_kept), float32 (C,), from the statistics
+    pass's (Σy, Σy²) over `valid` voxels: var = max(E[y²] - E[y]², 0),
+    rstd = 1 / sqrt(var + eps), var_kept 0 where the clamp acts (float32
+    cancellation can round E[y²] - E[y]² slightly negative for a
+    near-constant channel with a large mean), else 1."""
+    mean = s[0] / valid
+    var = s[1] / valid - mean * mean
+    var_kept = (var >= 0).float()
+    var = var.clamp_min(0.0)
+    return mean, var, torch.rsqrt(var + BN_EPS), var_kept
+
+
+def bn_train_dx_rows(prm: torch.Tensor, reduced: Optional[torch.Tensor],
+                     valid: float, var_kept: torch.Tensor) -> torch.Tensor:
+    """The dx pass's (8, C) rows: the apply pass's five (mean, rstd,
+    gamma, beta, alpha), then p = gamma * rstd and the statistics term's
+    k2, k3 = p * (Σgz, Σgz·yh) / valid from the reduction pass's first two
+    rows `reduced` (all-reduced over a mesh); k3 is 0 where the variance
+    was clamped, and both are 0 without BatchNorm (`reduced` None)."""
+    p = prm[2] * prm[1]
+    if reduced is None:
+        k = torch.zeros((2, p.shape[0]), device=prm.device)
+    else:
+        k = p * reduced / valid
+        k[1] *= var_kept
+    return torch.cat([prm, p[None], k])
+
+
+class BnActTrainPacked(torch.autograd.Function):
+    """`zero_shifted_pads(prelu(BN(zero_shifted_pads(y)), alpha))` with BN
+    taking the batch statistics, as four passes (`cuda_kernels.
+    bn_train_stats`, `bn_train_apply`, `bn_train_reduce`, `bn_train_dx`:
+    the kernels of `csrc/bn_train_packed.cu` on CUDA, their plain versions
+    on the CPU) and a hand-written gradient.
+
+    forward(y, gamma, beta, alpha, shifted, valid, owned_d) -> (out,
+    mean, var): y packed (N, D, H, W, 8C), shifted or aligned; gamma and
+    beta fine (C,), or None for a block without BatchNorm (no statistics
+    pass: mean 0, rstd 1, gamma 1 and beta 0 stand in); alpha (1,)
+    or (C,), or None for no activation; `valid` the fine voxels per channel
+    over the whole mesh; `owned_d` the D cells from the first whose voxels
+    this rank counts.  Statistics in float32 over the kept entries, var =
+    max(E[y²] - E[y]², 0), all-reduced over the mesh's ranks between the
+    statistics and apply passes; mean and var come back for the running
+    statistics, not differentiable.
+
+    backward: with gz = keep * g * (z >= 0 ? 1 : alpha), yh the normalized
+    y and z = gamma * yh + beta, dgamma = Σgz·yh, dbeta = Σgz and dalpha =
+    Σ keep·g·z·[z < 0] over every cell of y (this rank's partial sums, as
+    the composition's autograd gives them); dy = gamma * rstd * (gz -
+    [owned] (Σgz + yh Σgz·yh) / valid) with both sums all-reduced over the
+    mesh first (where var was clamped its term drops, as through
+    `clamp_min`), 0 at the pads.  Saves y, the (5, C) parameters and the
+    clamp's (C,) mask."""
+
+    @staticmethod
+    def forward(ctx, y, gamma, beta, alpha, shifted, valid, owned_d):
+        y = y.contiguous()
+        c = y.shape[-1] // 8
+        mesh = _S.current_mesh()
+        faces = _S.spatial_edges(_S.spatial_mesh())
+        kw = {"shifted": shifted, "d_faces": faces}
+        ones = torch.ones(c, device=y.device)
+        ctx.bn = gamma is not None
+        ctx.params = [(t.shape, t.dtype) if t is not None else None
+                      for t in (gamma, beta, alpha)]
+        if gamma is None:
+            mean, var, var_kept = ones * 0.0, ones, ones
+            rstd, gamma, beta = ones, ones, ones * 0.0
+        else:
+            s = K.bn_train_stats(y, owned_d=owned_d, **kw)
+            if mesh is not None:
+                s = _S.all_reduce(s, _S.sharded_axes(y))
+            mean, var, rstd, var_kept = bn_train_moments(s, valid)
+        slope = ones if alpha is None else alpha.float().expand(c)
+        prm = torch.stack([mean, rstd, gamma.float(), beta.float(), slope])
+        out = K.bn_train_apply(y, prm, **kw)
+        ctx.save_for_backward(y, prm, var_kept)
+        ctx.kw, ctx.mesh, ctx.valid, ctx.owned_d = kw, mesh, valid, owned_d
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _mean, _var):
+        y, prm, var_kept = ctx.saved_tensors
+        g = g.contiguous()
+        sums = K.bn_train_reduce(y, g, prm, **ctx.kw)
+        dy = None
+        if ctx.needs_input_grad[0]:
+            reduced = None
+            if ctx.bn:
+                reduced = sums[:2]
+                if ctx.mesh is not None:
+                    reduced = _S.all_reduce(reduced, _S.sharded_axes(y),
+                                            mesh=ctx.mesh)
+            dy = K.bn_train_dx(y, g, bn_train_dx_rows(prm, reduced, ctx.valid,
+                                                      var_kept),
+                               owned_d=ctx.owned_d, **ctx.kw)
+        # dgamma = Σgz·yh, dbeta = Σgz, dalpha = Σ keep·g·z·[z < 0]
+        grads = []
+        for row, spec, needed in zip((1, 0, 2), ctx.params,
+                                     ctx.needs_input_grad[1:4]):
+            if not needed:
+                grads.append(None)
+                continue
+            shape, dtype = spec
+            v = sums[row] if shape.numel() > 1 else sums[row].sum()
+            grads.append(v.reshape(shape).to(dtype))
+        return (dy, *grads, None, None, None)
+
+
+def bn_act_train_packed(y: torch.Tensor, gamma, beta, alpha, running, *,
+                        shifted: bool, valid: float):
+    """Train-mode tail of a packed ConvBlock whose conv output is `y`
+    (`BnActTrainPacked`): zero the pads of a shifted y, BatchNorm with the
+    batch statistics (gamma, beta fine (C,); None for a block without
+    one), PReLU (alpha (1,) or (C,); None for none), zero the pads again.
+    `valid` counts this rank's fine voxels per channel; under a mesh the
+    statistics are the global batch's, and a shifted slab leaves its last
+    cell, which the next rank holds too, to that rank.  `running` (mean,
+    var), float32, or None, are updated by torch's rule
+    (`F.update_running_stats`, momentum 0.1).  Returns (out, the new
+    running statistics or None)."""
+    owned_d = y.shape[1]
+    if (shifted and _S.spatial_mesh() is not None
+            and not _S.spatial_edges()[1]):
+        owned_d -= 1
+    mesh = _S.current_mesh()
+    if mesh is not None:
+        valid = valid * _S.shard_count(mesh, _S.sharded_axes(y))
+    out, mean, var = BnActTrainPacked.apply(
+        y, gamma, beta, alpha, shifted, valid, owned_d)
+    if gamma is None or running is None:
+        return out, None
+    return out, F.update_running_stats(*running, mean, var, valid,
+                                       BN_MOMENTUM)
 
 
 # ---------------------------------------------------------------------------

@@ -1728,3 +1728,118 @@ def test_collect_latents_runs_fused_b3_and_matches_cpu(cuda_device):
     assert K.conv_axis.launches == 0
     for k in ("encoder", "disc", "clf"):
         assert np.abs(got[k] - ref[k]).max() <= 1e-4 * np.abs(ref[k]).max()
+
+
+@pytest.fixture
+def hopper(cuda_device):
+    if torch.cuda.get_device_capability(cuda_device) != (9, 0):
+        pytest.skip("needs compute capability 9.0: the kernels are built "
+                    "for sm_90a")
+    return cuda_device
+
+
+def _bn_train_case(dev, c, shifted, dtype, seed=0, faces=(True, True),
+                   owned=None):
+    """Packed y, a cotangent g and the dx pass's (8, C) rows as
+    `BnActTrainPacked` builds them: mean and rstd from y's statistics over
+    the owned cells, k2 and k3 from the reduction of a g that follows yh,
+    so that the statistics term is of the size of dy's other term."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cells = (7, 6, 9) if shifted else (6, 5, 8)
+    y = (torch.randn(2, *cells, 8 * c, generator=g, device=dev) * 2
+         + 0.5).to(dtype)
+    kw = {"shifted": shifted, "d_faces": faces,
+          "owned_d": y.shape[1] if owned is None else owned}
+    valid = K.bn_train_stats_plain(torch.ones_like(y), **kw)[0, 0].item()
+    mean, _, rstd, kept = TP.bn_train_moments(
+        K.bn_train_stats_plain(y, **kw), valid)
+    prm = torch.stack([mean, rstd,
+                       torch.rand(c, generator=g, device=dev) + 0.5,
+                       torch.randn(c, generator=g, device=dev),
+                       torch.rand(c, generator=g, device=dev) * 0.5])
+    yh = (y.float() - mean.repeat(8)) * rstd.repeat(8)
+    gr = (torch.randn(y.shape, generator=g, device=dev) + yh).to(dtype)
+    sums = K.bn_train_reduce_plain(y, gr, prm, shifted=shifted,
+                                   d_faces=faces)
+    return y, gr, TP.bn_train_dx_rows(prm, sums[:2], valid, kept)
+
+
+BN_TRAIN_CASES = [(8, True, (True, True), None),
+                  (8, False, (True, True), None),
+                  (64, True, (False, True), -1), (16, True, (True, False), -1),
+                  (3, True, (True, True), None),
+                  (32, False, (True, True), -2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,shifted,faces,narrow", BN_TRAIN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_train_kernels_match_plain(hopper, c, shifted, faces, narrow,
+                                      dtype):
+    """Each of the four passes of `csrc/bn_train_packed.cu` against its
+    plain version on the same card: the sums to float32 summation order
+    over the sums of magnitudes, the elementwise passes to one rounding
+    of the dtype."""
+    owned = (7 if shifted else 6) + (narrow or 0)
+    y, gr, prm = _bn_train_case(hopper, c, shifted, dtype, faces=faces,
+                                owned=owned)
+    kw = {"shifted": shifted, "d_faces": faces}
+    before = [k.launches for k in (K.bn_train_stats, K.bn_train_apply,
+                                   K.bn_train_reduce, K.bn_train_dx)]
+    stats = K.bn_train_stats(y, owned_d=owned, **kw)
+    out = K.bn_train_apply(y, prm[:5], **kw)
+    sums = K.bn_train_reduce(y, gr, prm[:5], **kw)
+    dy = K.bn_train_dx(y, gr, prm, owned_d=owned, **kw)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (K.bn_train_stats, K.bn_train_apply,
+                                 K.bn_train_reduce, K.bn_train_dx)] == [
+        b + 1 for b in before]
+    ref_stats = K.bn_train_stats_plain(y, owned_d=owned, **kw)
+    mag = K.bn_train_sum_scale(y, owned_d=owned, **kw)
+    assert ((stats - ref_stats).abs() <= 1e-5 * mag + 1e-6).all()
+    ref_sums = K.bn_train_reduce_plain(y, gr, prm[:5], **kw)
+    mag = K.bn_train_sum_scale(y, gr, prm[:5], **kw)
+    assert ((sums - ref_sums).abs() <= 1e-5 * mag + 1e-6).all()
+    step = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    ref_dy = K.bn_train_dx_plain(y, gr, prm, owned_d=owned, **kw)
+    for got, ref in ((out, K.bn_train_apply_plain(y, prm[:5], **kw)),
+                     (dy, ref_dy)):
+        assert got.dtype == dtype and got.shape == y.shape
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= step * ref.float().abs().max().item()
+    # the statistics term is far above the tolerance: a dx kernel that
+    # dropped it, or applied it to other cells, would fail
+    no_stat = prm.clone()
+    no_stat[6:] = 0
+    gap = (K.bn_train_dx_plain(y, gr, no_stat, owned_d=owned, **kw).float()
+           - ref_dy.float()).abs().max().item()
+    assert gap >= 16 * 2.0 ** -7 * ref_dy.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted,bn", [(True, True), (False, True),
+                                        (True, False)])
+def test_bn_act_train_packed_on_card_matches_cpu(hopper, shifted, bn):
+    """`BnActTrainPacked` forward and backward on the card (the kernels)
+    against the CPU (the plain passes), float32; the repeated card run
+    equals the first bit for bit."""
+    y, gr, prm = _bn_train_case(hopper, 16, shifted, torch.float32, seed=1)
+    gamma, beta, alpha = (prm[2], prm[3], prm[4][:1]) if bn else (
+        None, None, prm[4][:1])
+
+    def run(dev):
+        leaves = [t.to(dev).clone().requires_grad_() if t is not None
+                  else None for t in (y, gamma, beta, alpha)]
+        outs = TP.BnActTrainPacked.apply(*leaves, shifted, 2.0 * 13 ** 3,
+                                         y.shape[1])
+        want = [t for t in leaves if t is not None]
+        grads = torch.autograd.grad(outs[0], want, gr.to(dev))
+        return [t.detach().cpu() for t in (*outs, *grads)]
+
+    before = K.bn_train_dx.launches
+    card, again, cpu = run(hopper), run(hopper), run("cpu")
+    assert K.bn_train_dx.launches == before + 2
+    for a, b, r in zip(card, again, cpu):
+        assert torch.equal(a, b)
+        assert (a - r).abs().max().item() <= 1e-5 * max(
+            r.abs().max().item(), 1e-30)

@@ -3,7 +3,7 @@
 takes on the CPU, against the JAX package's ConvBlock tail
 `models/unet_packed.py::_block_as` (conv, bias, BN, PReLU, pad zeroing),
 and the epilogue's index-arithmetic pad mask against
-`ops/packed.py::_shifted_pad_axis_mask`.
+the JAX package's `ops/packed.py::_shifted_pad_axis_mask`.
 
 The fused kernels themselves run only on the card
 (`tests/test_torch_cuda.py`, `chip_smoke.py`).  JAX runs at

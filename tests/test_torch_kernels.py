@@ -70,7 +70,7 @@ def test_axis_tables_match_jax():
 def test_shifted_pad_masks_match_jax(cells, c8):
     for a in range(3):
         np.testing.assert_array_equal(
-            TP._shifted_pad_axis_mask(a, cells[a], c8),
+            TP._device_pad_masks(cells, c8, torch.device("cpu"))[a].numpy(),
             JP._shifted_pad_axis_mask(a, cells[a], c8))
 
 
