@@ -247,11 +247,16 @@ Phases (each raises on failure, so the script exits nonzero):
       1e-5 with L2 decay 0.01) in bf16: every distinct B1 site of the step
       (forward, dx, and the eval forward's B2-fused launches) against its
       plain version, timed beside cuDNN's conv of the fine layer; 1
-      warm-up and 5 timed `voxresnet_class_step_packed`s (B1 43 per step:
-      22 forward, 21 dx, all on tensor cores), the same for the fine
-      `_class_step`, ms, vol/s, peak memory, a profiled step each (idle
-      share; B1 forward, B1 dx, dw GEMMs, cuDNN, other); one eval forward
-      (22 B1, 9 with B2 fused).
+      warm-up and 5 timed packed steps through `run_one_epoch(...,
+      packed=True)`'s route (B1 43 per step: 22 forward, 17 of them at
+      stride 1 and 5 at stride 2, 21 dx, all on tensor cores; the
+      BatchNorm tail's Function 22 sites x 4 passes, no plain pass and no
+      plain BatchNorm composition), the same for the fine `_class_step`,
+      ms, vol/s, peak memory, a profiled step each (idle share; B1
+      forward, B1 dx, dw GEMMs, the BatchNorm tail, cuDNN, other); every
+      pass of the step's BatchNorm tail against its plain version and
+      timed (the kernels line's `bn_train_packed.voxresnet_training`);
+      one eval forward (22 B1, 9 with B2 fused).
 14. distribution: an NCCL process group of world size 1 (one card: NCCL
    refuses two ranks on one device, so ranks > 1 are held on the CPU by
    gloo in tests/test_torch_parallel.py) and a (data, spatial) = (1, 1)
@@ -696,13 +701,20 @@ VOX_TIMED_STEPS = 5
 # B1 per packed step at stride 2 and 4 stages: the stem, conv3d_2, 4
 # downsamples and 16 block convs forward; every input gradient but the
 # stem's (its input, the image, takes none); all on tensor cores in bf16
-# (8Ci 64-1024, 8Co or Co multiples of 64).  Eval: the same 22 forward
-# launches, the stem and the 8 block conv1s with B2 fused.
-VOX_FWD, VOX_DX, VOX_FUSED = 22, 21, 9
+# (8Ci 64-1024, 8Co or Co multiples of 64); 5 of the forward launches at
+# stride 2 (the stem and the downsamples).  Every train-mode BatchNorm is
+# one `BnActTrainPacked` (22 sites: 2, then 5 a stage): each of its four
+# passes once a site.  Eval: the same 22 forward launches, the stem and
+# the 8 block conv1s with B2 fused.
+VOX_FWD, VOX_DX, VOX_FUSED, VOX_STRIDE2, VOX_BN = 22, 21, 9, 5, 22
 VOX_PER_STEP = {**{k: 0 for k in UNET_PER_BATCH},
                 "conv2_packed": VOX_FWD + VOX_DX,
                 "conv2_packed_tc": VOX_FWD + VOX_DX,
-                "conv2_packed_dx": VOX_DX, "conv2_packed_dx_tc": VOX_DX}
+                "conv2_packed_dx": VOX_DX, "conv2_packed_dx_tc": VOX_DX,
+                **{k: VOX_BN for k in BN_PASSES}}
+VOX_SPLIT_PER_STEP = {"b1_stride1": VOX_FWD - VOX_STRIDE2,
+                      "b1_stride2": VOX_STRIDE2, "b1_dx": VOX_DX,
+                      **{k: VOX_BN for k in BN_PASSES}}
 VOX_EVAL_PER_CALL = {**{k: 0 for k in UNET_PER_BATCH},
                      "conv2_packed": VOX_FWD, "conv2_packed_tc": VOX_FWD,
                      "conv2_packed_as_bn_act": VOX_FUSED,
@@ -2189,10 +2201,12 @@ def bn_tail_rows(K, P, sites, label, reps=20, plain_reps=3):
     return rows, totals
 
 
-def bn_tail_entry(rows, totals, launches, **extra):
+def bn_tail_entry(rows, totals, launches, per_step=None,
+                  replaces="mri_epilepsy_diagnosis_tpu/models/unet_packed.py"
+                           ":339 (_block_train, and its autograd)", **extra):
     """A kernels-line entry for `csrc/bn_train_packed.cu` on one path: its
     rows of `bn_tail_rows` summed over the calls of one step, the passes'
-    totals beside."""
+    totals beside; `per_step` the passes a step (the UNet's by default)."""
     src = "mri_epilepsy_diagnosis_torch/csrc/bn_train_packed.cu"
     step_rows = [{k: r[k] * r["calls"] for k in ("ms", "plain_ms",
                                                  "bound_ms")}
@@ -2200,11 +2214,11 @@ def bn_tail_entry(rows, totals, launches, **extra):
     errs = {dn: max((r["max_abs_err"] for r in rows if r["dtype"] == dt),
                     default=None)
             for dn, dt in (("bf16", "bfloat16"), ("f32", "float32"))}
+    if per_step is None:
+        per_step = sum(TRAIN_PER_STEP[k] for k in BN_PASSES)
     return kernel_entry(
-        "bn_train_packed." + extra["path"], src,
-        "mri_epilepsy_diagnosis_tpu/models/unet_packed.py:339 "
-        "(_block_train, and its autograd)", step_rows, errs, launches,
-        sum(TRAIN_PER_STEP[k] for k in BN_PASSES), passes=totals,
+        "bn_train_packed." + extra["path"], src, replaces, step_rows, errs,
+        launches, per_step, passes=totals,
         stat_share_min=min(r["stat_share"] for r in rows
                            if r["stat_share"] is not None), **extra)
 
@@ -5006,13 +5020,15 @@ def voxresnet_parity_phase(K, VP, gen, launch_counts):
         cross_entropy(got, y).backward()
         torch.cuda.synchronize()
         # forward: conv3d_2, 5 convs a stage and, at stride 2, the stem
-        # (at stride 1 it is cuDNN's); dx: all but the stem's
+        # (at stride 1 it is cuDNN's); dx: all but the stem's; the
+        # BatchNorm tail: 2 sites, then 5 a stage, each pass once a site
         stages, stride = model.stages, model.model["conv3d_1"].stride[0]
         n_fwd, n_dx = 1 + (stride == 2) + 5 * stages, 1 + 5 * stages
         res["launches"] = launch_counts()
         _expect_counts(f"voxresnet f32 {name} train step", res["launches"], {
             **{k: 0 for k in VOX_PER_STEP}, "conv2_packed": n_fwd + n_dx,
-            "conv2_packed_dx": n_dx})
+            "conv2_packed_dx": n_dx,
+            **{k: 2 + 5 * stages for k in BN_PASSES}})
         res["train"] = _allclose_err(got, ref, VOX_TRAIN_TOL)
         buffers = dict(fine.named_buffers())
         res["stats"] = max((_allclose_err(v, buffers[k], VOX_STATS_TOL)
@@ -5196,25 +5212,63 @@ def vox_row(name, route, err, x, flops, nbytes, run, plain, library, calls):
     return row
 
 
+@contextlib.contextmanager
+def no_plain_bn_composition(K, P, label):
+    """`no_plain_bn`, and counts the calls of the plain BatchNorm
+    composition that `BnActTrainPacked` replaced on the packed VoxResNet's
+    train path (`zero_shifted_pads`, `batch_norm_packed`,
+    `models/unet_packed.py::_bn_train_packed`) while the block runs: there
+    must be none."""
+    from mri_epilepsy_diagnosis_torch.models import unet_packed as UP
+
+    calls = []
+    saved = [(P, "zero_shifted_pads"), (P, "batch_norm_packed"),
+             (UP, "_bn_train_packed")]
+    originals = [getattr(m, k) for m, k in saved]
+
+    def counting(name, f):
+        def run(*args, **kw):
+            calls.append(name)
+            return f(*args, **kw)
+        return run
+
+    for (m, k), f in zip(saved, originals):
+        setattr(m, k, counting(k, f))
+    try:
+        with no_plain_bn(K, label):
+            yield
+    finally:
+        for (m, k), f in zip(saved, originals):
+            setattr(m, k, f)
+    log(f"plain BatchNorm composition calls ({label}): {len(calls)} "
+        "(expected 0)")
+    if calls:
+        raise AssertionError(f"{label}: the plain BatchNorm composition ran: "
+                             f"{sorted(set(calls))}")
+
+
 def voxresnet_train_phase(K, P, VP, gen, launch_counts):
     """Phase 13c at bench.py's configuration (VOX_KWARGS, bf16, batch
     VOX_BATCH, Adam lr VOX_LR with L2 decay VOX_WD, Dropout from a seeded
-    card generator): every B1 launch of one packed step recorded and each
-    distinct site checked and timed (`vox_site_rows`); 1 warm-up and
-    VOX_TIMED_STEPS timed `voxresnet_class_step_packed`s (exact launch
-    counts, finite losses, parameters that move, ms, vol/s, peak memory),
-    one profiled step (device ms and kernel count; B1 forward and input
-    gradients, cuDNN, cuBLAS GEMMs, other kernels, copies; the idle
-    share), the same for the fine `_class_step` of the same initial model;
-    one bf16 eval forward of each (the packed one with B2 fused at 9
-    launches)."""
+    card generator): every B1 launch and BatchNorm-tail pass of one packed
+    step recorded, each distinct B1 site checked and timed
+    (`vox_site_rows`), each tail pass checked and timed (`bn_tail_rows`);
+    1 warm-up and VOX_TIMED_STEPS timed packed steps through
+    `run_one_epoch(..., packed=True)`'s route (exact launch counts, also
+    by kind (`launch_split`), no plain BatchNorm pass or composition,
+    finite losses, parameters that move, ms, vol/s, peak memory), one
+    profiled step (device ms and kernel count; B1 forward and input
+    gradients, cuDNN, cuBLAS GEMMs, the BatchNorm tail, other kernels,
+    copies; the idle share), the same for the fine `_class_step` of the
+    same initial model; one bf16 eval forward of each (the packed one with
+    B2 fused at 9 launches)."""
     import copy
 
     import torch
 
     from mri_epilepsy_diagnosis_torch.train import TrainState
     from mri_epilepsy_diagnosis_torch.train.classification import (
-        _class_step)
+        _class_step, run_one_epoch)
     from mri_epilepsy_diagnosis_torch.train.optim import torch_adam
 
     model = _vox_model(gen, **VOX_KWARGS)
@@ -5234,6 +5288,15 @@ def voxresnet_train_phase(K, P, VP, gen, launch_counts):
     def b1_ms(prof):
         return prof["conv2_packed_tc_ms"] + prof["conv2_packed_ms"]
 
+    def packed_step(st):
+        """One packed train step through `run_one_epoch`'s route (the
+        batch already on the card, staged as it is)."""
+        st, losses, p1, _ = run_one_epoch(st, [(x, y)], True,
+                                          rng_stream=drop, prefetch=0,
+                                          packed=True)
+        p1 = torch.tensor(p1, device="cuda")
+        return st, losses[0], torch.stack([1 - p1, p1], dim=-1)
+
     def run(step_fn, state, tag, forward_fn):
         before = {k: v.detach().clone()
                   for k, v in state.model.state_dict().items()}
@@ -5244,17 +5307,25 @@ def voxresnet_train_phase(K, P, VP, gen, launch_counts):
             step_fn(state)                               # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        K.reset_launch_counts()
+        VP.reset_launch_counts()
         losses = []
+        guard = (no_plain_bn_composition(K, P, f"{VOX_TIMED_STEPS} packed "
+                                                "VoxResNet steps")
+                 if tag == "packed" else contextlib.nullcontext())
         t0 = time.perf_counter()
-        for _ in range(VOX_TIMED_STEPS):
-            _, loss, probs = step_fn(state)
-            losses.append(float(loss))
+        with guard:
+            for _ in range(VOX_TIMED_STEPS):
+                _, loss, probs = step_fn(state)
+                losses.append(float(loss))
         step_s = (time.perf_counter() - t0) / VOX_TIMED_STEPS
         counts = launch_counts()
         want = ({k: VOX_TIMED_STEPS * v for k, v in VOX_PER_STEP.items()}
                 if tag == "packed" else {k: 0 for k in VOX_PER_STEP})
         _expect_counts(f"voxresnet {tag} steps", counts, want)
+        split = VP.launch_split()
+        _expect_counts(f"voxresnet {tag} steps by kind", split, {
+            k: VOX_TIMED_STEPS * v if tag == "packed" else 0
+            for k, v in VOX_SPLIT_PER_STEP.items()})
         # the device split from the profiler's kernel times (CUDA events
         # around each call would count the host's gaps too): B1 of the
         # step less B1 of a train-mode forward gives the input gradients
@@ -5262,21 +5333,24 @@ def voxresnet_train_phase(K, P, VP, gen, launch_counts):
         with torch.no_grad():
             fwd = profile_batch(forward_fn, groups=STEP_GROUPS)
         grp = prof["groups_ms"]
-        split = {"b1_forward_ms": b1_ms(fwd),
-                 "b1_dx_ms": b1_ms(prof) - b1_ms(fwd),
-                 "cudnn_ms": grp["cudnn_ms"],
-                 "cudnn_forward_ms": fwd["groups_ms"]["cudnn_ms"],
-                 "gemm_ms": grp["gemm_ms"],
-                 "other_ms": prof["kernel_ms"] - b1_ms(prof)
-                 - grp["cudnn_ms"] - grp["gemm_ms"],
-                 "copy_ms": prof["copy_ms"], "device_ms": prof["device_ms"]}
+        split_ms = {"b1_forward_ms": b1_ms(fwd),
+                    "b1_dx_ms": b1_ms(prof) - b1_ms(fwd),
+                    "cudnn_ms": grp["cudnn_ms"],
+                    "cudnn_forward_ms": fwd["groups_ms"]["cudnn_ms"],
+                    "gemm_ms": grp["gemm_ms"],
+                    "bn_tail_ms": prof["bn_train_ms"],
+                    "other_ms": prof["kernel_ms"] - b1_ms(prof)
+                    - grp["cudnn_ms"] - grp["gemm_ms"] - prof["bn_train_ms"],
+                    "copy_ms": prof["copy_ms"],
+                    "device_ms": prof["device_ms"]}
         after = state.model.state_dict()
         floats = [k for k in before if before[k].is_floating_point()]
         moved = sum(not torch.equal(before[k], after[k]) for k in floats)
         res = {"losses": losses, "ms_per_step": step_s * 1e3,
                "vol_per_s": VOX_BATCH / step_s,
                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches_timed_steps": counts, "step_split": split,
+               "launches_timed_steps": counts, "launch_split": split,
+               "step_split": split_ms,
                # against the unprofiled step's wall, and the profiled one's
                "idle_share": 1 - prof["device_ms"] / (step_s * 1e3),
                "idle_share_profiled": prof["idle_share"], "profile": prof,
@@ -5291,8 +5365,7 @@ def voxresnet_train_phase(K, P, VP, gen, launch_counts):
         return res, sites
 
     out["packed"], sites = run(
-        lambda st: VP.voxresnet_class_step_packed(st, x, y, drop),
-        new_state(model), "packed",
+        packed_step, new_state(model), "packed",
         lambda: VP.voxresnet_apply_packed(model, x, train=True,
                                           generator=drop))
     out["fine"], _ = run(lambda st: _class_step(st, x, y, drop, True),
@@ -5314,6 +5387,13 @@ def voxresnet_train_phase(K, P, VP, gen, launch_counts):
     torch.cuda.empty_cache()
     rows, errs = vox_site_rows(K, sites, model, gen)
     out["kernel_max_abs_err"] = errs
+    got = {k: sum(s["pass"] == k for s in sites["bn"]) for k in BN_PASSES}
+    if got != {k: VOX_BN for k in BN_PASSES}:
+        raise AssertionError(f"BatchNorm-tail passes per VoxResNet step "
+                             f"{got} != {VOX_BN} each")
+    out["bn_tail_rows"], out["bn_tail"] = bn_tail_rows(
+        K, P, sites["bn"], f"VoxResNet step, {SIZE}^3 batch {VOX_BATCH} "
+                           "bf16")
     return out, rows
 
 
@@ -7026,6 +7106,14 @@ def main() -> int:
                          "step", "eval forward").replace(
                          f"launches from {VOX_TIMED_STEPS} steps",
                          "launches from one forward")),
+        bn_tail_entry(voxresnet["bn_tail_rows"], voxresnet["bn_tail"],
+                      sum(vt[k] for k in BN_PASSES),
+                      per_step=len(BN_PASSES) * VOX_BN,
+                      replaces="mri_epilepsy_diagnosis_tpu/models/"
+                               "voxresnet_packed.py (_bn_packed and "
+                               "_bn_train_packed in train mode, and their "
+                               "autograd)",
+                      path="voxresnet_training", shapes=per_vox),
         kernel_entry("separable_conv3d.packed_ensemble",
                      src + "separable_conv3d.cu", tpu + "70",
                      pe_sep_rows + [r for r in sep_rows
@@ -7089,7 +7177,8 @@ def main() -> int:
                   "separable_conv3d.packed_ensemble": "separable_conv3d",
                   "conv_axis_tc.packed_ensemble": "conv_axis_tc",
                   "bn_train_packed.training": "bn_train_packed",
-                  "bn_train_packed.patch_training": "bn_train_packed"}
+                  "bn_train_packed.patch_training": "bn_train_packed",
+                  "bn_train_packed.voxresnet_training": "bn_train_packed"}
     for entry in kernels:
         key = counted_as.get(entry["name"], entry["name"])
         entry["launches_by_path"] = {p: _counted_b1(n)[key]

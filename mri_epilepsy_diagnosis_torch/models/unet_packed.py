@@ -206,14 +206,14 @@ def packed_unet_mask_v2(state_dict: StateDict, x: torch.Tensor,
 
 
 def _bn_train_packed(y, bn, block: str = "", *, valid: float,
-                     pad_entries: float = 0.0, momentum: float = 0.1,
-                     eps: float = 1e-5, owned=None):
+                     momentum: float = 0.1, eps: float = 1e-5, owned=None):
     """Normalize packed `y` (pad voxels zeroed, or aligned) with its own
     fine-exact batch statistics: one pass of float32 sums E[x] and E[x^2],
     var = max(E[x^2] - E[x]^2, 0), `valid` = N*S^3 fine voxels per
-    channel; normalized in y's dtype.  `pad_entries`, the zeroed pad
-    entries per fine channel, adds nothing to either sum, so only `valid`
-    divides them (JAX takes it for the same reason and drops it).
+    channel; normalized in y's dtype.  Zeroed pad voxels add nothing to
+    either sum, so only `valid` divides them.  No model runs it: it is
+    the plain composition that `ops/packed.py::BnActTrainPacked` replaced,
+    kept for the tests that hold the Function to it.
 
     `bn` is the UNet's state dict, with `block` the ConvBlock whose
     `norm_layer` normalizes, or an `nn.BatchNorm3d`, whose own momentum
@@ -234,7 +234,6 @@ def _bn_train_packed(y, bn, block: str = "", *, valid: float,
         prefix = f"{block}.norm_layer."
         gamma, beta, rm, rv = (bn[prefix + k] for k in (
             "weight", "bias", "running_mean", "running_var"))
-    del pad_entries
     c = y.shape[-1] // 8
     yf = (y if owned is None else owned).float()
     s1 = yf.sum(dim=(0, 1, 2, 3)).reshape(8, c).sum(0)

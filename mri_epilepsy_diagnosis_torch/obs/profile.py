@@ -6,10 +6,10 @@ stack) on every thread and, on the card, CUDA kernels and copies, and
 writes one gzipped Chrome trace,
 `<logdir>/<host>_<pid>.<ts>.pt.trace.json.gz`, that `obs/trace_summary.py`
 reads.  `span(name)` names a stretch of host time in such a trace (the
-training loop's `seg::` and the prefetcher's `data::` spans) and costs one
-flag check when no profiler records.  `StepTimer` waits for the card
-before reading the clock, so its times are step latencies, not enqueue
-times.
+segmentation loop's `seg::`, the classification loop's `cls::` and the
+prefetcher's `data::` spans) and costs one flag check when no profiler
+records.  `StepTimer` waits for the card before reading the clock, so its
+times are step latencies, not enqueue times.
 """
 from __future__ import annotations
 

@@ -1130,10 +1130,15 @@ def conv3s2_packed_aa(xp_aligned: torch.Tensor, wk: torch.Tensor,
     wk = TF.pad(wk, (0, -co % 8))
     y = Conv3Packed.apply(TF.pad(xp_aligned, (0, 0, 1, 0, 1, 0, 1, 0)), wk,
                           None)
+    conv3s2_packed_aa.launches += int(y.is_cuda)
     y = pack2(y[..., :co])
     if bias is not None:
         y = y + tile_channel_param(bias).to(y.dtype)
     return y
+
+
+# B1 launches on the card, as `cuda_kernels`' counters count them
+conv3s2_packed_aa.launches = 0
 
 
 def pack_input_weights(w: torch.Tensor) -> torch.Tensor:
@@ -1205,4 +1210,9 @@ def conv_input_packed_s2_p4(x_fine: torch.Tensor, wk: torch.Tensor,
     (`Conv3PackedAs`, bias fused; the input takes no gradient, so the
     backward launches only dw).  The shifted pad voxels hold the zero-pad
     extrapolation: `zero_shifted_pads` before batch statistics."""
-    return Conv3PackedAs.apply(pack4(x_fine), wk, bias)
+    y = Conv3PackedAs.apply(pack4(x_fine), wk, bias)
+    conv_input_packed_s2_p4.launches += int(y.is_cuda)
+    return y
+
+
+conv_input_packed_s2_p4.launches = 0

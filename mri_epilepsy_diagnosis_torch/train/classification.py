@@ -27,7 +27,24 @@ and finetune modes (counterpart of the JAX package's
 
 `input_dtype=torch.bfloat16` trains in mixed precision: bf16 activations,
 float32 master weights and Adam moments.  Batches reach the model's
-device through `DevicePrefetcher`.  `dashboard` (an
+device through `DevicePrefetcher`.  `packed=True` runs a `VoxResNet` in
+the packed layout (`models/voxresnet_packed.py`: its train and eval
+steps; on the card its train steps from an epoch's second on replay
+CUDA graphs); the default is the fine step of any model.
+
+Under a torch profiler (`obs.profile_trace`) every step of
+`run_one_epoch` is one `cls::step` span on the loop's thread, holding in
+order `cls::next_batch`, `cls::cast` (with `input_dtype`),
+`cls::forward`, `cls::backward`, then for the step before it
+`cls::loss_sync` (the host waits for that step's host copies and reads
+them) and `cls::log` (the plateau scheduler and the logger), then
+`cls::optimizer`, `cls::stats` (packed training) and `cls::collect`
+(enqueueing this step's loss, probabilities and targets for the host)
+(`obs.span`); in eval `cls::loss_sync` and `cls::log` follow
+`cls::forward`.  A replayed packed step (on the card) has `cls::forward`
+(its inputs), the step before's `cls::loss_sync` and `cls::log`, then
+`cls::backward` (the forward and backward's graph), `cls::optimizer`
+(the update's, with the statistics) and `cls::collect`.  `dashboard` (an
 `obs.TrainingDashboard`) is updated once per epoch with the epoch's mean
 losses and metrics, as in the JAX package; under a mesh only rank 0
 updates it.
@@ -45,6 +62,7 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..data.pipeline import DataLoader, Subset
+from ..obs import span
 from .checkpoint import load_checkpoint, save_checkpoint
 from ..parallel import sharding as _S
 from .optim import ReduceLROnPlateau, torch_adam
@@ -71,56 +89,143 @@ def cross_entropy(outputs: torch.Tensor, targets: torch.Tensor,
             / _S.all_reduce(w.sum(), ("data",)))
 
 
-def _class_step(state: TrainState, x, y, rng, train: bool):
+def _class_step(state: TrainState, x, y, rng, train: bool,
+                before_update=None):
     """One train (forward, backward, optimizer step; BatchNorm on batch
     statistics) or eval step.  `rng`: the torch.Generator of the model's
-    Dropout, or None.  Returns (state, loss, softmax probabilities), both
-    detached.  Under a mesh (`parallel.use_mesh`) the batch is this
-    rank's rows: BatchNorm and the loss are the global batch's, the
-    gradients are summed over the ranks, the probabilities are the rank's
-    rows."""
+    Dropout, or None.  `before_update`, if given, is called between the
+    backward and the optimizer's step.  Returns (state, loss, softmax
+    probabilities), both detached.  Under a mesh (`parallel.use_mesh`)
+    the batch is this rank's rows: BatchNorm and the loss are the global
+    batch's, the gradients are summed over the ranks, the probabilities
+    are the rank's rows."""
     model = state.model
     model.train(train)
-    with torch.set_grad_enabled(train):
+    with span("cls::forward"), torch.set_grad_enabled(train):
         outputs = model(x, generator=rng)
         loss = cross_entropy(outputs, y)
     if train:
-        state.optimizer.zero_grad(set_to_none=True)
-        _S.backward(loss)
-        _S.sync_gradients(model.parameters())
-        state.optimizer.step()
+        with span("cls::backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            _S.backward(loss)
+        if before_update is not None:
+            before_update()
+        with span("cls::optimizer"):
+            _S.sync_gradients(model.parameters())
+            state.optimizer.step()
         state.step += 1
     return (state, loss.detach(),
             torch.softmax(outputs.detach().float(), dim=-1))
 
 
+def _captures_steps(state: TrainState) -> bool:
+    """Whether packed train steps replay CUDA graphs: a model on the card,
+    no mesh, and an optimizer that can be captured (`capturable`)."""
+    return (next(state.model.parameters()).is_cuda
+            and _S.current_mesh() is None
+            and all("capturable" in g for g in state.optimizer.param_groups))
+
+
+def _packed_step(state: TrainState, train: bool):
+    """The packed layout's step for the state's model, `_class_step`'s
+    signature: VoxResNet only.  Train steps replay CUDA graphs from the
+    second on where `_captures_steps` (`GraphedTrainStep`)."""
+    from ..models.cnn import VoxResNet
+    from ..models.voxresnet_packed import (GraphedTrainStep,
+                                           voxresnet_class_step_packed,
+                                           voxresnet_eval_step_packed)
+
+    if not isinstance(state.model, VoxResNet):
+        raise ValueError(f"packed=True runs VoxResNet only, not "
+                         f"{type(state.model).__name__}")
+    train_step = (GraphedTrainStep(state)
+                  if train and _captures_steps(state)
+                  else voxresnet_class_step_packed)
+
+    def step(state, x, y, rng, train, before_update=None):
+        if train:
+            return train_step(state, x, y, rng, before_update=before_update)
+        return voxresnet_eval_step_packed(state, x, y)
+    return step
+
+
+def _host_copies(*tensors):
+    """(host copies of `tensors`, a CUDA event after them): on the card
+    the copies go to pinned memory without waiting for it, and the event
+    tells when they have landed; CPU tensors come back as they are, with
+    no event."""
+    if not tensors[0].is_cuda:
+        return tensors, None
+    out = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                .copy_(t, non_blocking=True) for t in tensors)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(tensors[0].device))
+    return out, done
+
+
 def run_one_epoch(state: TrainState, loader, train: bool, rng_stream=None,
                   scheduler: Optional[ReduceLROnPlateau] = None,
                   experiment=None, epoch: int = 0, prefetch: int = 2,
-                  input_dtype=None):
+                  input_dtype=None, packed: bool = False):
     """One pass over `loader`; returns (state, losses, probs, targets).
 
     Dropout draws from `rng_stream` (a torch.Generator) or, if None, from
     a generator seeded with `epoch`, so that masks differ from epoch to
     epoch and runs repeat.  Batches are staged on the model's device
     `prefetch` batches ahead (0: one at a time).  In train mode the
-    plateau scheduler steps on each batch's loss."""
+    plateau scheduler steps on each batch's loss.  `packed=True` steps a
+    VoxResNet in the packed layout (any other model raises).
+
+    The host does not wait for the card at the end of a step: each step's
+    loss, probabilities and targets are copied to the host behind it, and
+    read (then the scheduler stepped and the loss logged) during the next
+    step, after its backward and before its optimizer step, so that the
+    scheduler acts on the same losses before the same updates as when
+    every step is read at its end.  On the card a packed epoch's train
+    steps from the second on replay CUDA graphs
+    (`models/voxresnet_packed.py::GraphedTrainStep`), and read the step
+    before ahead of both replays."""
+    step = _packed_step(state, train) if packed else _class_step
     gen = rng_stream if rng_stream is not None else \
         torch.Generator().manual_seed(epoch)
     losses, probs, targets = [], [], []
-    for x, y in _device_batches(loader, prefetch, state.device):
-        if input_dtype is not None:
-            x = x.to(input_dtype)
-        state, loss, p = _class_step(state, x, y, gen, train)
-        loss_val = float(loss)
-        if train and scheduler is not None:
-            scheduler.step(loss_val)
+    pending = []
+
+    def read_previous():
+        """Read the previous step's host copies, step the scheduler on its
+        loss and log it."""
+        if not pending:
+            return
+        (loss, p1, y), done = pending.pop()
+        with span("cls::loss_sync"):
+            if done is not None:
+                done.synchronize()
+            loss_val = float(loss)
+            probs.extend(p1.tolist())
+            targets.extend(y.tolist())
         losses.append(loss_val)
-        probs.extend(p[:, 1].cpu().tolist())
-        targets.extend(y.cpu().tolist())
-        if experiment:
-            experiment.log_metric("train_loss" if train else "val_loss",
-                                  loss_val)
+        with span("cls::log"):
+            if train and scheduler is not None:
+                scheduler.step(loss_val)
+            if experiment:
+                experiment.log_metric("train_loss" if train else "val_loss",
+                                      loss_val)
+
+    batches = _device_batches(loader, prefetch, state.device)
+    while True:
+        with span("cls::step"):
+            with span("cls::next_batch"):
+                x, y = next(batches, (None, None))
+            if x is None:
+                break
+            if input_dtype is not None:
+                with span("cls::cast"):
+                    x = x.to(input_dtype)
+            state, loss, p = step(state, x, y, gen, train, read_previous)
+            read_previous()
+            with span("cls::collect"):
+                pending.append(_host_copies(loss, p[:, 1], y))
+    read_previous()
     return state, losses, probs, targets
 
 
@@ -128,12 +233,12 @@ def train(state: TrainState, train_dataloader, val_dataloader, metric,
           scheduler: Optional[ReduceLROnPlateau] = None, verbose: int = 0,
           model_save_path: Optional[str] = None, max_epoch: int = 20,
           eps: float = 3e-3, max_patience: int = 10, experiment=None,
-          dashboard=None, input_dtype=None):
+          dashboard=None, input_dtype=None, packed: bool = False):
     """The epoch loop; returns (state, last_train_loss, last_train_metric,
-    last_val_loss, last_val_metric) of the best epoch.  `input_dtype` as
-    in `run_one_epoch`; `dashboard` gets `update(train_loss=, train_metric=,
-    val_loss=, val_metric=)` once per epoch (the validation values None
-    without a validation loader)."""
+    last_val_loss, last_val_metric) of the best epoch.  `input_dtype` and
+    `packed` as in `run_one_epoch`; `dashboard` gets `update(train_loss=,
+    train_metric=, val_loss=, val_metric=)` once per epoch (the
+    validation values None without a validation loader)."""
     patience = 0
     best_metric = 0.0
     etl, etm, evl, evm = [], [], [], []
@@ -143,11 +248,12 @@ def train(state: TrainState, train_dataloader, val_dataloader, metric,
         t0 = time.time()
         state, tr_losses, tr_probs, tr_targets = run_one_epoch(
             state, train_dataloader, True, scheduler=scheduler,
-            experiment=experiment, epoch=epoch, input_dtype=input_dtype)
+            experiment=experiment, epoch=epoch, input_dtype=input_dtype,
+            packed=packed)
         if val_dataloader is not None:
             state, v_losses, v_probs, v_targets = run_one_epoch(
                 state, val_dataloader, False, experiment=experiment,
-                epoch=epoch, input_dtype=input_dtype)
+                epoch=epoch, input_dtype=input_dtype, packed=packed)
 
         etl.append(float(np.mean(tr_losses)))
         etm.append(metric(tr_targets, tr_probs))
