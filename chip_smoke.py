@@ -52,10 +52,12 @@ Phases (each raises on failure, so the script exits nonzero):
    a. every B1 launch of one 192^3 batch-2 bf16 train step is recorded:
       the 12 forward convs and the 11 input gradients (`conv2_packed_dx`,
       B1 in the other parity with flipped, io-swapped weights; the stem's
-      input takes none), and the 12 weight gradients (`_dw_packed_qgroup`,
-      8 cuBLAS GEMMs with a float32 result each).  Each site's forward at
-      batch 2 and dx at batch 1 and 2, in f32 and bf16, is held against
-      the plain version, dw against an f32 einsum, and all three are timed
+      input takes none), and the 12 weight gradients (`_dw_packed_qgroup`
+      over the saved, unpadded input: `dw_packed`, in bf16 one split-K
+      wgmma launch of `csrc/dw_packed_tc.cu` and its fold, float32 out).
+      Each site's forward at batch 2 and dx at batch 1 and 2, in f32 and
+      bf16, is held against the plain version, dw against an f32 einsum
+      (bf16 on the kernel, f32 on the plain GEMMs), and all three are timed
       beside cuDNN's `convolution_backward` of the same packed conv; the
       step's BatchNorm tail (`BnActTrainPacked`, `csrc/bn_train_packed.cu`:
       9 statistics, 10 apply, 10 backward reduction and 10 dx passes) is
@@ -253,9 +255,11 @@ Phases (each raises on failure, so the script exits nonzero):
       BatchNorm tail's Function 22 sites x 4 passes, no plain pass and no
       plain BatchNorm composition), the same for the fine `_class_step`,
       ms, vol/s, peak memory, a profiled step each (idle share; B1
-      forward, B1 dx, dw GEMMs, the BatchNorm tail, cuDNN, other); every
+      forward, B1 dx, dw, the BatchNorm tail, cuDNN, other); every
       pass of the step's BatchNorm tail against its plain version and
-      timed (the kernels line's `bn_train_packed.voxresnet_training`);
+      timed (the kernels line's `bn_train_packed.voxresnet_training`),
+      every distinct dw site against an f32 einsum and timed
+      (`dw_packed.voxresnet_training`, 22 launches and folds a step);
       one eval forward (22 B1, 9 with B2 fused).
 14. distribution: an NCCL process group of world size 1 (one card: NCCL
    refuses two ranks on one device, so ranks > 1 are held on the CPU by
@@ -308,15 +312,15 @@ It prints one line per check, then `{"kernels": [...]}` (the kernels of
 the served path: B1 on tensor cores, B2 fused into B1 on either route,
 fused B3; of the training path: B1's forward on tensor cores, the
 stem's forward on CUDA cores, B1 as input gradient; of f32 validation;
-of the BatchNorm tail's passes on the training and patch-training paths;
+of the BatchNorm tail's passes and of dw (`csrc/dw_packed_tc.cu`) on
+the training, patch-training and VoxResNet training paths;
 of phase 8's sliding window and patch training; of phase 9's fader
 training: fused B3, B3's dx and dw and the `conv_axis` recomputes on
 tensor cores; of phase 11's int8 serving: K1 on its wgmma route and on
 the stem's mma.sync route, and K2; of phase 13: B1 forward and dx of the
 packed VoxResNet step, B1 with B2 fused in its eval forward, fused B3 and
 `conv_axis` on the packed ensemble; the standalone
-B2, off every path, goes to the JSON file with its numbers, as does dw
-of the packed UNet, which is cuBLAS and no kernel of the port), the card's
+B2, off every path, goes to the JSON file with its numbers), the card's
 `nvidia-smi` name and power limit, and last
 `{"ok": true, "device": {...}}`.  Per-site numbers also go to
 `chiprun_out/chip_smoke.json`.  Exits nonzero without printing a result
@@ -390,7 +394,8 @@ UNET_PER_BATCH = {"conv2_packed": len(B1_SITES),
                   "conv_axis_dx": 0, "conv_axis_dw": 0,
                   "conv_axis_dx_tc": 0, "conv_axis_dw_tc": 0,
                   "bn_train_stats": 0, "bn_train_apply": 0,
-                  "bn_train_reduce": 0, "bn_train_dx": 0}
+                  "bn_train_reduce": 0, "bn_train_dx": 0,
+                  "dw_packed": 0, "dw_packed_fold": 0}
 ENSEMBLE_PER_BATCH = {**UNET_PER_BATCH, "separable_conv3d": len(B3_STACKS)}
 
 # training (phase 6): a packed train step launches B1 for each of the 12
@@ -400,7 +405,8 @@ ENSEMBLE_PER_BATCH = {**UNET_PER_BATCH, "separable_conv3d": len(B3_STACKS)}
 # dx has 8Ci and 8Co multiples of 64.  The tail of each of the 10
 # ConvBlocks is one `BnActTrainPacked`: an apply pass forward and a
 # reduction and a dx pass backward each, a statistics pass for all but
-# the stem's conv1, which has no BatchNorm.
+# the stem's conv1, which has no BatchNorm.  Each conv's weight gradient
+# is one `dw_packed` launch and its fold.
 TRAIN_BATCH = 2
 TRAIN_BATCHES = 3              # training loader of train_segmentation
 TIMED_STEPS = 5
@@ -416,7 +422,9 @@ TRAIN_PER_STEP = {"conv2_packed": len(B1_SITES) + len(DX_SITES),
                   "conv_axis_dx": 0, "conv_axis_dw": 0,
                   "conv_axis_dx_tc": 0, "conv_axis_dw_tc": 0,
                   "bn_train_stats": BN_TAILS - 1, "bn_train_apply": BN_TAILS,
-                  "bn_train_reduce": BN_TAILS, "bn_train_dx": BN_TAILS}
+                  "bn_train_reduce": BN_TAILS, "bn_train_dx": BN_TAILS,
+                  "dw_packed": len(B1_SITES),
+                  "dw_packed_fold": len(B1_SITES)}
 BN_PASSES = ("bn_train_stats", "bn_train_apply", "bn_train_reduce",
              "bn_train_dx")
 # dw sums K = N x cells ~ 1.8M products per entry in f32 in an order that
@@ -711,10 +719,12 @@ VOX_PER_STEP = {**{k: 0 for k in UNET_PER_BATCH},
                 "conv2_packed": VOX_FWD + VOX_DX,
                 "conv2_packed_tc": VOX_FWD + VOX_DX,
                 "conv2_packed_dx": VOX_DX, "conv2_packed_dx_tc": VOX_DX,
-                **{k: VOX_BN for k in BN_PASSES}}
+                **{k: VOX_BN for k in BN_PASSES},
+                "dw_packed": VOX_FWD, "dw_packed_fold": VOX_FWD}
 VOX_SPLIT_PER_STEP = {"b1_stride1": VOX_FWD - VOX_STRIDE2,
                       "b1_stride2": VOX_STRIDE2, "b1_dx": VOX_DX,
-                      **{k: VOX_BN for k in BN_PASSES}}
+                      **{k: VOX_BN for k in BN_PASSES},
+                      "dw_packed": VOX_FWD, "dw_packed_fold": VOX_FWD}
 VOX_EVAL_PER_CALL = {**{k: 0 for k in UNET_PER_BATCH},
                      "conv2_packed": VOX_FWD, "conv2_packed_tc": VOX_FWD,
                      "conv2_packed_as_bn_act": VOX_FUSED,
@@ -1586,9 +1596,9 @@ def record_train_sites(K, P, fn):
                             "pad": pad})
         return dx(g, wp, pad=pad)
 
-    def rec_dw(x_padded, g):
-        sites["dw"].append({"x": tuple(x_padded.shape), "g": tuple(g.shape)})
-        return dw(x_padded, g)
+    def rec_dw(x, g):
+        sites["dw"].append({"x": tuple(x.shape), "g": tuple(g.shape)})
+        return dw(x, g)
 
     # the packed convs reach B1 through their module's `K` and dw through
     # the module-level `_dw_packed_qgroup`
@@ -1625,8 +1635,7 @@ def name_train_sites(sites):
                and _out_cells(s) == d["g"][1:4]) for d in sites["dx"]]
     dw = [find(lambda s, d=d: _out_cells(s) == d["g"][1:4]
                and s["wp"][3] == d["x"][4] and s["wp"][4] == d["g"][4]
-               and tuple(e + 2 * s["pad"] for e in s["x"][1:4])
-               == d["x"][1:4]) for d in sites["dw"]]
+               and s["x"][1:4] == d["x"][1:4]) for d in sites["dw"]]
     if sorted(dx) != sorted(DX_SITES) or sorted(dw) != sorted(B1_SITES):
         raise AssertionError(f"dx sites {dx}, dw sites {dw}")
     return dx, dw
@@ -1679,7 +1688,7 @@ def backward_site_rows(K, P, sites, gen, label, checks, timed, dw_at=()):
                                             dx_err)
                 del ref
             if (batch, dn) in dw_at:
-                dw_err, dw_row = dw_check(P, TF, name, x, g, pad)
+                dw_err, dw_row = dw_check(K, P, TF, name, x, g, pad)
                 errs["dw"][dn] = max(errs["dw"][dn] or 0.0, dw_err)
             if (batch, dn) == timed:
                 yard = cudnn_backward(x, wp, g, pad)
@@ -1729,18 +1738,22 @@ def dx_time_row(K, name, g, wp, pad, dx, yard):
     return row
 
 
-def dw_check(P, TF, name, x, g, pad):
-    """dw of one site (`_dw_packed_qgroup` over the padded input, as the
-    backward runs it) against the f32 einsum of the same operands; its
-    time and bound.  Returns (error, row)."""
+def dw_check(K, P, TF, name, x, g, pad):
+    """dw of one site (`_dw_packed_qgroup` over the conv's unpadded input,
+    as the backward runs it) against the f32 einsum of the same operands;
+    its time, its bound and share of it, and the plain GEMM route's time
+    (`dw_packed_plain`, the 8 window copies and GEMMs the kernel
+    replaced).  Returns (error, row)."""
     import torch
 
     od, oh, ow = g.shape[1:4]
     dt = "f32" if x.dtype == torch.float32 else "bf16"
+    if K.dw_pad(x.shape[1:4], g.shape[1:4]) != pad:
+        raise AssertionError(f"dw {name}: extents {tuple(x.shape)}, "
+                             f"{tuple(g.shape)} do not read as pad {pad}")
 
     def dw():
-        xpad = TF.pad(x, (0, 0) + (1, 1) * 3) if pad else x
-        return P._dw_packed_qgroup(xpad, g)
+        return P._dw_packed_qgroup(x, g)
 
     got = dw()
     torch.cuda.synchronize()
@@ -1754,23 +1767,25 @@ def dw_check(P, TF, name, x, g, pad):
         ).reshape(got.shape)
 
     ref = einsum_f32()
-    route = P.dw_gemm_route(x.dtype, x.device)
-    err = check(f"dw_packed_qgroup {name} b{x.shape[0]} ({route})", got,
+    route = K.dw_packed_route(x.dtype, x.device)
+    err = check(f"dw_packed {name} b{x.shape[0]} ({route})", got,
                 ref, dt, {dt: DW_TOL})
     c8i, c8o = x.shape[4], g.shape[4]
     m = g.shape[0] * od * oh * ow
     flops = 2.0 * 8 * m * c8i * c8o
     nbytes = (x.numel() + g.numel()) * x.element_size() + 4 * 8 * c8i * c8o
-    bound_ms, bound_by = _bound(flops, nbytes, "bf16" if route
-                                == "bf16_out_f32" else "f32")
+    bound_ms, bound_by = _bound(flops, nbytes, "bf16" if route == "tc"
+                                else "f32")
     ms = time_ms(dw, 5)
     row = {"site": name, "x": list(x.shape), "g": list(g.shape),
-           "route": route, "ms": ms, "einsum_f32_ms": time_ms(einsum_f32, 1),
+           "route": route, "ms": ms,
+           "plain_ms": time_ms(lambda: K.dw_packed_plain(x, g), 3),
+           "einsum_f32_ms": time_ms(einsum_f32, 1),
            "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
            "bound_by": bound_by, "bound_share": bound_ms / ms,
-           "tflops": flops / ms / 1e9}
-    log(f"time dw_packed_qgroup {name} b{x.shape[0]} {dt}: "
-        f"{json.dumps(row)}")
+           "tflops": flops / ms / 1e9, "max_abs_err": err,
+           "library_ms": None}
+    log(f"time dw_packed {name} b{x.shape[0]} {dt}: {json.dumps(row)}")
     del ref, got
     return err, row
 
@@ -2033,7 +2048,7 @@ def training_phase(K, P, UNet3D, gen, launch_counts):
            "timed_losses": losses, "ms_per_step": step_s * 1e3,
            "vol_per_s": TRAIN_BATCH / step_s, "peak_memory_gb": peak_gb,
            "master_weights_f32": master_f32,
-           "dw_route": P.dw_gemm_route(torch.bfloat16, xb.device),
+           "dw_route": K.dw_packed_route(torch.bfloat16, xb.device),
            "launches_epoch": counts_epoch, "launches_timed_steps": counts,
            "step_split": split, "profile": prof, "checkpoint": ckpt}
     log(f"training: {json.dumps(out)}")
@@ -2228,7 +2243,8 @@ def _counted_b1(c):
     of the kernels line): tensor-core plain store (forward, no dx),
     tensor-core with B2 fused, CUDA-core plain store (the stem and all of
     f32), CUDA-core with B2 fused, tensor-core input gradients; and the
-    other kernels' (`bn_train_packed`: the BatchNorm tail's passes)."""
+    other kernels' (`bn_train_packed`: the BatchNorm tail's passes;
+    `dw_packed`: the weight gradients, each with its fold)."""
     return {"conv2_packed_tc": c["conv2_packed_tc"]
             - c["conv2_packed_as_bn_act_tc"] - c["conv2_packed_dx_tc"],
             "conv2_packed_tc_bn_act": c["conv2_packed_as_bn_act_tc"],
@@ -2244,7 +2260,8 @@ def _counted_b1(c):
             "conv_axis_dw": c["conv_axis_dw"],
             "conv_axis_dx_tc": c["conv_axis_dx_tc"],
             "conv_axis_dw_tc": c["conv_axis_dw_tc"],
-            "bn_train_packed": sum(c.get(k, 0) for k in BN_PASSES)}
+            "bn_train_packed": sum(c.get(k, 0) for k in BN_PASSES),
+            "dw_packed": c.get("dw_packed", 0)}
 
 
 def _expect_counts(label, counts, want):
@@ -2959,7 +2976,8 @@ def files_training_phase(K, P, UNet3D, gen, launch_counts, ds, landmarks,
                                           [(None, "bf16")], (None, "bf16"))
     bwd_rows, bwd_err = backward_site_rows(K, P, sites["forward"], gen,
                                            "patch train", [(None, "bf16")],
-                                           (None, "bf16"))
+                                           (None, "bf16"),
+                                           dw_at=((None, "bf16"),))
     bn_rows, bn_totals = bn_tail_rows(
         K, P, bn_step_sites(sites),
         f"patch train step, {PATCH}^3 batch {PATCH_BATCH} bf16")
@@ -3030,13 +3048,14 @@ def files_training_phase(K, P, UNet3D, gen, launch_counts, ds, landmarks,
                                                 // PATCH_BATCH),
                        "forward_max_abs_err": fwd_err,
                        "dx_max_abs_err": bwd_err["dx"],
+                       "dw_max_abs_err": bwd_err["dw"],
                        "bn_tail": bn_totals, "bn_tail_sites": bn_rows}}
     log(f"training from files: {json.dumps(out)}")
     if not np.isfinite(tr + va + ptr + pva + losses).all():
         raise AssertionError("non-finite losses from files")
     if not np.isfinite(dsc + asd_gt + asd_pred + iou).all():
         raise AssertionError("non-finite validation metrics from files")
-    return pstate, out, fwd_rows, bwd_rows["dx"]
+    return pstate, out, fwd_rows, bwd_rows["dx"], bwd_rows["dw"]
 
 
 def sliding_window_phase(K, P, UNet3D, state, vol, gen, launch_counts,
@@ -4861,9 +4880,10 @@ def zoo_phase(K, gen):
 
 # kernel-name substrings of the device split of a classification step
 # (phase 13c): cuDNN's convolutions (its `*_implicit_gemm` kernels too),
-# then cuBLAS's GEMMs (the packed convs' dw, the FC layers)
+# cuBLAS's GEMMs (the FC layers), the packed convs' dw and its fold
 STEP_GROUPS = {"cudnn_ms": ("fprop", "dgrad", "wgrad", "cudnn", "convolve"),
-               "gemm_ms": ("gemm", "nvjet", "cutlass")}
+               "gemm_ms": ("gemm", "nvjet", "cutlass"),
+               "dw_ms": ("dw_packed",)}
 
 
 def packed_encoder_phase(K, Fd, FP, enc, x8, gen, launch_counts):
@@ -5106,16 +5126,18 @@ def _fine_yardstick(conv, size, batch, dtype, gen):
                 [True, False, False]))
 
 
-def vox_site_rows(K, sites, model, gen):
+def vox_site_rows(K, P, sites, model, gen):
     """Each distinct B1 site of the recorded packed VoxResNet step (bf16,
     batch VOX_BATCH at 192^3) against its plain version: the forward
     launch (bf16 at batch VOX_BATCH, f32 at batch 1), its input gradient
     (all but the stem's) and, at the aligned->shifted sites the eval
     forward takes, the launch with B2 fused (alpha 0); each timed in bf16
-    beside cuDNN's forward / input gradient of the fine layer.  Rows are
-    repeated by their calls per step.  Returns rows {"forward", "dx",
-    "fused"} and the largest errors by kind and dtype."""
+    beside cuDNN's forward / input gradient of the fine layer; and its
+    weight gradient in bf16 (`dw_check`).  Rows are repeated by their
+    calls per step.  Returns rows {"forward", "dx", "fused", "dw"} and the
+    largest errors by kind and dtype."""
     import torch
+    import torch.nn.functional as TF
 
     layers, order = vox_layers(model, SIZE)
     fwd = sites["forward"]
@@ -5128,8 +5150,12 @@ def vox_site_rows(K, sites, model, gen):
     got_dx = sorted((d["wp"], d["pad"]) for d in sites["dx"])
     if got_dx != want_dx:
         raise AssertionError(f"dx launches {got_dx} != {want_dx}")
-    rows = {"forward": [], "dx": [], "fused": []}
+    if len(sites["dw"]) != len(fwd):
+        raise AssertionError(f"{len(sites['dw'])} weight gradients per "
+                             f"step, not {len(fwd)}")
+    rows = {"forward": [], "dx": [], "fused": [], "dw": []}
     errs = {k: {"f32": 0.0, "bf16": 0.0} for k in rows}
+    errs["dw"]["f32"] = None          # dw is checked in bf16 only
     for i, (name, conv, fine) in enumerate(layers):
         site = fwd[first[i]]
         c8i, c8o, pad = site["x"][4], site["wp"][4], site["pad"]
@@ -5194,6 +5220,13 @@ def vox_site_rows(K, sites, model, gen):
                         lambda: K.conv2_packed_as_bn_act_plain(
                             x, wp, scale, shift, alpha),
                         fine_fwd, calls[i])] * calls[i]
+            if timed:           # the weight gradient, on the kernel
+                gw = torch.randn(got.shape, generator=gen,
+                                 device="cuda").to(dt)
+                err, row = dw_check(K, P, TF, name, x, gw, pad)
+                errs["dw"][dn] = max(errs["dw"][dn], err)
+                rows["dw"] += [row] * calls[i]
+                del gw
             del x, wp, got
             torch.cuda.empty_cache()
     return rows, errs
@@ -5258,7 +5291,7 @@ def voxresnet_train_phase(K, P, VP, gen, launch_counts):
     by kind (`launch_split`), no plain BatchNorm pass or composition,
     finite losses, parameters that move, ms, vol/s, peak memory), one
     profiled step (device ms and kernel count; B1 forward and input
-    gradients, cuDNN, cuBLAS GEMMs, the BatchNorm tail, other kernels,
+    gradients, cuDNN, cuBLAS GEMMs, dw, the BatchNorm tail, other kernels,
     copies; the idle share), the same for the fine `_class_step` of the
     same initial model; one bf16 eval forward of each (the packed one with
     B2 fused at 9 launches)."""
@@ -5337,10 +5370,11 @@ def voxresnet_train_phase(K, P, VP, gen, launch_counts):
                     "b1_dx_ms": b1_ms(prof) - b1_ms(fwd),
                     "cudnn_ms": grp["cudnn_ms"],
                     "cudnn_forward_ms": fwd["groups_ms"]["cudnn_ms"],
-                    "gemm_ms": grp["gemm_ms"],
+                    "gemm_ms": grp["gemm_ms"], "dw_ms": grp["dw_ms"],
                     "bn_tail_ms": prof["bn_train_ms"],
                     "other_ms": prof["kernel_ms"] - b1_ms(prof)
-                    - grp["cudnn_ms"] - grp["gemm_ms"] - prof["bn_train_ms"],
+                    - grp["cudnn_ms"] - grp["gemm_ms"] - grp["dw_ms"]
+                    - prof["bn_train_ms"],
                     "copy_ms": prof["copy_ms"],
                     "device_ms": prof["device_ms"]}
         after = state.model.state_dict()
@@ -5385,7 +5419,7 @@ def voxresnet_train_phase(K, P, VP, gen, launch_counts):
             "fine": time_ms(lambda: fine_model.eval()(x), 3)}
     del fine_model
     torch.cuda.empty_cache()
-    rows, errs = vox_site_rows(K, sites, model, gen)
+    rows, errs = vox_site_rows(K, P, sites, model, gen)
     out["kernel_max_abs_err"] = errs
     got = {k: sum(s["pass"] == k for s in sites["bn"]) for k in BN_PASSES}
     if got != {k: VOX_BN for k in BN_PASSES}:
@@ -6389,7 +6423,9 @@ def main() -> int:
                 "conv_axis_dw": K.conv_axis_dw.launches,
                 "conv_axis_dx_tc": K.conv_axis_dx.tc_launches,
                 "conv_axis_dw_tc": K.conv_axis_dw.tc_launches,
-                **{k: getattr(K, k).launches for k in BN_PASSES}}
+                **{k: getattr(K, k).launches for k in BN_PASSES},
+                "dw_packed": K.dw_packed.launches,
+                "dw_packed_fold": K.dw_packed.fold_launches}
 
     def counted(fn, per_batch):
         """Run fn with every launch count at 0 before it; each count after
@@ -6646,8 +6682,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         lap("8c")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as d:
-            patch_state, from_files, patch_fwd_rows, patch_dx_rows = (
-                files_training_phase(K, P, UNet3D, gen, launch_counts, ds,
+            (patch_state, from_files, patch_fwd_rows, patch_dx_rows,
+             patch_dw_rows) = (files_training_phase(K, P, UNet3D, gen, launch_counts, ds,
                                      landmarks, d))
         torch.cuda.empty_cache()
         lap("8d")
@@ -6885,6 +6921,8 @@ def main() -> int:
     # sites of one step (batch 2, bf16); B1's forward on tensor cores, the
     # stem's forward on the CUDA-core kernel, and the input gradients
     t = training["launches_timed_steps"]
+    dw_tpu = ("mri_epilepsy_diagnosis_tpu/ops/packed.py:173 "
+              "(_dw_packed_qgroup: an einsum, XLA's)")
     per_step = (f"sum over the sites of one batch-{TRAIN_BATCH} bf16 train "
                 f"step at {SIZE}^3; launches from {TIMED_STEPS} steps")
     fwd_tc = [r for r in train_rows["forward"] if r["route"] == "tc"]
@@ -6913,6 +6951,11 @@ def main() -> int:
         bn_tail_entry(bn_train_rows, bn_train,
                       sum(t[k] for k in BN_PASSES), path="training",
                       shapes=per_step),
+        kernel_entry("dw_packed.training", src + "dw_packed_tc.cu", dw_tpu,
+                     train_rows["dw"], train_errs["dw"],
+                     _counted_b1(t)["dw_packed"], len(B1_SITES),
+                     path="training", shapes=per_step,
+                     fold_launches=t["dw_packed_fold"]),
     ]
     # the f32 validation forward of phase 7c: B1 on the CUDA-core kernel,
     # with B2 fused at the aligned->shifted sites
@@ -7004,6 +7047,12 @@ def main() -> int:
                       from_files["patches"]["bn_tail"],
                       sum(pt[k] for k in BN_PASSES), path="patch_training",
                       shapes=per_patch),
+        kernel_entry("dw_packed.patch_training", src + "dw_packed_tc.cu",
+                     dw_tpu, patch_dw_rows,
+                     from_files["patches"]["dw_max_abs_err"],
+                     pt["dw_packed"], len(patch_dw_rows),
+                     path="patch_training", shapes=per_patch,
+                     fold_launches=pt["dw_packed_fold"]),
     ]
     # phase 9: the B3 backward of the fader alternation, summed over the
     # calls of one batch (3 disc_step + 1 enc_clf_step, batch 35, bf16)
@@ -7114,6 +7163,11 @@ def main() -> int:
                                "_bn_train_packed in train mode, and their "
                                "autograd)",
                       path="voxresnet_training", shapes=per_vox),
+        kernel_entry("dw_packed.voxresnet_training",
+                     src + "dw_packed_tc.cu", dw_tpu, vox_rows["dw"],
+                     vox_errs["dw"], vt["dw_packed"], VOX_FWD,
+                     path="voxresnet_training", shapes=per_vox,
+                     fold_launches=vt["dw_packed_fold"]),
         kernel_entry("separable_conv3d.packed_ensemble",
                      src + "separable_conv3d.cu", tpu + "70",
                      pe_sep_rows + [r for r in sep_rows
@@ -7178,7 +7232,10 @@ def main() -> int:
                   "conv_axis_tc.packed_ensemble": "conv_axis_tc",
                   "bn_train_packed.training": "bn_train_packed",
                   "bn_train_packed.patch_training": "bn_train_packed",
-                  "bn_train_packed.voxresnet_training": "bn_train_packed"}
+                  "bn_train_packed.voxresnet_training": "bn_train_packed",
+                  "dw_packed.training": "dw_packed",
+                  "dw_packed.patch_training": "dw_packed",
+                  "dw_packed.voxresnet_training": "dw_packed"}
     for entry in kernels:
         key = counted_as.get(entry["name"], entry["name"])
         entry["launches_by_path"] = {p: _counted_b1(n)[key]
@@ -7194,7 +7251,7 @@ def main() -> int:
           "bound_ms": sum(r["bound_ms"] for r in dw_rows),
           "flops": sum(r["flops"] for r in dw_rows),
           "max_abs_err": train_errs["dw"], "shapes": per_step}
-    log(f"dw (cuBLAS GEMMs, not a kernel of the port): {json.dumps(dw)}")
+    log(f"dw (csrc/dw_packed_tc.cu, phase 6a): {json.dumps(dw)}")
     # the counterparts of the JAX functions that the served path no longer
     # launches (0 launches there), with their phase-3 numbers
     cc_rows = [r for r in b1_rows if r["route"] == "cuda_core"]
@@ -7260,6 +7317,7 @@ def main() -> int:
                    "augmentation": augmentation, "from_files": from_files,
                    "patch_train_forward_sites": patch_fwd_rows,
                    "patch_train_dx_sites": patch_dx_rows,
+                   "patch_train_dw_sites": patch_dw_rows,
                    "sliding_window": sliding, "sliding_window_sites": sw_rows,
                    "phase8_s": phase8_s, "phase8_parts_s": phase8_parts_s,
                    "fader": fader, "fader_bwd_sites": fader_rows,

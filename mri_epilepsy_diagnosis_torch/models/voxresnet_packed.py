@@ -26,7 +26,8 @@ parameters, with every conv on kernel B1 (`conv2_packed`) at stride 2:
 At stride 2 a train step launches B1 22 times forward (the stem,
 `conv3d_2`, 4 downsamples and 16 block convs at n_blocks 4) and 21 times
 for input gradients (all but the stem's, whose input takes none); the
-weight gradients are `ops/packed.py::_dw_packed_qgroup`'s GEMMs.  In eval
+22 weight gradients are `ops/packed.py::_dw_packed_qgroup`'s kernel
+(`cuda_kernels.dw_packed`, two launches each).  In eval
 mode the stem's and each block's first conv run BN, ReLU and the pad
 zeroing as B1's B2 epilogue (`conv3_packed_as_bn_act`, slope 0, the conv
 bias folded into the shift); the other BNs take the running statistics.
@@ -45,7 +46,8 @@ evaluates a VoxResNet through `voxresnet_class_step_packed` and
 On the card its train steps after the first replay two CUDA graphs
 (`GraphedTrainStep`), so the host no longer paces them.  `launch_split`
 reads the step's B1 launches by kind (stride 1, stride 2, input
-gradients) and the BatchNorm passes from the kernels' counters.
+gradients), the BatchNorm passes and the weight gradients (`dw_packed`
+and its folds) from the kernels' counters.
 
 Reference: classification/models/cnn_model.py:43-101 (VoxResNet).
 """
@@ -417,11 +419,15 @@ def reset_launch_counts() -> None:
 def launch_split() -> Dict[str, int]:
     """Launches on the card since `reset_launch_counts`: B1 by kind
     (`b1_stride1`, `b1_stride2`: the stem and the downsamples, `b1_dx`:
-    input gradients) and each pass of `BnActTrainPacked`.  A packed train
-    step at stride 2 and 4 stages reads 17, 5, 21 and 22 of each pass."""
+    input gradients), each pass of `BnActTrainPacked`, and the weight
+    gradients' kernel and fold (`dw_packed`, `dw_packed_fold`).  A packed
+    train step at stride 2 and 4 stages reads 17, 5, 21, 22 of each pass
+    and 22 of each dw launch."""
     stride2 = (P.conv3s2_packed_aa.launches
                + P.conv_input_packed_s2_p4.launches)
     dx = K.conv2_packed_dx.launches
     return {"b1_stride1": K.conv2_packed.launches - dx - stride2,
             "b1_stride2": stride2, "b1_dx": dx,
-            **{name: getattr(K, name).launches for name in BN_PASSES}}
+            **{name: getattr(K, name).launches for name in BN_PASSES},
+            "dw_packed": K.dw_packed.launches,
+            "dw_packed_fold": K.dw_packed.fold_launches}

@@ -14,6 +14,7 @@ launch counters and build.
 | `conv2_packed_s8` (K1) | `csrc/conv2_packed_s8_tc.cu` (8Ci and 8Co multiples of 64: int8 wgmma + TMA, `s8_wgmma.cuh`), `csrc/conv2_packed_s8.cu` (the rest, the 8Ci = 8 stem: int8 mma.sync, `s8_igemm.cuh`); int32 out, or JAX's `_epilogue` fused to int8 | `models/unet_packed_q.py::conv_int8` (XLA in JAX) |
 | `upconv_packed_s8` (K2) | `csrc/upconv_packed_s8.cu` (the wgmma GEMM of `s8_wgmma.cuh` per output parity class, one persistent launch) | `models/unet_packed_q.py::upconv_int8` (XLA in JAX) |
 | `bn_train_stats`, `bn_train_apply`, `bn_train_reduce`, `bn_train_dx` | `csrc/bn_train_packed.cu` (the four passes of the train-mode BatchNorm + PReLU + pad-zero tail, `ops/packed.py::BnActTrainPacked`) | `models/unet_packed.py::_block_train` and its autograd (XLA in JAX) |
+| `dw_packed`         | `csrc/dw_packed_tc.cu` (bf16: split-K wgmma fed by TMA, and its fold); float32 and the CPU take `dw_packed_plain`'s GEMMs | `ops/packed.py::_dw_packed_qgroup` (an einsum, XLA's in JAX) |
 
 `conv_one_axis` and `separable_conv3d` keep the signatures of their JAX
 namesakes (without the Mosaic workarounds `interpret` and `max_taps`).
@@ -44,7 +45,9 @@ the wgmma route of `_conv2_s8_route`), `upconv_packed_s8.launches` the
 int8 composed up-convs, `bn_train_stats.launches`, `bn_train_apply.launches`,
 `bn_train_reduce.launches` and `bn_train_dx.launches` the passes of the
 train-mode tail (the statistics and backward reduction passes count one
-each for their two launches).
+each for their two launches), `dw_packed.launches` and
+`dw_packed.fold_launches` the packed convs' weight gradients and their
+folds.
 
 The kernels are CUDA C++ for `sm_90a` with a plain C interface, compiled
 by `nvcc` at first use (one process per source, all started together) and
@@ -74,7 +77,7 @@ SOURCES = ("conv2_packed.cu", "conv2_packed_tc.cu", "bn_act_zero_pads.cu",
            "conv_axis.cu", "separable_conv3d.cu", "conv_axis_bwd.cu",
            "conv_axis_bwd_tc.cu", "conv_axis_tc.cu", "conv2_packed_s8.cu",
            "conv2_packed_s8_tc.cu", "upconv_packed_s8.cu",
-           "bn_train_packed.cu")
+           "bn_train_packed.cu", "dw_packed_tc.cu")
 HEADERS = ("common.cuh", "tc_common.cuh", "hopper_tma.cuh", "s8_igemm.cuh",
            "s8_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -193,6 +196,8 @@ def load() -> ctypes.CDLL:
     lib.mri_bn_train_reduce.restype = i
     lib.mri_bn_train_dx.argtypes = [vp] * 4 + [i, ll] + [i] * 9 + [vp]
     lib.mri_bn_train_dx.restype = i
+    lib.mri_dw_packed_tc.argtypes = [vp] * 4 + [ll] + [i] * 13 + [vp]
+    lib.mri_dw_packed_tc.restype = i
     return lib
 
 
@@ -489,6 +494,240 @@ def conv2_packed_dx(g: torch.Tensor, wp: torch.Tensor, *,
 
 conv2_packed_dx.launches = 0
 conv2_packed_dx.tc_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dw: the weight gradient of B1
+# ---------------------------------------------------------------------------
+
+
+def dw_pad(x_cells: Sequence[int], g_cells: Sequence[int]) -> int:
+    """The pad of a packed k=2 conv, read from the cell extents of its
+    input x and its output gradient g: x one cell longer than g on every
+    axis is pad 0 (shifted -> aligned, the stride-2 convs' low-padded
+    input, a pre-padded input), one cell shorter is pad 1 (aligned ->
+    shifted); anything else raises."""
+    steps = {int(a) - int(b) for a, b in zip(x_cells, g_cells)}
+    if len(x_cells) == len(g_cells) == 3 and steps in ({1}, {-1}):
+        return 0 if steps == {1} else 1
+    raise ValueError(f"dw of a packed k=2 conv needs x's cells one more or "
+                     f"one fewer than g's on every axis; got "
+                     f"{tuple(x_cells)} and {tuple(g_cells)}")
+
+
+@functools.lru_cache(maxsize=None)
+def _mm_out_f32(device: torch.device) -> bool:
+    """Whether this torch multiplies bfloat16 operands into a float32
+    result on `device` (`torch.mm(..., out_dtype=torch.float32)`)."""
+    a = torch.zeros((16, 16), dtype=torch.bfloat16, device=device)
+    try:
+        torch.mm(a, a, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return False
+    return True
+
+
+def dw_gemm_route(dtype: torch.dtype, device: torch.device) -> str:
+    """How `dw_packed_plain` multiplies: "bf16_out_f32" (bfloat16
+    operands, float32 products summed into a float32 result) on CUDA where
+    torch has `mm`'s `out_dtype`, else "f32" (operands upcast to float32;
+    TF32 stays as `torch.backends.cuda.matmul.allow_tf32` has it, off by
+    default).  Never a bfloat16 result: dw is float32, as in JAX."""
+    if (dtype == torch.bfloat16 and device.type == "cuda"
+            and _mm_out_f32(device)):
+        return "bf16_out_f32"
+    return "f32"
+
+
+def dw_packed_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of `dw_packed`: x padded by one zero cell per side
+    where `dw_pad` reads pad 1, then 8 per-offset contractions
+    `x[:, q + cells].T @ g`, each one GEMM of K = N x cells over a copy
+    of the window (`dw_gemm_route`)."""
+    if dw_pad(x.shape[1:4], g.shape[1:4]):
+        x = TF.pad(x, (0, 0) + (1, 1) * 3)
+    od, oh, ow, c8o = g.shape[1:]
+    c8i = x.shape[-1]
+    route = dw_gemm_route(g.dtype, g.device)
+    g2 = g.reshape(-1, c8o)
+    if route == "f32":
+        g2 = g2.float()
+    rows = []
+    for qd in range(2):
+        for qh in range(2):
+            for qw in range(2):
+                sl = x[:, qd:qd + od, qh:qh + oh, qw:qw + ow].reshape(-1, c8i)
+                rows.append(torch.mm(sl.t(), g2, out_dtype=torch.float32)
+                            if route == "bf16_out_f32"
+                            else torch.mm(sl.float().t(), g2))
+    return torch.stack(rows).reshape(2, 2, 2, c8i, c8o)
+
+
+def dw_packed_route(dtype: torch.dtype, device: torch.device) -> str:
+    """The version that serves a `dw_packed` call: "tc" (`csrc/
+    dw_packed_tc.cu`, wgmma fed by TMA) for bfloat16 on the card, "plain"
+    (`dw_packed_plain`) for float32 on the card, which is held to float32
+    references, and for anything on the CPU.  Other dtypes on the card
+    raise."""
+    if device.type == "cpu" or (device.type == "cuda"
+                                and dtype == torch.float32):
+        return "plain"
+    if device.type == "cuda" and dtype == torch.bfloat16:
+        return "tc"
+    raise TypeError(f"dw_packed takes float32 or bfloat16 on the card, not "
+                    f"{dtype} on {device}")
+
+
+_DWP_M = 64                  # 8Co channels a tile: one wgmma M
+_DWP_ROW = 128               # bytes of a swizzled tile row
+_DWP_MAX_ROWS = 128          # output cells a K step at most
+_DWP_RING = 224 * 1024       # shared memory for the ring of stages
+_DWP_MAX_STAGES = 8
+_DWP_MIN_STAGES = 3          # a load in flight while two steps compute
+# the plan's cost model, per SM of the H100: dense bf16 rate, L2 fill rate
+# (about 5.5 TB/s over 132 SMs), fixed costs of a step and of a block, and
+# the fold's rate and launch
+_DWP_SM_FLOPS = 989e12 / 132
+_DWP_SM_FILL = 5.5e12 / 132
+_DWP_STEP_S = 0.2e-6
+_DWP_BLOCK_S = 2e-6
+_DWP_FOLD_BYTES_S = 2.5e12
+_DWP_FOLD_S = 3e-6
+
+
+class DwPackedPlan(NamedTuple):
+    """Tile plan of one `dw_packed` kernel launch (`dw_packed_plan`)."""
+    box: Tuple[int, int]          # (bw, bh) output cells a K step
+    tiles: Tuple[int, int]        # boxes along (W, H)
+    bn: int                       # 8Ci channels a tile: 8 at the stem, 64
+    tiles_mn: Tuple[int, int]     # tiles along 8Co (64 each) and 8Ci (bn)
+    steps: int                    # K steps a tile: N x Do x boxes
+    splits: int                   # split-K partials, summed by the fold
+    stages: int                   # ring stages
+    stage_bytes: int              # a stage: g's tile and two x tiles
+    smem: int                     # dynamic shared memory of a block
+    grid: int                     # blocks: tiles_m x tiles_n x splits
+    ws_floats: int                # workspace: splits x 8 x 64 tiles_m x
+                                  # bn tiles_n
+    waste: float                  # share of the steps' cells outside g
+
+
+def _dwp_stage_bytes(bw: int, bh: int, bn: int) -> int:
+    x_row = 16 if bn == 8 else _DWP_ROW
+    x_tile = -(-2 * (bh + 1) * bw * x_row // 1024) * 1024
+    return bw * bh * _DWP_ROW + 2 * x_tile
+
+
+def _dwp_boxes(wo: int, ho: int):
+    """(bw, bh) K-step boxes: bw a multiple of 8 (so every x window starts
+    on an 8-row swizzle group), bw x bh a multiple of 16 (wgmma's K) and
+    at most 128 cells."""
+    for bw in range(8, min(-(-wo // 8) * 8, _DWP_MAX_ROWS) + 1, 8):
+        for bh in range(1, min(ho + 1, _DWP_MAX_ROWS // bw) + 1):
+            if (bw * bh) % 16 == 0:
+                yield bw, bh
+
+
+def dw_packed_plan(n: int, do: int, ho: int, wo: int, c8i: int, c8o: int,
+                   sms: int = 132) -> DwPackedPlan:
+    """The box, splits and stages of the dw kernel for an output gradient
+    (n, do, ho, wo, c8o) and an input of c8i channels, at `sms` SMs.
+
+    Block (m tile, n tile, split s) walks K steps [s T / S, (s + 1) T /
+    S) of the T = n x do x tiles_h x tiles_w boxes, W fastest: box (b, z,
+    ty, tx) covers output cells [ty bh, +bh) x [tx bw, +bw) of plane z of
+    item b.  The box and S minimise a cost model: a block runs one per
+    SM, a step takes the longer of its tensor-core time and its L2 fill
+    (g's tile, and x's two haloed tiles of 2 (bh + 1) bw rows), and the
+    fold reads the S partials once."""
+    bn = 8 if c8i == 8 else 64
+    tiles_m, tiles_n = -(-c8o // _DWP_M), -(-c8i // bn)
+    tiles = tiles_m * tiles_n
+    x_row = 16 if bn == 8 else _DWP_ROW
+    tile_bytes = 8 * tiles_m * _DWP_M * tiles_n * bn * 4
+    best = None
+    for bw, bh in _dwp_boxes(wo, ho):
+        stage_bytes = _dwp_stage_bytes(bw, bh, bn)
+        stages = min(_DWP_MAX_STAGES, _DWP_RING // stage_bytes)
+        if stages < _DWP_MIN_STAGES:
+            continue
+        tw, th = -(-wo // bw), -(-ho // bh)
+        steps = n * do * tw * th
+        rows = bw * bh
+        fill = rows * _DWP_ROW + 4 * (bh + 1) * bw * x_row
+        step_s = max(16 * _DWP_M * bn * rows / _DWP_SM_FLOPS,
+                     fill / _DWP_SM_FILL) + _DWP_STEP_S
+        for k in range(1, 5):
+            splits = max(1, min(steps, -(-k * sms // tiles)))
+            waves = -(-tiles * splits // sms)
+            cost = (waves * (-(-steps // splits) * step_s + _DWP_BLOCK_S)
+                    + splits * tile_bytes / _DWP_FOLD_BYTES_S + _DWP_FOLD_S)
+            key = (cost, -rows, bw)
+            if best is None or key < best[0]:
+                best = (key, bw, bh, tw, th, steps, splits, stages,
+                        stage_bytes)
+    _, bw, bh, tw, th, steps, splits, stages, stage_bytes = best
+    return DwPackedPlan(
+        box=(bw, bh), tiles=(tw, th), bn=bn, tiles_mn=(tiles_m, tiles_n),
+        steps=steps, splits=splits, stages=stages, stage_bytes=stage_bytes,
+        smem=stages * stage_bytes + 1024 + 16 * stages,
+        grid=tiles * splits, ws_floats=splits * tile_bytes // 4,
+        waste=1.0 - n * do * ho * wo / (steps * bw * bh))
+
+
+def dw_packed(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Dense packed weight gradient of `y = conv2_packed(x, wp, pad=p)`
+    with y's cotangent g (N, Do, Ho, Wo, 8Co):
+
+        dw[q] = sum over n and cells c of x[n, c + q - p]^T g[n, c],
+
+    x zero outside its extent, as (2, 2, 2, 8Ci, 8Co) float32 whatever
+    the operands' dtype.  x is the conv's input as the forward took it,
+    without its pad: `dw_pad` reads p from the extents.  `dw_packed_route`
+    picks the version: on the card bfloat16 runs `csrc/dw_packed_tc.cu`
+    (a split-K wgmma launch and its fold, bf16 products summed in float32
+    in a fixed order: the same bits every call), float32 the plain GEMMs.
+    `dw_packed.launches` counts the kernel's launches,
+    `dw_packed.fold_launches` its folds."""
+    if x.ndim != 5 or g.ndim != 5 or x.shape[0] != g.shape[0]:
+        raise ValueError(f"dw_packed needs x (N,Di,Hi,Wi,8Ci) and g "
+                         f"(N,Do,Ho,Wo,8Co); got {tuple(x.shape)}, "
+                         f"{tuple(g.shape)}")
+    pad = dw_pad(x.shape[1:4], g.shape[1:4])
+    if x.dtype != g.dtype or x.device != g.device:
+        raise TypeError(f"dw_packed needs x and g of one dtype on one "
+                        f"device; got {x.dtype} on {x.device}, {g.dtype} "
+                        f"on {g.device}")
+    if dw_packed_route(g.dtype, g.device) == "plain":
+        return dw_packed_plain(x, g)
+    n, di, hi, wi, c8i = x.shape
+    do, ho, wo, c8o = g.shape[1:]
+    if c8i % 8 or c8o % 8:
+        raise ValueError(f"dw_packed's kernel needs 8Ci and 8Co multiples "
+                         f"of 8; got {c8i}, {c8o}")
+    _check_cuda("x", x, torch.bfloat16, g.device)
+    _check_cuda("g", g, torch.bfloat16, g.device)
+    out = torch.empty((2, 2, 2, c8i, c8o), dtype=torch.float32,
+                      device=g.device)
+    if g.numel() == 0 or x.numel() == 0:
+        return out.zero_()
+    plan = _cached_plan(dw_packed_plan, n, do, ho, wo, c8i, c8o,
+                        _sm_count(g.device))
+    ws = torch.empty(plan.ws_floats, dtype=torch.float32, device=g.device)
+    lib = load()
+    with torch.cuda.device(g.device):
+        rc = lib.mri_dw_packed_tc(
+            x.data_ptr(), g.data_ptr(), ws.data_ptr(), out.data_ptr(), n, di,
+            hi, wi, do, ho, wo, c8i, c8o, pad, *plan.box, plan.splits,
+            plan.stages, torch.cuda.current_stream(g.device).cuda_stream)
+    _raise_on(rc, "dw_packed_tc")
+    dw_packed.launches += 1
+    dw_packed.fold_launches += 1
+    return out
+
+
+dw_packed.launches = 0
+dw_packed.fold_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -2509,12 +2748,13 @@ upconv_packed_s8.launches = 0
 KERNELS = (conv2_packed, bn_act_zero_pads, conv_axis, conv2_packed_as_bn_act,
            conv2_packed_dx, separable_conv3d, conv_axis_dx, conv_axis_dw,
            conv2_packed_s8, upconv_packed_s8, bn_train_stats, bn_train_apply,
-           bn_train_reduce, bn_train_dx)
+           bn_train_reduce, bn_train_dx, dw_packed)
 
 
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+    dw_packed.fold_launches = 0
     conv2_packed.tc_launches = 0
     conv2_packed_as_bn_act.tc_launches = 0
     conv2_packed_dx.tc_launches = 0

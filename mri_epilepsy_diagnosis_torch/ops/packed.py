@@ -16,7 +16,8 @@ cells in one of two parities:
 Both run as kernel B1 (`ops/cuda_kernels.py::conv2_packed`), and both are
 `torch.autograd.Function`s (`Conv3Packed`, `Conv3PackedAs`) whose input
 gradient is B1 again in the other parity (`conv2_packed_dx`) and whose
-weight gradient is 8 float32 GEMMs (`_dw_packed_qgroup`).  The shifted
+weight gradient is one split-K wgmma launch and its fold
+(`_dw_packed_qgroup`, `cuda_kernels.dw_packed`).  The shifted
 layout carries one pad voxel per axis (fine -1 and S); after the
 aligned->shifted conv's BN/PReLU they are re-zeroed.  On the served path
 that tail (kernel B2) is the epilogue of the aligned->shifted B1 launch
@@ -50,6 +51,7 @@ import torch.nn.functional as TF
 from ..parallel import sharding as _S
 from . import cuda_kernels as K
 from . import functional as F
+from .cuda_kernels import dw_gemm_route  # noqa: F401  (the plain dw's route)
 from .functional import _exact_f32_convs
 
 # ---------------------------------------------------------------------------
@@ -270,54 +272,15 @@ def _tiled_bias(bias):
     return None if bias is None else tile_channel_param(bias).float()
 
 
-@functools.lru_cache(maxsize=None)
-def _mm_out_f32(device: torch.device) -> bool:
-    """Whether this torch multiplies bfloat16 operands into a float32
-    result on `device` (`torch.mm(..., out_dtype=torch.float32)`)."""
-    a = torch.zeros((16, 16), dtype=torch.bfloat16, device=device)
-    try:
-        torch.mm(a, a, out_dtype=torch.float32)
-    except (TypeError, RuntimeError, NotImplementedError):
-        return False
-    return True
-
-
-def dw_gemm_route(dtype: torch.dtype, device: torch.device) -> str:
-    """How `_dw_packed_qgroup` multiplies: "bf16_out_f32" (bfloat16
-    operands, float32 products summed into a float32 result) on CUDA where
-    torch has `mm`'s `out_dtype`, else "f32" (operands upcast to float32;
-    TF32 stays as `torch.backends.cuda.matmul.allow_tf32` has it, off by
-    default).  Never a bfloat16 result: dw is float32, as in JAX."""
-    if (dtype == torch.bfloat16 and device.type == "cuda"
-            and _mm_out_f32(device)):
-        return "bf16_out_f32"
-    return "f32"
-
-
-def _dw_packed_qgroup(x_padded: torch.Tensor, g: torch.Tensor
-                      ) -> torch.Tensor:
-    """Dense packed dw (2, 2, 2, 8Ci, 8Co), float32, as 8 per-offset
-    contractions `x_padded[:, q + cells].T @ g` (the JAX package's
-    `ops/packed.py::_dw_packed_qgroup`).  `x_padded` is the conv's input
-    including its padding, so its slice at offset q lines up with every
-    output cell of g.  Each contraction is one GEMM of K = N x cells; each
-    slice is copied once to make it a matrix."""
-    od, oh, ow, c8o = g.shape[1:]
-    c8i = x_padded.shape[-1]
-    route = dw_gemm_route(g.dtype, g.device)
-    g2 = g.reshape(-1, c8o)
-    if route == "f32":
-        g2 = g2.float()
-    rows = []
-    for qd in range(2):
-        for qh in range(2):
-            for qw in range(2):
-                sl = x_padded[:, qd:qd + od, qh:qh + oh,
-                              qw:qw + ow].reshape(-1, c8i)
-                rows.append(torch.mm(sl.t(), g2, out_dtype=torch.float32)
-                            if route == "bf16_out_f32"
-                            else torch.mm(sl.float().t(), g2))
-    return torch.stack(rows).reshape(2, 2, 2, c8i, c8o)
+def _dw_packed_qgroup(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Dense packed dw (2, 2, 2, 8Ci, 8Co), float32: the 8 per-offset
+    contractions `x[:, q + cells - pad].T @ g` of the JAX package's
+    `ops/packed.py::_dw_packed_qgroup`.  x is the conv's input with or
+    without its one-cell zero pad: one cell longer than g on every axis
+    is pad 0, one shorter pad 1 (`K.dw_pad`).  `K.dw_packed` computes it:
+    on the card in bfloat16 one split-K wgmma launch and its fold, else
+    the plain GEMMs (`dw_gemm_route`)."""
+    return K.dw_packed(x, g)
 
 
 def _packed_conv_forward(ctx, x, wp, bias, pad: int):
@@ -331,7 +294,8 @@ def _packed_conv_forward(ctx, x, wp, bias, pad: int):
 def _packed_conv_backward(ctx, g, pad: int):
     """dx: B1 in the other parity with flipped, io-swapped weights, skipped
     where x takes no gradient (the stem's input); dw: the 8 per-offset
-    contractions, float32; bias: the sum of g over the cells with the 8
+    contractions over the saved x as it is (its pad read from the
+    extents), float32; bias: the sum of g over the cells with the 8
     sub-positions folded, in float32."""
     x, wp = ctx.saved_tensors
     g = g.contiguous()
@@ -339,8 +303,7 @@ def _packed_conv_backward(ctx, g, pad: int):
     if ctx.needs_input_grad[0]:
         dx = K.conv2_packed_dx(g, wp, pad=pad)
     if ctx.needs_input_grad[1]:
-        xpad = TF.pad(x, (0, 0) + (1, 1) * 3) if pad else x
-        dw = _dw_packed_qgroup(xpad, g).to(ctx.dtypes[0])
+        dw = _dw_packed_qgroup(x, g).to(ctx.dtypes[0])
     if ctx.needs_input_grad[2]:
         c8o = g.shape[-1]
         db = g.sum(dim=(0, 1, 2, 3), dtype=torch.float32).reshape(
@@ -1007,8 +970,8 @@ class UpconvCoreHybrid(torch.autograd.Function):
     with the hand-rolled gradient of JAX's `upconv_core_hybrid`:
     dx is the adjoint of the composed conv over `edge_pad_cells` (a
     stride-2 cuDNN conv, then the edge planes added back into the boundary
-    cells); dw is `_dw_packed_qgroup` over the one-cell-padded
-    `upsample2_packed(x)`, unpacked by `_unpack_weights2_as_transpose`.
+    cells); dw is `_dw_packed_qgroup` over `upsample2_packed(x)` with its
+    one-cell zero pad, unpacked by `_unpack_weights2_as_transpose`.
 
     CONTRACT: valid only beneath `upconv_fix_faces`, whose keep masks zero
     the incoming gradient on the six face planes; there the composed
@@ -1034,7 +997,8 @@ class UpconvCoreHybrid(torch.autograd.Function):
                 xx = x.detach().requires_grad_()
                 (dx,) = torch.autograd.grad(edge_pad_cells(xx), xx, dxe)
         if ctx.needs_input_grad[1]:
-            up = TF.pad(upsample2_packed(x), (0, 0) + (1, 1) * 3)
+            # g is one cell longer than the upsample: dw reads pad 1
+            up = upsample2_packed(x).contiguous()
             co, ci = w_u.shape[:2]
             dw = _unpack_weights2_as_transpose(
                 _dw_packed_qgroup(up, g), ci, co).to(w_u.dtype)

@@ -386,10 +386,79 @@ def test_dw_route_keeps_float32(cuda_device):
     assert err <= 1e-5 * ref.abs().max().item()
 
 
+# dw's error bound against the float32 einsum of the same bf16 operands
+# (`chip_smoke.py`'s DW_TOL): only the summation order differs
+DW_TOL = 2e-4
+# (N, Do, Ho, Wo) of g: odd, ragged extents, batch 1 and above
+DW_SHAPES = ((2, 5, 7, 9), (1, 3, 4, 17), (3, 2, 9, 5), (1, 6, 3, 10))
+DW_CASES = [(c8i, c8o, pad, DW_SHAPES[i % len(DW_SHAPES)])
+            for i, (c8i, c8o, pad) in enumerate(
+                (c8i, c8o, pad) for c8i in (8, 64, 384, 1024)
+                for c8o in (64, 128, 256, 512, 1024) for pad in (0, 1))]
+# channel counts that no tile divides, and a stride-2 conv's 8Co = Co
+DW_CASES += [(24, 40, 1, (2, 4, 5, 6)), (136, 72, 0, (1, 7, 6, 11)),
+             (512, 64, 0, (2, 6, 6, 6)), (1024, 128, 0, (3, 3, 3, 3))]
+
+
+def _dw_operands(device, c8i, c8o, pad, shape, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n, *cells = shape
+    x_cells = [c + 1 - 2 * pad for c in cells]
+    x = torch.randn(n, *x_cells, c8i, generator=gen,
+                    device=device).to(torch.bfloat16)
+    g = torch.randn(n, *cells, c8o, generator=gen,
+                    device=device).to(torch.bfloat16)
+    return x, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c8i,c8o,pad,shape", DW_CASES)
+def test_dw_packed_kernel_matches_einsum(cuda_device, c8i, c8o, pad, shape):
+    """The dw kernel against the float32 GEMMs of the same bf16 operands,
+    with x unpadded (pad read from the extents): two launches a call."""
+    x, g = _dw_operands(cuda_device, c8i, c8o, pad, shape, 11)
+    before = (K.dw_packed.launches, K.dw_packed.fold_launches)
+    got = K.dw_packed(x, g)
+    torch.cuda.synchronize()
+    assert (K.dw_packed.launches, K.dw_packed.fold_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (2, 2, 2, c8i, c8o)
+    ref = K.dw_packed_plain(x.float(), g.float())
+    err = (got - ref).abs().max().item()
+    assert err <= DW_TOL * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c8i,c8o,pad,shape", [
+    (8, 64, 1, (2, 9, 9, 9)), (64, 128, 0, (2, 8, 8, 8)),
+    (512, 256, 1, (2, 5, 5, 5))])
+def test_dw_packed_is_reproducible_and_graph_safe(cuda_device, c8i, c8o,
+                                                  pad, shape):
+    """Two calls give the same bits (no atomics, a fixed fold order), and
+    a CUDA graph's replay gives the eager call's bits."""
+    x, g = _dw_operands(cuda_device, c8i, c8o, pad, shape, 12)
+    first = K.dw_packed(x, g)
+    second = K.dw_packed(x, g)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        K.dw_packed(x, g)     # the plan and the launch attributes, eagerly
+    torch.cuda.current_stream(cuda_device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = K.dw_packed(x, g)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
 @pytest.mark.cuda
 def test_packed_train_step_on_the_card(cuda_device):
     """One bf16 packed train step at 32^3 through the kernels: 23 B1
-    launches (11 of them dx), no B2, finite loss, float32 master weights;
+    launches (11 of them dx), 12 dw kernels and their folds, no B2, finite
+    loss, float32 master weights;
     the served forward under inference_mode keeps its 12 launches."""
     from mri_epilepsy_diagnosis_torch.models import UNet3D
     from mri_epilepsy_diagnosis_torch.models.unet_packed import (
@@ -413,6 +482,7 @@ def test_packed_train_step_on_the_card(cuda_device):
             K.conv2_packed_dx.launches, K.conv2_packed_dx.tc_launches,
             K.conv2_packed_as_bn_act.launches,
             K.bn_act_zero_pads.launches) == (23, 22, 11, 11, 0, 0)
+    assert (K.dw_packed.launches, K.dw_packed.fold_launches) == (12, 12)
     assert torch.isfinite(loss)
     assert all(p.dtype == torch.float32 for p in model.parameters())
     K.reset_launch_counts()

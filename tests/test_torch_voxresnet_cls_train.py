@@ -453,4 +453,5 @@ def test_launch_split_reads_the_counters():
     TV.reset_launch_counts()
     assert TV.launch_split() == {
         "b1_stride1": 0, "b1_stride2": 0, "b1_dx": 0, "bn_train_stats": 0,
-        "bn_train_apply": 0, "bn_train_reduce": 0, "bn_train_dx": 0}
+        "bn_train_apply": 0, "bn_train_reduce": 0, "bn_train_dx": 0,
+        "dw_packed": 0, "dw_packed_fold": 0}
