@@ -183,7 +183,7 @@ Phases (each raises on failure, so the script exits nonzero):
       losses), then `FCDMaskGenerator.inference_pipeline` from NIfTI
       files at batch 512 (host and device ms, idle share, IoU against the
       lesion and the mask read back from disk).
-11. int8 serving and the composed decoder:
+11. int8 serving:
    a. the phase-4 UNet calibrated on 2 of its volumes and quantized
       (`models/unet_packed_q.py::quantize_inference`); every K1
       (`conv2_packed_s8`: `csrc/conv2_packed_s8_tc.cu`, wgmma, at 9
@@ -201,11 +201,7 @@ Phases (each raises on failure, so the script exits nonzero):
       fine masks (agreement >= 0.995, JAX's gate; foreground Dice >= 0.9),
       exact launch counts per batch (K1 10, all with the epilogue fused,
       9 on wgmma, K2 2, no other kernel of the port), vol/s, batch latency, a
-      profiled batch beside phase 4's bf16 numbers;
-   c. the packed train step with `dec_up="composed"` and `"hybrid"`
-      against `"explicit"` in f32 at 64^3 (phase 6b's tolerances), then
-      ms per 192^3 batch-2 bf16 step of each form and the up branch's
-      forward and backward alone (CUDA events).
+      profiled batch beside phase 4's bf16 numbers.
 12. the segmentation model zoo (`ZOO`: ResidualUNet3D with and without
    Bayesian convs, Modified3DUNet, BraTSUnet, at the JAX package's
    default widths with one channel and two classes) through
@@ -244,7 +240,8 @@ Phases (each raises on failure, so the script exits nonzero):
    c. `models/voxresnet_packed.py`: f32 parity with the fine port (cuDNN,
       TF32 off) at 64^3 (4 stages, 2 filters) and 32^3 (stride 1, the
       cuDNN stem): eval and train logits, running statistics, every
-      gradient, exact B1 counts; then bench.py's configuration (192^3,
+      gradient (against the fine model with the packed step's ReLU
+      masks), exact B1 counts; then bench.py's configuration (192^3,
       batch 10, 32 filters, 4 stages, dropout 0.5, 192 FC units, Adam
       1e-5 with L2 decay 0.01) in bf16: every distinct B1 site of the step
       (forward, dx, and the eval forward's B2-fused launches) against its
@@ -738,6 +735,12 @@ VOX_TRAIN_TOL = (2e-5, 1e-4)
 VOX_STATS_TOL = (1e-5, 1e-4)
 VOX_GRAD_RTOL = 1e-4           # x max|ref| of the tensor, + f32 rounding
 VOX_PRE_BN_BIASES = ("model.conv3d_1.bias", "model.conv3d_2.bias")
+# The gradients are held against the fine model run with the packed
+# step's ReLU masks.  An input within float32 rounding of 0 can take the
+# other branch of a ReLU in the two models; the gradient at that voxel
+# then passes in one and not in the other.  A BatchNorm bias just before
+# that ReLU has a cancelling sum for its gradient, which one such voxel
+# moves by up to 1e-2 of its max, 100x and more its bound.
 
 
 def log(*args):
@@ -1741,9 +1744,9 @@ def dx_time_row(K, name, g, wp, pad, dx, yard):
 def dw_check(K, P, TF, name, x, g, pad):
     """dw of one site (`_dw_packed_qgroup` over the conv's unpadded input,
     as the backward runs it) against the f32 einsum of the same operands;
-    its time, its bound and share of it, and the plain GEMM route's time
-    (`dw_packed_plain`, the 8 window copies and GEMMs the kernel
-    replaced).  Returns (error, row)."""
+    its time, its bound and share of it, and the plain version's time
+    (`plain_ms`: `dw_packed_plain`, the 8 float32 window GEMMs).  Returns
+    (error, row)."""
     import torch
 
     od, oh, ow = g.shape[1:4]
@@ -2040,7 +2043,7 @@ def training_phase(K, P, UNet3D, gen, launch_counts):
                                  - split["b1_dx_ms"] - split["dw_ms"]
                                  - split["bn_tail_ms"])
     out = {"size": SIZE, "batch": TRAIN_BATCH, "dtype": "bf16",
-           "ocfl": OCFL, "dec_up": "explicit", "remat": False,
+           "ocfl": OCFL,
            "foreground_share": fg,
            "epoch_train_losses": [float(v) for v in tr],
            "epoch_val_losses": [float(v) for v in va],
@@ -4508,109 +4511,6 @@ def int8_serving_phase(K, Q, q, vols, fine_masks, znorm_batch,
     return out, fails
 
 
-def composed_training_phase(K, P, TS, UNet3D, gen):
-    """Phase 11c: the packed train step with `dec_up="composed"` and
-    `"hybrid"` against `"explicit"`: in f32 at PARITY_SIZE^3, batch 1, TF32
-    off, loss, gradients and running statistics at phase 6b's tolerances;
-    then at SIZE^3, batch TRAIN_BATCH, bf16, ms per step of each form (1
-    warm-up, TIMED_STEPS timed), one profiled step of each (device time,
-    idle share, the top kernels) and, from CUDA events, the up branch's
-    forward and backward alone at each decoder site's shapes, whose sum
-    over the two sites over the step's time is the branch's share."""
-    import copy
-
-    import torch
-
-    from mri_epilepsy_diagnosis_torch.train.optim import torch_adamw
-    from mri_epilepsy_diagnosis_torch.train.state import TrainState
-
-    forms = ("explicit", "composed", "hybrid")
-    model = UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
-                   out_channels_first_layer=OCFL, device="cuda")
-    random_state_dict(model, gen)
-    x = torch.randn((1, PARITY_SIZE, PARITY_SIZE, PARITY_SIZE, 1),
-                    generator=gen, device="cuda")
-    _, labels = seg_batches(gen, 1, 1, PARITY_SIZE)[0]
-    labels = torch.from_numpy(labels).cuda()
-    models, losses = {}, {}
-    for form in forms:
-        m = copy.deepcopy(model)
-        state = TrainState(m, torch_adamw(1e-3)(m.parameters()))
-        _, loss = TS.packed_seg_train_step(state, x, labels, dec_up=form)
-        models[form], losses[form] = m, loss.item()
-    parity = {form: _grads_and_stats_agree(
-        f"f32 {form} vs explicit ({PARITY_SIZE}^3 b1)", models[form],
-        models["explicit"], losses[form], losses["explicit"])
-        for form in forms[1:]}
-    del models, model
-    torch.cuda.empty_cache()
-
-    model = UNet3D(out_classes=2, num_encoding_blocks=BLOCKS,
-                   out_channels_first_layer=OCFL, device="cuda")
-    random_state_dict(model, gen)
-    xb, lb = seg_batches(gen, 1, TRAIN_BATCH, SIZE)[0]
-    xb = torch.from_numpy(xb).cuda().to(torch.bfloat16)
-    lb = torch.from_numpy(lb).cuda()
-    steps = {}
-    for form in forms:
-        m = copy.deepcopy(model)
-        state = TrainState(m, torch_adamw(1e-3)(m.parameters()))
-        TS.packed_seg_train_step(state, xb, lb, dec_up=form)   # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(TIMED_STEPS):
-            _, loss = TS.packed_seg_train_step(state, xb, lb, dec_up=form)
-        torch.cuda.synchronize()
-        steps[form] = {"ms_per_step": (time.perf_counter() - t0) * 1e3
-                       / TIMED_STEPS, "loss": loss.item(),
-                       "peak_memory_gb":
-                           torch.cuda.max_memory_allocated() / 1e9}
-        if not np.isfinite(steps[form]["loss"]):
-            raise AssertionError(f"{form}: non-finite loss")
-        prof = profile_batch(lambda: TS.packed_seg_train_step(
-            state, xb, lb, dec_up=form), top=8, host_ops=False)
-        steps[form]["profile"] = {k: prof[k] for k in (
-            "wall_ms", "device_ms", "idle_share", "top")}
-        del m, state
-        torch.cuda.empty_cache()
-    # the up branch alone, forward + backward, at the step's decoder shapes
-    sd = model.state_dict()
-    up_ms = {form: 0.0 for form in forms}
-    for i, (cells, c_in) in enumerate(((SIZE // 8, 8 * OCFL),
-                                       (SIZE // 4, 4 * OCFL))):
-        w = sd[f"decoder.decoding_blocks.{i}.conv1.conv_layer.weight"]
-        w_u = w[:, w.shape[1] - c_in:].detach()
-        xa = torch.randn((TRAIN_BATCH, cells, cells, cells, 8 * c_in),
-                         device="cuda").to(torch.bfloat16)
-        for form in forms:
-            def run():
-                xx = xa.detach().requires_grad_()
-                ww = w_u.detach().requires_grad_()
-                if form == "explicit":
-                    y = P.conv3_packed_as(P.upsample2_packed(xx),
-                                          P.pack_weights2_as(ww))
-                else:
-                    core = (P.upconv_core_hybrid(xx, ww) if form == "hybrid"
-                            else P.upconv_packed(xx, P.pack_upconv_weights(
-                                ww)))
-                    y = P.upconv_fix_faces(core, xx, ww)
-                y.backward(torch.ones_like(y))
-            up_ms[form] += time_ms(run, 3)
-    for form in forms:
-        steps[form]["up_branch_fwd_bwd_ms"] = up_ms[form]
-        steps[form]["up_branch_share"] = (up_ms[form]
-                                          / steps[form]["ms_per_step"])
-    out = {"parity_f32": parity, "bf16_steps": steps,
-           "size": SIZE, "batch": TRAIN_BATCH}
-    log("composed/hybrid training: " + json.dumps(
-        {f: {k: v for k, v in st.items() if k != "profile"}
-         for f, st in steps.items()}))
-    log("composed/hybrid profiles: " + json.dumps(
-        {f: st["profile"] for f, st in steps.items()}))
-    return out
-
-
 @contextlib.contextmanager
 def replaced_draws(eps, keep):
     """The port's random draws from the given sources in place of its
@@ -5004,15 +4904,83 @@ def _allclose_err(got, ref, tol):
             - rtol * ref.double().abs()).max().item(), atol
 
 
+@contextlib.contextmanager
+def _packed_relu_masks():
+    """Collects, in call order and in the fine layout, where each ReLU of
+    the packed VoxResNet step passed its input (output > 0): the
+    BatchNorm tails' (`ops/packed.py::bn_act_train_packed`, shifted or
+    aligned), and the residual adds' and the head's
+    (`models/voxresnet_packed.py::_relu`)."""
+    from mri_epilepsy_diagnosis_torch.models import voxresnet_packed as VP
+    from mri_epilepsy_diagnosis_torch.ops import packed as P
+
+    tail, relu = P.bn_act_train_packed, VP._relu
+    masks = []
+
+    def passed(out, shifted=False):
+        if out.ndim == 5:
+            out = P.unpack2(out)
+            if shifted:
+                out = out[:, 1:-1, 1:-1, 1:-1]
+        masks.append((out > 0).detach())
+
+    def tail_seen(y, gamma, beta, alpha, running, *, shifted, valid):
+        out = tail(y, gamma, beta, alpha, running, shifted=shifted,
+                   valid=valid)
+        if alpha is not None:
+            passed(out[0], shifted)
+        return out
+
+    def relu_seen(t):
+        out = relu(t)
+        passed(out)
+        return out
+
+    P.bn_act_train_packed, VP._relu = tail_seen, relu_seen
+    try:
+        yield masks
+    finally:
+        P.bn_act_train_packed, VP._relu = tail, relu
+
+
+@contextlib.contextmanager
+def _fine_at_masks(masks):
+    """The fine model's ReLUs pass exactly where the packed step's did
+    (`masks`, in call order), so that an input that float32 rounding puts
+    on the other side of 0 takes the same branch in both."""
+    from mri_epilepsy_diagnosis_torch.ops import functional as F
+
+    relu = F.relu
+    taken = iter(masks)
+
+    def at_mask(t):
+        mask = next(taken)
+        if mask.shape != t.shape:
+            raise AssertionError(f"ReLU mask {tuple(mask.shape)} for "
+                                 f"{tuple(t.shape)}")
+        return t * mask
+
+    F.relu = at_mask
+    try:
+        yield
+    finally:
+        F.relu = relu
+    if next(taken, None) is not None:
+        raise AssertionError("the fine model took fewer ReLUs than the "
+                             "packed step")
+
+
 def voxresnet_parity_phase(K, VP, gen, launch_counts):
     """Phase 13c, f32 parity of the packed VoxResNet (B1 on CUDA cores)
     with the fine port (cuDNN, TF32 off) on the card, at the sizes and
     tolerances of tests/test_torch_voxresnet_packed.py (VOX_PARITY): eval
-    and train logits, the new running statistics, and every gradient,
-    1e-4 x its tensor's max plus the fine model's own float32 rounding (its
-    float32 gradient against its float64 one on the card); the pre-BN conv
-    biases (true gradient 0) at 1e-4 x the largest gradient.  Exact B1
-    launch counts of the packed train step."""
+    and train logits and the new running statistics against the fine
+    model; every gradient against the fine model run at the packed step's
+    batch statistics, 1e-4 x its tensor's max plus that model's own
+    float32 rounding (its float32 gradient against its float64 one on the
+    card, both at those statistics); the pre-BN conv biases (true gradient
+    0) at 1e-4 x the largest gradient.  Exact B1 launch counts of the
+    packed train step."""
     import copy
 
     import torch
@@ -5032,11 +5000,12 @@ def voxresnet_parity_phase(K, VP, gen, launch_counts):
             got, _ = VP.voxresnet_apply_packed(model, x, train=False)
         res["eval"] = _allclose_err(got, ref, VOX_EVAL_TOL)
         fine = copy.deepcopy(model).train()
-        ref = fine(x)
-        cross_entropy(ref, y).backward()
+        with torch.no_grad():
+            ref = fine(x)
         packed = copy.deepcopy(model)
         K.reset_launch_counts()
-        got, stats = VP.voxresnet_apply_packed(packed, x, train=True)
+        with _packed_relu_masks() as masks:
+            got, stats = VP.voxresnet_apply_packed(packed, x, train=True)
         cross_entropy(got, y).backward()
         torch.cuda.synchronize()
         # forward: conv3d_2, 5 convs a stage and, at stride 2, the stem
@@ -5053,10 +5022,13 @@ def voxresnet_parity_phase(K, VP, gen, launch_counts):
         buffers = dict(fine.named_buffers())
         res["stats"] = max((_allclose_err(v, buffers[k], VOX_STATS_TOL)
                             for k, v in stats.items()), key=lambda e: e[0])
+        at = copy.deepcopy(model).train()
         m64 = copy.deepcopy(model).double().train()
-        cross_entropy(m64(x.double()), y).backward()
+        for m, xm in ((at, x), (m64, x.double())):
+            with _fine_at_masks(masks):
+                cross_entropy(m(xm), y).backward()
         g64 = dict(m64.named_parameters())
-        gf = dict(fine.named_parameters())
+        gf = dict(at.named_parameters())
         largest = max(p.grad.abs().max().item() for p in gf.values())
         worst = (0.0, None)
         for n, p in packed.named_parameters():
@@ -5078,7 +5050,7 @@ def voxresnet_parity_phase(K, VP, gen, launch_counts):
         if worst[0] > 1.0:
             raise AssertionError(f"{name} gradient {worst[1]} differs")
         out[name] = res
-        del model, fine, packed, m64
+        del model, fine, packed, at, m64
         torch.cuda.empty_cache()
     return out
 
@@ -6737,7 +6709,7 @@ def main() -> int:
     phase10_s = time.perf_counter() - t10
     log(f"phase 10: {phase10_s:.1f} s (template {template_s:.1f} s)")
 
-    # ---- 11. int8 serving (K1, K2) and the composed decoder in training
+    # ---- 11. int8 serving (K1, K2)
     from mri_epilepsy_diagnosis_torch.models import unet_packed_q as Q
 
     torch.cuda.empty_cache()
@@ -6763,8 +6735,6 @@ def main() -> int:
     int8_serving["quantize_s"] = quantize_s
     del q, vols, state, fine_masks, int8_inputs
     torch.cuda.empty_cache()
-    # 11c: dec_up="composed" and "hybrid" against "explicit"
-    composed = composed_training_phase(K, P, TS, UNet3D, gen)
     phase11_s = time.perf_counter() - t11
     log(f"phase 11: {phase11_s:.1f} s")
 
@@ -7330,7 +7300,7 @@ def main() -> int:
                    "phase10_s": phase10_s, "template_s": template_s,
                    "int8_k1_sites": k1_rows, "int8_k2_sites": k2_rows,
                    "int8_serving": int8_serving,
-                   "composed_training": composed, "phase11_s": phase11_s,
+                   "phase11_s": phase11_s,
                    "zoo": zoo, "phase12_s": phase12_s,
                    "packed_encoder": packed_enc,
                    "packed_encoder_sites": {"stacks": pe_sep_rows,

@@ -1,7 +1,7 @@
 """Packed-layout (space-to-depth) inference and training paths of UNet3D:
 the served path and the trained one (counterpart of the JAX package's
 `models/unet_packed.py`: the v2 forward with its calibration `tap`,
-`packed_unet_train_apply` with the three `dec_up` forms, and
+`packed_unet_train_apply` with the explicit up branch, and
 `packed_dice_loss`).
 
 Runs the `UNet3D` eval forward on the packed `(N, S/2, S/2, S/2, 8C)`
@@ -14,12 +14,11 @@ launches per forward at num_encoding_blocks=3, 5 of them with B2 fused.
 
 The decoder's up branch is explicit: `upsample2_packed` followed by an
 aligned->shifted k=2 conv of the upsampled tensor with the up half of the
-first decoder conv's weights (the JAX package's `dec_up="explicit"` form of
-`packed_unet_train_apply`).  JAX's inference forward composes upsample and
-conv into one 5^3 kernel with face corrections instead
-(`ops/packed.py::upconv_packed`, which training takes with
-`dec_up="composed"` or `"hybrid"` and the int8 path runs as kernel K2);
-both compute the same function.
+first decoder conv's weights (the JAX package's explicit form of
+`packed_unet_train_apply`'s up branch), in serving and in training.
+JAX's inference forward composes upsample and conv into one 5^3 kernel
+with face corrections instead (`ops/packed.py::upconv_packed`, which the
+int8 path runs as kernel K2); both compute the same function.
 
 The train-mode forward (`packed_unet_train_apply`) runs the same 12 convs
 through B1 without the epilogue, since BatchNorm normalizes with the
@@ -37,7 +36,6 @@ from typing import Dict, Mapping
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..ops import functional as F
 from ..ops import packed as P
@@ -278,8 +276,7 @@ def _block_train(y, sd: StateDict, block: str, *, shifted: bool,
 
 
 def packed_unet_train_apply(state_dict: StateDict, x: torch.Tensor,
-                            num_encoding_blocks: int = 3, remat: bool = False,
-                            dec_up: str = "explicit"):
+                            num_encoding_blocks: int = 3):
     """Train-mode packed forward: fine (N, S, S, S, 1) -> (packed logits
     (N, S/2, S/2, S/2, 8 out_classes), new running statistics keyed like
     the state dict), matching `UNet3D(...).train()(x)` (BN normalizes with
@@ -291,25 +288,8 @@ def packed_unet_train_apply(state_dict: StateDict, x: torch.Tensor,
     with the B2 epilogue: BN needs the batch statistics of the conv's
     output), every input gradient but the stem's another (11).  The
     decoder's first conv is the sum of an aligned->shifted conv of the
-    skip and the up branch, which `dec_up` picks as JAX's does:
-    - "explicit" (the default): `upsample2_packed`, then an
-      aligned->shifted B1 conv;
-    - "composed": `upconv_packed` over `pack_upconv_weights`, one cuDNN
-      transposed conv, then `upconv_fix_faces`, differentiated by
-      autograd;
-    - "hybrid": the same forward with `upconv_core_hybrid`'s gradient (dw
-      by the packed-conv GEMMs over the upsampled input).
-    With "composed" or "hybrid" the two up convs leave B1: 10 forward
-    launches and 9 input gradients.
-    `remat=True` recomputes each two-conv block in the backward
-    (`torch.utils.checkpoint`, non-reentrant) instead of keeping its
-    activations."""
-    if dec_up not in ("explicit", "composed", "hybrid"):
-        raise ValueError(f"dec_up must be 'explicit', 'composed' or "
-                         f"'hybrid', not {dec_up!r}")
-    if dec_up != "explicit" and _S.spatial_mesh() is not None:
-        raise NotImplementedError(
-            "under a spatial mesh the packed step runs dec_up='explicit'")
+    skip and of the up branch: `upsample2_packed`, then an
+    aligned->shifted B1 conv with the up half of the weights."""
     sd = state_dict
     nb = num_encoding_blocks
     n = x.shape[0]
@@ -342,36 +322,25 @@ def packed_unet_train_apply(state_dict: StateDict, x: torch.Tensor,
         w = sd[f"{blk}.conv1.conv_layer.weight"]
         c_skip = skip.shape[-1] // 8
         y_s = conv_as(skip, f"{blk}.conv1", w[:, :c_skip])
-        w_u = w[:, c_skip:]
-        if dec_up == "explicit":
-            y_u = conv_as(P.upsample2_packed(xp), f"{blk}.conv1", w_u,
-                          bias=False)
-        else:
-            y_u = (P.upconv_core_hybrid(xp, w_u) if dec_up == "hybrid"
-                   else P.upconv_packed(xp, P.pack_upconv_weights(w_u)))
-            y_u = P.upconv_fix_faces(y_u, xp, w_u)
+        y_u = conv_as(P.upsample2_packed(xp), f"{blk}.conv1", w[:, c_skip:],
+                      bias=False)
         return tail(y_s + y_u, blk, s)
-
-    def run(fn, *args):
-        if remat:
-            return checkpoint(fn, *args, use_reentrant=False)
-        return fn(*args)
 
     new_stats = {}
     xp = P.pack2(x)
     skips = []
     for i in range(nb - 1):
-        xp, st = run(double_block, xp, f"encoder.encoding_blocks.{i}", s)
+        xp, st = double_block(xp, f"encoder.encoding_blocks.{i}", s)
         new_stats.update(st)
         skips.append(xp)
         xp = P.maxpool2_packed(xp)
         s //= 8
-    xp, st = run(double_block, xp, "bottom_block", s)
+    xp, st = double_block(xp, "bottom_block", s)
     new_stats.update(st)
     for i in range(nb - 1):
         s *= 8
-        xp, st = run(dec_block, xp, skips[-(i + 1)],
-                     f"decoder.decoding_blocks.{i}", s)
+        xp, st = dec_block(xp, skips[-(i + 1)],
+                           f"decoder.decoding_blocks.{i}", s)
         new_stats.update(st)
     yp = P.conv1_packed_blockdiag(xp, sd["classifier.conv_layer.weight"],
                                   sd.get("classifier.conv_layer.bias"))

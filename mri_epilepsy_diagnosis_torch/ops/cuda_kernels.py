@@ -515,51 +515,25 @@ def dw_pad(x_cells: Sequence[int], g_cells: Sequence[int]) -> int:
                      f"{tuple(x_cells)} and {tuple(g_cells)}")
 
 
-@functools.lru_cache(maxsize=None)
-def _mm_out_f32(device: torch.device) -> bool:
-    """Whether this torch multiplies bfloat16 operands into a float32
-    result on `device` (`torch.mm(..., out_dtype=torch.float32)`)."""
-    a = torch.zeros((16, 16), dtype=torch.bfloat16, device=device)
-    try:
-        torch.mm(a, a, out_dtype=torch.float32)
-    except (TypeError, RuntimeError, NotImplementedError):
-        return False
-    return True
-
-
-def dw_gemm_route(dtype: torch.dtype, device: torch.device) -> str:
-    """How `dw_packed_plain` multiplies: "bf16_out_f32" (bfloat16
-    operands, float32 products summed into a float32 result) on CUDA where
-    torch has `mm`'s `out_dtype`, else "f32" (operands upcast to float32;
-    TF32 stays as `torch.backends.cuda.matmul.allow_tf32` has it, off by
-    default).  Never a bfloat16 result: dw is float32, as in JAX."""
-    if (dtype == torch.bfloat16 and device.type == "cuda"
-            and _mm_out_f32(device)):
-        return "bf16_out_f32"
-    return "f32"
-
-
 def dw_packed_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Plain version of `dw_packed`: x padded by one zero cell per side
     where `dw_pad` reads pad 1, then 8 per-offset contractions
-    `x[:, q + cells].T @ g`, each one GEMM of K = N x cells over a copy
-    of the window (`dw_gemm_route`)."""
+    `x[:, q + cells].T @ g`, each one float32 GEMM of K = N x cells over
+    a copy of the window.  The operands are upcast to float32, which
+    keeps bfloat16 products exact (TF32 stays as `torch.backends.cuda.
+    matmul.allow_tf32` has it, off by default); dw is float32, as in
+    JAX."""
     if dw_pad(x.shape[1:4], g.shape[1:4]):
         x = TF.pad(x, (0, 0) + (1, 1) * 3)
     od, oh, ow, c8o = g.shape[1:]
     c8i = x.shape[-1]
-    route = dw_gemm_route(g.dtype, g.device)
-    g2 = g.reshape(-1, c8o)
-    if route == "f32":
-        g2 = g2.float()
+    g2 = g.reshape(-1, c8o).float()
     rows = []
     for qd in range(2):
         for qh in range(2):
             for qw in range(2):
                 sl = x[:, qd:qd + od, qh:qh + oh, qw:qw + ow].reshape(-1, c8i)
-                rows.append(torch.mm(sl.t(), g2, out_dtype=torch.float32)
-                            if route == "bf16_out_f32"
-                            else torch.mm(sl.float().t(), g2))
+                rows.append(torch.mm(sl.float().t(), g2))
     return torch.stack(rows).reshape(2, 2, 2, c8i, c8o)
 
 

@@ -51,7 +51,6 @@ import torch.nn.functional as TF
 from ..parallel import sharding as _S
 from . import cuda_kernels as K
 from . import functional as F
-from .cuda_kernels import dw_gemm_route  # noqa: F401  (the plain dw's route)
 from .functional import _exact_f32_convs
 
 # ---------------------------------------------------------------------------
@@ -279,7 +278,7 @@ def _dw_packed_qgroup(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     without its one-cell zero pad: one cell longer than g on every axis
     is pad 0, one shorter pad 1 (`K.dw_pad`).  `K.dw_packed` computes it:
     on the card in bfloat16 one split-K wgmma launch and its fold, else
-    the plain GEMMs (`dw_gemm_route`)."""
+    the plain float32 GEMMs (`K.dw_packed_plain`)."""
     return K.dw_packed(x, g)
 
 
@@ -952,68 +951,6 @@ def upconv_fix_faces(ys: torch.Tensor, x_aligned: torch.Tensor,
             idx = 0 if side == 0 else ys.shape[1 + a] - 1
             ys.select(1 + a, idx).add_(_embed_face(face, a, side))
     return ys
-
-
-def _unpack_weights2_as_transpose(dwp: torch.Tensor, ci: int,
-                                  co: int) -> torch.Tensor:
-    """Adjoint of `pack_weights2_as`: packed-kernel cotangent (2, 2, 2,
-    8Ci, 8Co) -> fine (Co, Ci, 3, 3, 3)."""
-    a = torch.as_tensor(_axis_table_as(), dtype=dwp.dtype, device=dwp.device)
-    d6 = dwp.reshape(2, 2, 2, 2, 2, 2, ci, 2, 2, 2, co)
-    # (p_d, p_h, p_w, q_d, q_h, q_w, ci, r_d, r_h, r_w, co)
-    w = torch.einsum("adef,bghi,cjkl,dgjehkmfiln->abcmn", a, a, a, d6)
-    return w.permute(4, 3, 0, 1, 2)
-
-
-class UpconvCoreHybrid(torch.autograd.Function):
-    """The composed up branch (`upconv_packed` over `pack_upconv_weights`)
-    with the hand-rolled gradient of JAX's `upconv_core_hybrid`:
-    dx is the adjoint of the composed conv over `edge_pad_cells` (a
-    stride-2 cuDNN conv, then the edge planes added back into the boundary
-    cells); dw is `_dw_packed_qgroup` over `upsample2_packed(x)` with its
-    one-cell zero pad, unpacked by `_unpack_weights2_as_transpose`.
-
-    CONTRACT: valid only beneath `upconv_fix_faces`, whose keep masks zero
-    the incoming gradient on the six face planes; there the composed
-    forward equals the fine conv over the clamped upsample, whose weight
-    gradient dw is."""
-
-    @staticmethod
-    def forward(ctx, x_aligned, w_u):
-        ctx.save_for_backward(x_aligned, w_u)
-        return upconv_packed(x_aligned, pack_upconv_weights(w_u))
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w_u = ctx.saved_tensors
-        g = g.contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            w = _composed_conv_weight(pack_upconv_weights(w_u).to(g.dtype))
-            with _exact_f32_convs(g.dtype):
-                dxe = TF.conv3d(g.permute(0, 4, 1, 2, 3), w, stride=2,
-                                padding=3).permute(0, 2, 3, 4, 1)
-            with torch.enable_grad():
-                xx = x.detach().requires_grad_()
-                (dx,) = torch.autograd.grad(edge_pad_cells(xx), xx, dxe)
-        if ctx.needs_input_grad[1]:
-            # g is one cell longer than the upsample: dw reads pad 1
-            up = upsample2_packed(x).contiguous()
-            co, ci = w_u.shape[:2]
-            dw = _unpack_weights2_as_transpose(
-                _dw_packed_qgroup(up, g), ci, co).to(w_u.dtype)
-        return dx, dw
-
-
-def upconv_core_hybrid(x_aligned: torch.Tensor,
-                       w_u: torch.Tensor) -> torch.Tensor:
-    """`upconv_packed(x_aligned, pack_upconv_weights(w_u))` with the hybrid
-    gradient (`UpconvCoreHybrid`); only valid beneath
-    `upconv_fix_faces`.  Under autograd the Function's output is cloned,
-    since `upconv_fix_faces` updates its boundary planes in place, which
-    autograd forbids on a custom Function's own output."""
-    y = UpconvCoreHybrid.apply(x_aligned, w_u)
-    return y.clone() if y.requires_grad else y
 
 
 # ---------------------------------------------------------------------------

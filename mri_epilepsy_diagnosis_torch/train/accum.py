@@ -30,7 +30,7 @@ from .state import TrainState
 
 
 def packed_seg_train_step_accum(state: TrainState, inputs, raw_labels,
-                                micro: int = 1, remat: bool = False):
+                                micro: int = 1):
     """`packed_seg_train_step` over `micro`-sized micro-batches (batch %
     micro == 0), one optimizer step on the mean gradient.  Each
     micro-batch launches B1 23 times (12 forward, 11 input gradients).
@@ -45,8 +45,7 @@ def packed_seg_train_step_accum(state: TrainState, inputs, raw_labels,
     loss_sum = torch.zeros((), device=inputs.device)
     for i in range(n):
         chunk = slice(i * micro, (i + 1) * micro)
-        loss, stats = packed_seg_loss(model, inputs[chunk], targets[chunk],
-                                      remat)
+        loss, stats = packed_seg_loss(model, inputs[chunk], targets[chunk])
         (loss / n).backward()
         loss_sum += loss.detach()
         # the next micro-batch starts from these running statistics

@@ -50,7 +50,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import enum
-import functools
 import glob
 import time
 from typing import Optional
@@ -60,7 +59,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.mesh import Sharding
-from ..data.pipeline import DevicePrefetcher
+from ..data.pipeline import prefetch_to_device
 from ..metrics import (compute_average_surface_distance,
                        compute_dice_coefficient, compute_surface_distances,
                        get_dice_loss, get_iou_score)
@@ -159,15 +158,13 @@ def _num_encoding_blocks(model: UNet3D) -> int:
     return len(model.encoder.encoding_blocks) + 1
 
 
-def packed_seg_loss(model: UNet3D, inputs, targets, remat: bool = False,
-                    dec_up: str = "explicit"):
+def packed_seg_loss(model: UNet3D, inputs, targets):
     """(dice loss, new BatchNorm running statistics) of the packed
     train-mode forward on the model's parameters; differentiable in them.
     The running statistics are new tensors, not yet stored."""
     logits_p, stats = packed_unet_train_apply(
         model.state_dict(keep_vars=True), inputs,
-        num_encoding_blocks=_num_encoding_blocks(model), remat=remat,
-        dec_up=dec_up)
+        num_encoding_blocks=_num_encoding_blocks(model))
     return packed_dice_loss(logits_p, targets), stats
 
 
@@ -183,19 +180,15 @@ def _store_running_stats(model: UNet3D, stats) -> None:
             buffers[key[:-len("running_mean")] + "num_batches_tracked"].add_(1)
 
 
-def packed_seg_train_step(state: TrainState, inputs, raw_labels,
-                          remat: bool = False, dec_up: str = "explicit"):
+def packed_seg_train_step(state: TrainState, inputs, raw_labels):
     """`seg_train_step` in the packed (space-to-depth) execution layout
     (`models/unet_packed.py`): the same numerics (fine-exact BatchNorm
     batch statistics, dice over the sub-position-folded voxel set), with
     the convs on kernel B1 forward and backward.  UNet3D (out_classes 2)
-    only.  `remat=True` recomputes each two-conv block in the backward;
-    `dec_up` picks the decoder's up branch ("explicit", the default,
-    "composed" or "hybrid": `packed_unet_train_apply`)."""
+    only."""
     with span("seg::forward"):
         loss, stats = packed_seg_loss(state.model, inputs,
-                                      binarize_segmentation(raw_labels),
-                                      remat, dec_up)
+                                      binarize_segmentation(raw_labels))
     state = _apply_gradients(state, loss)
     with span("seg::stats"):
         _store_running_stats(state.model, stats)
@@ -241,10 +234,8 @@ def _device_batches(loader, prefetch: int, device: torch.device,
             else:
                 yield tuple(torch.as_tensor(b).to(device) for b in batch)
         return
-    staged = DevicePrefetcher(pairs, size=prefetch, device=device,
-                              sharding=sharding)
-    while (batch := staged.get()) is not None:
-        yield batch
+    yield from prefetch_to_device(pairs, size=prefetch, device=device,
+                                  sharding=sharding)
 
 
 def _mesh_of(sharding):
@@ -261,21 +252,18 @@ def _mesh_of(sharding):
 
 def run_epoch(epoch_idx: int, action: Action, loader, state: TrainState,
               scheduler=None, experiment=None, prefetch: int = 2,
-              sharding=None, packed=False,
+              sharding=None, packed: bool = False,
               input_dtype: Optional[torch.dtype] = None):
     """One pass; returns (state, np.array of batch losses).
 
     Batches are staged on the model's device `prefetch` batches ahead.
-    `packed=True` trains through the packed layout; `packed="remat"` also
-    recomputes each two-conv block in the backward.  `input_dtype=
+    `packed=True` trains through the packed layout.  `input_dtype=
     torch.bfloat16` trains in mixed precision (see the module docstring).
     `scheduler` is stepped by the epoch loop, not here.  `sharding` runs
     the epoch on its mesh (see the module docstring); the losses are the
     global batches'."""
     del epoch_idx, scheduler  # the signature of the JAX package's loop
-    train_step = (functools.partial(packed_seg_train_step,
-                                    remat=(packed == "remat"))
-                  if packed else seg_train_step)
+    train_step = packed_seg_train_step if packed else seg_train_step
     eval_step = packed_seg_eval_step if packed else seg_eval_step
     is_training = action == Action.TRAIN
     epoch_losses = []

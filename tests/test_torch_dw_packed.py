@@ -76,7 +76,7 @@ def test_plain_route_equals_the_function_it_replaced(pad, dtype):
         got = fn(x, g)
         assert got.dtype == torch.float32
         assert torch.equal(got, ref), fn.__name__
-    # the pre-padded input (UpconvCoreHybrid's) still reads as pad 0
+    # a pre-padded input still reads as pad 0
     assert torch.equal(K.dw_packed(x_padded, g), ref)
 
 

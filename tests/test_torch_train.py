@@ -238,46 +238,6 @@ def test_packed_grads_match_port_fine_unet(case):
         torch.testing.assert_close(v, buffers[k], rtol=1e-4, atol=1e-5)
 
 
-def test_remat_equals_no_remat(case):
-    """Per-block recomputation changes neither the loss nor the running
-    statistics (each block's statistics are taken from its first forward
-    only), and the gradients only by the order in which autograd adds up
-    the contributions to a weight used twice (f32, 1e-5 x max|grad|)."""
-    _, variables, x, y = case
-    out = []
-    for remat in (False, True):
-        model = _torch_model(variables)
-        loss, stats = TS.packed_seg_loss(model, torch.from_numpy(x),
-                                         torch.from_numpy(y), remat=remat)
-        loss.backward()
-        out.append((loss.detach(), stats,
-                    {k: p.grad for k, p in model.named_parameters()}))
-    (l0, s0, g0), (l1, s1, g1) = out
-    torch.testing.assert_close(l1, l0, rtol=0, atol=0)
-    for k in s0:
-        torch.testing.assert_close(s1[k], s0[k], rtol=0, atol=0)
-    for k in g0:
-        err = (g1[k] - g0[k]).abs().max().item()
-        assert err <= 1e-5 * g0[k].abs().max().item(), k
-
-
-@pytest.mark.parametrize("dec_up", ["composed", "hybrid"])
-def test_composed_decoder_is_not_ported(case, dec_up):
-    """`dec_up="composed"` and `"hybrid"` no longer raise: both give the
-    explicit form's logits and running statistics (the same function,
-    f32 summation order; JAX parity in tests/test_torch_upconv.py)."""
-    _, variables, x, _ = case
-    sd = _torch_model(variables).state_dict()
-    with torch.no_grad():
-        ref, stats_ref = TU.packed_unet_train_apply(sd, torch.from_numpy(x))
-        got, stats = TU.packed_unet_train_apply(sd, torch.from_numpy(x),
-                                                dec_up=dec_up)
-    torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-4)
-    for k in stats_ref:
-        torch.testing.assert_close(stats[k], stats_ref[k], rtol=1e-4,
-                                   atol=1e-5)
-
-
 def test_packed_dice_loss_matches_jax_multiclass():
     rng = np.random.default_rng(6)
     logits = rng.normal(size=(2, 4, 4, 4, 24)).astype(np.float32)
